@@ -1,0 +1,41 @@
+"""Carry weights from the JAX package's trees into the port.
+
+The JAX backbone and prompt trees, given as nested dicts of numpy
+arrays (``np.asarray`` of each leaf), follow the schema of
+``mvlpt_tpu/core/clip.py:8-29``: linear kernels stored (in, out), block
+parameters stacked on a leading layer axis. The port keeps that schema,
+so the conversion is leaf for leaf and both sides compute the same
+thing from the same numbers.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mvlpt_torch.utils.device import resolve_device
+from mvlpt_torch.utils.tree import tree_map
+
+
+def _to_tensor(a, device, dtype=None) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: numpy-only, go through fp32
+        t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr, copy=True))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def backbone_from_jax(tree: dict, device="cuda") -> dict:
+    """JAX backbone tree -> frozen port backbone. Dtypes are kept, so a
+    bf16-cast backbone stays bf16; ``logit_scale`` is fp32."""
+    device = resolve_device(device)
+    out = tree_map(lambda a: _to_tensor(a, device), tree)
+    out["logit_scale"] = out["logit_scale"].float()
+    return out
+
+
+def prompt_params_from_jax(tree: dict, device="cuda") -> dict:
+    """JAX prompt tree -> fp32 port prompt params."""
+    device = resolve_device(device)
+    return tree_map(lambda a: _to_tensor(a, device, torch.float32), tree)

@@ -1,0 +1,87 @@
+"""CLIP vision transformer with VPT prompt-injection hooks.
+
+The counterpart of ``mvlpt_tpu/core/vit.py``: patchify -> prepend CLS
+-> +pos -> ln_pre -> blocks -> ln_post on CLS -> @ proj, with shallow
+VPT prompts inserted between CLS and the patch tokens after ln_pre and
+deep prompts replacing positions [1, 1+n_ctx) before each block >= 1.
+The patch embedding is an unfold + matmul, as on the JAX side.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mvlpt_torch.core import layers
+
+
+def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, N, patch*patch*C) with (ph, pw, c) flatten order."""
+    b, h, w, c = images.shape
+    gh, gw = h // patch_size, w // patch_size
+    x = images.reshape(b, gh, patch_size, gw, patch_size, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)  # (B, gh, gw, ph, pw, C)
+    return x.reshape(b, gh * gw, patch_size * patch_size * c)
+
+
+def embed_image(params: dict, images: torch.Tensor, patch_size: int,
+                normalize: tuple | None = None) -> torch.Tensor:
+    """Frozen ViT stem: (B, H, W, 3) -> (B, 1+N, width) tokens after
+    ln_pre, before any VPT prompt insertion.
+
+    ``normalize=(mean, std)``: ``images`` are raw uint8 pixels and CLIP's
+    ``(x/255 - mean) / std`` is folded into the patch-embed product: per
+    channel it is ``a*x + b``, so ``x @ (a*K) + b_flat @ K`` with the
+    scaled kernel and the bias computed from the frozen weights."""
+    kernel = params["patch_embed"]["kernel"]  # (P*P*C, W)
+    compute_dtype = kernel.dtype
+    if normalize is not None:
+        mean, std = (torch.as_tensor(v, dtype=torch.float32, device=kernel.device)
+                     for v in normalize)
+        a = 1.0 / (255.0 * std)       # (C,)
+        shift = -mean / std           # (C,)
+        c = images.shape[-1]
+        k32 = kernel.float().reshape(patch_size * patch_size, c, -1)
+        k_scaled = (k32 * a[None, :, None]).reshape(
+            patch_size * patch_size * c, -1).to(compute_dtype)
+        bias = (k32 * shift[None, :, None]).sum(dim=(0, 1))  # (W,)
+        x = patchify(images, patch_size).to(compute_dtype)
+        x = layers._matmul(x, k_scaled, bias)
+    else:
+        x = patchify(images.to(compute_dtype), patch_size)
+        x = layers._matmul(x, kernel)  # (B, N, W)
+
+    b = x.shape[0]
+    cls = params["class_embedding"].to(compute_dtype)[None, None, :].expand(b, 1, x.shape[-1])
+    x = torch.cat([cls, x], dim=1)
+    x = x + params["pos_embedding"].to(compute_dtype)[None]
+    return layers.layer_norm(x, params["ln_pre"])
+
+
+def encode_image(params: dict, images: torch.Tensor, *, patch_size: int, n_heads: int,
+                 vpt_shallow: torch.Tensor | None = None,
+                 vpt_deep: torch.Tensor | None = None, kernels=None,
+                 pre_embedded: bool = False) -> torch.Tensor:
+    """Encode NHWC images to (B, output_dim) features.
+
+    ``vpt_shallow``: (1 or B, n_ctx, width) prompt tokens inserted after
+    ln_pre. ``vpt_deep``: (L-1, n_ctx, width) per-layer replacement rows.
+    ``pre_embedded``: ``images`` is already the (B, 1+N, width) output of
+    :func:`embed_image`."""
+    x = images if pre_embedded else embed_image(params, images, patch_size)
+    b, compute_dtype = x.shape[0], x.dtype
+
+    if vpt_shallow is not None:
+        ctx = vpt_shallow.to(compute_dtype).expand(b, vpt_shallow.shape[-2], x.shape[-1])
+        x = torch.cat([x[:, :1], ctx, x[:, 1:]], dim=1)
+
+    inject = None
+    if vpt_deep is not None:
+        # Row 0 is a dummy: layer 0 is never injected.
+        inject = torch.cat([torch.zeros_like(vpt_deep[:1]), vpt_deep], dim=0)
+
+    x = layers.transformer(x, params["blocks"], n_heads, mask=None, inject=inject,
+                           kernels=kernels)
+    x = layers.layer_norm(x[:, 0], params["ln_post"])
+    if params.get("proj") is not None:
+        x = layers._matmul(x, params["proj"])
+    return x

@@ -1,0 +1,118 @@
+"""Build and load the CUDA kernels of ``mvlpt_torch/csrc``.
+
+Each ``.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, all sources at once in
+parallel, and loaded with ``ctypes``. Libraries are named by a digest of
+their sources and flags, so a changed source is rebuilt and an unchanged
+one is reused. The build directory is ``$MVLPT_TORCH_BUILD_DIR`` or
+``build/mvlpt_torch_kernels`` beside the package (git ignores
+``build/``). Nothing is built at import: the first kernel call builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd")
+_HEADERS = ("common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures of the entry points (see the .cu files).
+_SIGNATURES = {
+    "attn_fwd": ("mvlpt_attn_fwd", [_I] + [_P] * 15 + [_I, _I, _I, _I, _F, _P]),
+    "attn_bwd": ("mvlpt_attn_bwd", [_I] + [_P] * 14 + [_I, _I, _I, _I, _P]),
+    "mlp_fwd": ("mvlpt_mlp_fwd", [_I] + [_P] * 13 + [_I, _I, _I, _F, _P]),
+    "mlp_bwd": ("mvlpt_mlp_bwd", [_I] + [_P] * 11 + [_I, _I, _I, _P]),
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    env = os.environ.get("MVLPT_TORCH_BUILD_DIR")
+    return Path(env) if env else CSRC.parent.parent / "build" / "mvlpt_torch_kernels"
+
+
+def _lib_path(name: str) -> Path:
+    return build_dir() / f"lib{name}-{_digest(name)}.so"
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []
+    candidates += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in candidates:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (f"{name}.cu",) + _HEADERS:
+        h.update((CSRC / f).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_kernels() -> dict:
+    """Compile every source whose library is missing, in parallel.
+    Returns {"built": [names], "ptxas": {name: log}}. Raises if any
+    compile fails."""
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in SOURCES:
+        lib = _lib_path(name)
+        if lib.is_file():
+            continue
+        tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), tmp, lib)
+    reports, failed = {}, []
+    for name, (proc, tmp, lib) in procs.items():
+        log, _ = proc.communicate()
+        reports[name] = log
+        if proc.returncode != 0:
+            failed.append(f"--- {name}.cu (nvcc exit {proc.returncode})\n{log}")
+            continue
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return dict(built=sorted(procs), ptxas=reports)
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel source ``name``, building on first use."""
+    with _lock:
+        if name not in _libs:
+            if not all(_lib_path(src).is_file() for src in SOURCES):
+                build_kernels()
+            for src in SOURCES:
+                lib = ctypes.CDLL(str(_lib_path(src)))
+                fn_name, argtypes = _SIGNATURES[src]
+                fn = getattr(lib, fn_name)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+                lib.mvlpt_error_string.argtypes = [ctypes.c_int]
+                lib.mvlpt_error_string.restype = ctypes.c_char_p
+                _libs[src] = lib
+        return _libs[name]
+
+
+def call(name: str, *args) -> None:
+    """Call kernel entry ``name`` and raise on a CUDA error code."""
+    lib = library(name)
+    rc = getattr(lib, _SIGNATURES[name][0])(*args)
+    if rc != 0:
+        msg = lib.mvlpt_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel failed: CUDA error {rc} ({msg})")

@@ -1,0 +1,9 @@
+from mvlpt_torch.prompts.learner import (
+    PromptConsts,
+    PromptSpec,
+    build_prompt_consts,
+    compute_cut_context_length,
+    format_prompts,
+    init_prompt_params,
+)
+from mvlpt_torch.prompts.assembly import coop_assemble, upt_couple, vpt_prepare

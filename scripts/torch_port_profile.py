@@ -1,0 +1,88 @@
+#!/usr/bin/env python3
+"""Where the time of the port's flagship train step goes, on one card.
+
+    python3 scripts/torch_port_profile.py [--steps 3] [--out DIR]
+
+Runs the flagship MVLPT UPT train step (ViT-B/16, batch 32, 100
+classes, bf16, fused half-block kernels on both towers) for two warm-up
+steps, then traces ``--steps`` steps with torch.profiler. Prints the
+card (nvidia-smi name and power limit), ms/step on the host clock, the
+device time a step summed over kernels, the device's idle share, and
+device time by kernel name; writes the Chrome trace to ``--out``.
+Needs a card; uses the synthetic vocab unless MVLPT_TORCH_BPE_PATH names
+a file.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "torch_port_profile"))
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("torch_port_profile: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import card_line, setup_vocab
+    from mvlpt_torch.config import OptimConfig
+    from mvlpt_torch.flagship import CLIP_PIXEL_MEAN, CLIP_PIXEL_STD, flagship
+    from mvlpt_torch.train import init_train_state, make_train_step
+
+    print(card_line())  # name, power limit (nvidia-smi)
+    print(setup_vocab())
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    model, backbone, pp, consts, _, clip_cfg = flagship(device="cuda", kernels="auto")
+    state = init_train_state(pp, OptimConfig(LR=0.002, LR_SCHEDULER="cosine", MAX_EPOCH=200),
+                             100)
+    step = make_train_step(model, normalize=(CLIP_PIXEL_MEAN, CLIP_PIXEL_STD))
+    rng = np.random.RandomState(0)
+    batch = {"image": torch.from_numpy(rng.randint(0, 256, (32, 224, 224, 3)).astype(np.uint8)).cuda(),
+             "label": torch.from_numpy(rng.randint(0, 100, 32)).cuda()}
+    for _ in range(2):
+        step(state, backbone, consts, batch)
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            step(state, backbone, consts, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    os.makedirs(args.out, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(args.out, "trace.json"))
+
+    # Device-side events only: a host op's entry repeats the time of the
+    # kernels it launched.
+    rows = [(ev.self_device_time_total, ev.count, ev.key) for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3 / args.steps
+    step_ms = wall * 1e3 / args.steps
+    print(json.dumps({"ms_per_step_host": step_ms, "device_ms_per_step": busy_ms,
+                      "device_idle_share": max(0.0, 1 - busy_ms / step_ms),
+                      "steps": args.steps}))
+    for dev_us, count, key in rows[:30]:
+        print(f"{dev_us / 1e3 / args.steps:9.3f} ms/step {count // args.steps:6d} calls/step  {key[:110]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
