@@ -33,6 +33,8 @@ import math
 
 import torch
 
+from mvlpt_torch.core import text as text_mod
+from mvlpt_torch.core import vit as vit_mod
 from mvlpt_torch.utils.device import resolve_device
 from mvlpt_torch.utils.tree import tree_map
 
@@ -154,6 +156,20 @@ def cast_backbone(params: dict, dtype) -> dict:
     out = tree_map(lambda t: t.to(dtype), params)
     out["logit_scale"] = params["logit_scale"].float()
     return out
+
+
+def encode_image(params: dict, images: torch.Tensor, cfg: CLIPConfig, **kw) -> torch.Tensor:
+    """Visual-tower dispatch. ViT only: the ModifiedResNet tower of the JAX
+    package (its ``RNConfig``) is not ported yet (ROADMAP.md Queue 1)."""
+    if not isinstance(cfg, CLIPConfig):
+        raise NotImplementedError(
+            f"visual tower for {type(cfg).__name__} is not ported; only ViT (CLIPConfig)")
+    return vit_mod.encode_image(params["visual"], images, patch_size=cfg.vision_patch_size,
+                                n_heads=cfg.vision_heads, **kw)
+
+
+def encode_text(params: dict, token_ids: torch.Tensor, cfg: CLIPConfig, **kw) -> torch.Tensor:
+    return text_mod.encode_text(params["text"], token_ids, n_heads=cfg.transformer_heads, **kw)
 
 
 def clip_logits(image_features, text_features, logit_scale) -> torch.Tensor:

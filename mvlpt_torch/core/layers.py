@@ -12,6 +12,12 @@ points:
 Layout is batch-major ``(B, S, W)``; per-layer parameters are stacked on
 a leading layer axis and the stack runs as a Python loop. Gradients of
 the plain path come from torch autograd.
+
+``kernels`` is what ``ops.attention.select_attn_fn`` returns: an
+``ops.block.BlockKernels`` routes each block to the fused half-block
+kernels; an attention function (``ops.attention.fused_attention``)
+replaces the attention core between the qkv and out-projection
+products; None keeps the plain path.
 """
 
 from __future__ import annotations
@@ -59,13 +65,14 @@ def _sdpa(q, k, v, mask):
 
 
 def attention(x: torch.Tensor, p: dict, n_heads: int,
-              mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Multi-head self-attention. ``mask`` is additive fp32 (S, S) or None."""
+              mask: torch.Tensor | None = None, attn_fn=None) -> torch.Tensor:
+    """Multi-head self-attention. ``mask`` is additive fp32 (S, S) or None.
+    ``attn_fn(q, k, v, mask)`` on (B, H, S, D) replaces the plain core."""
     b, s, w = x.shape
     head_dim = w // n_heads
     qkv = _matmul(x, p["qkv_w"], p["qkv_b"])  # (B, S, 3W)
     q, k, v = qkv.view(b, s, 3, n_heads, head_dim).permute(2, 0, 3, 1, 4)
-    o = _sdpa(q, k, v, mask)                  # (B, H, S, D)
+    o = (attn_fn or _sdpa)(q, k, v, mask)     # (B, H, S, D)
     o = o.transpose(1, 2).reshape(b, s, w)
     return _matmul(o, p["out_w"], p["out_b"])
 
@@ -77,12 +84,12 @@ def mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
 
 def residual_block(x: torch.Tensor, p: dict, n_heads: int,
                    mask: torch.Tensor | None = None, kernels=None) -> torch.Tensor:
-    """Pre-LN residual block. ``kernels`` (an ``ops.block.BlockKernels``)
-    routes the block to the fused half-block kernels."""
-    if kernels is not None:
+    """Pre-LN residual block under a kernel selection (see the module
+    docstring)."""
+    if isinstance(kernels, block_ops.BlockKernels):
         return block_ops.fused_residual_block(
             x, p, n_heads, mask, inference=kernels.inference)
-    x = x + attention(layer_norm(x, p["ln_1"]), p["attn"], n_heads, mask)
+    x = x + attention(layer_norm(x, p["ln_1"]), p["attn"], n_heads, mask, kernels)
     x = x + mlp(layer_norm(x, p["ln_2"]), p["mlp"])
     return x
 

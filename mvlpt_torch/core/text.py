@@ -3,7 +3,9 @@
 The counterpart of ``mvlpt_tpu/core/text.py``: add positional
 embeddings sliced to the prompt length, run the causal-masked
 transformer, fp32 LayerNorm, gather the feature at each row's EOT
-position (precomputed as ``eot_idx``) and project.
+position (precomputed as ``eot_idx``) and project. ``encode_text`` is
+the plain CLIP path from raw token ids (zero-shot), with the EOT at the
+argmax of the ids.
 """
 
 from __future__ import annotations
@@ -81,3 +83,11 @@ def embed_tokens(params: dict, token_ids: torch.Tensor, dtype=None) -> torch.Ten
     if dtype is not None:
         emb = emb.to(dtype)
     return emb[token_ids.to(emb.device).long()]
+
+
+def encode_text(params: dict, token_ids: torch.Tensor, *, n_heads: int,
+                kernels=None) -> torch.Tensor:
+    """Plain CLIP text encoding from (N, S) token ids (the zero-shot path)."""
+    x = embed_tokens(params, token_ids, dtype=params["pos_embedding"].dtype)
+    eot_idx = token_ids.to(x.device).long().argmax(-1)
+    return encode_text_embeds(params, x, eot_idx, n_heads=n_heads, kernels=kernels)

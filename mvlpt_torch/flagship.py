@@ -13,7 +13,7 @@ import torch
 
 from mvlpt_torch.core.clip import CLIPConfig, cast_backbone, init_clip_params
 from mvlpt_torch.models.custom_clip import MVLPTModel
-from mvlpt_torch.ops.block import select_kernels
+from mvlpt_torch.ops.attention import select_attn_fn
 from mvlpt_torch.prompts import (
     PromptSpec,
     build_prompt_consts,
@@ -32,8 +32,10 @@ def flagship(n_cls: int = 100, batch: int = 32, compute_dtype=torch.bfloat16,
              device="cuda"):
     """-> (model, backbone, prompt_params, consts, images, clip_cfg).
 
-    ``images`` are (batch, 224, 224, 3) fp32 from a fixed numpy seed.
-    Runs on the card unless ``device='cpu'``."""
+    ``kernels`` is the ``USE_PALLAS`` selection ('auto', 'block', 'on'
+    or 'off'; ``ops.attention.select_attn_fn``). ``images`` are (batch,
+    224, 224, 3) fp32 from a fixed numpy seed. Runs on the card unless
+    ``device='cpu'``."""
     device = resolve_device(device)
     clip_cfg = CLIPConfig.for_backbone(backbone_name)
     backbone = cast_backbone(
@@ -49,7 +51,7 @@ def flagship(n_cls: int = 100, batch: int = 32, compute_dtype=torch.bfloat16,
         vision_patch_size=clip_cfg.vision_patch_size)
     prompt_params = init_prompt_params(torch.Generator().manual_seed(1), spec, device=device)
     consts = build_prompt_consts(classnames, spec, backbone, compute_dtype)
-    model = MVLPTModel(clip_cfg, spec, kernels=select_kernels(kernels),
+    model = MVLPTModel(clip_cfg, spec, kernels=select_attn_fn(kernels),
                        compute_dtype=compute_dtype)
     res = clip_cfg.image_resolution
     images = torch.from_numpy(

@@ -18,7 +18,6 @@ from mvlpt_torch.core import clip as clip_core
 from mvlpt_torch.core import text as text_mod
 from mvlpt_torch.core import vit as vit_mod
 from mvlpt_torch.core.clip import CLIPConfig
-from mvlpt_torch.ops.block import BlockKernels
 from mvlpt_torch.prompts import PromptConsts, PromptSpec, coop_assemble, upt_couple, vpt_prepare
 
 
@@ -32,11 +31,11 @@ class TaskClassRanges:
 
 
 class MVLPTModel(nn.Module):
-    """Architecture + prompt spec + kernel selection. Holds no tensors:
-    the backbone, prompt params and consts are passed to each call."""
+    """Architecture + prompt spec + kernel selection (what
+    ``ops.attention.select_attn_fn`` returns). Holds no tensors: the
+    backbone, prompt params and consts are passed to each call."""
 
-    def __init__(self, clip_cfg: CLIPConfig, spec: PromptSpec,
-                 kernels: BlockKernels | None = None,
+    def __init__(self, clip_cfg: CLIPConfig, spec: PromptSpec, kernels=None,
                  compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         if spec.has_cocoop:
@@ -76,6 +75,18 @@ class MVLPTModel(nn.Module):
         coop_ctx, _, _ = upt_couple(prompt_params, self.spec)
         prompts = coop_assemble(coop_ctx, consts, self.spec)
         return self.encode_text_prompts(backbone, prompts, consts.eot_idx)
+
+    def forward_with_text(self, backbone: dict, prompt_params: dict, images: torch.Tensor,
+                          text_features: torch.Tensor, tasks: torch.Tensor | None = None,
+                          task_ranges: TaskClassRanges | None = None,
+                          pre_embedded: bool = False) -> torch.Tensor:
+        """Forward with precomputed text features (the eval fast path):
+        the image tower and the logits only."""
+        _, vpt_sh, vpt_dp = upt_couple(prompt_params, self.spec)
+        image_features = self.encode_image(backbone, prompt_params, images, vpt_sh, vpt_dp,
+                                           pre_embedded=pre_embedded)
+        logits = clip_core.clip_logits(image_features, text_features, backbone["logit_scale"])
+        return _apply_task_mask(logits, tasks, task_ranges)
 
     def forward(self, backbone: dict, prompt_params: dict, consts: PromptConsts,
                 images: torch.Tensor, tasks: torch.Tensor | None = None,

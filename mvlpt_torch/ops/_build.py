@@ -20,7 +20,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd")
+SOURCES = ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd", "attend_fwd", "attend_bwd")
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -32,7 +32,23 @@ _SIGNATURES = {
     "attn_bwd": ("mvlpt_attn_bwd", [_I] + [_P] * 14 + [_I, _I, _I, _I, _P]),
     "mlp_fwd": ("mvlpt_mlp_fwd", [_I] + [_P] * 13 + [_I, _I, _I, _F, _P]),
     "mlp_bwd": ("mvlpt_mlp_bwd", [_I] + [_P] * 11 + [_I, _I, _I, _P]),
+    "attend_fwd": ("mvlpt_attend_fwd", [_I] + [_P] * 5 + [_I, _I, _I, _P]),
+    "attend_bwd": ("mvlpt_attend_bwd", [_I] + [_P] * 10 + [_I, _I, _I, _P]),
 }
+
+# Kernel launches per wrapper (ops/block.py, ops/attention.py): one for
+# each call that launches a kernel on the card; CPU calls of the plain
+# twins are not counted. The no-residual forwards (the eval kernels
+# attn_block_infer / mlp_block_infer of the JAX package) count apart from
+# the training forwards.
+LAUNCHES = {name: 0 for name in ("attn_fwd", "attn_fwd_infer", "attn_bwd", "mlp_fwd",
+                                 "mlp_fwd_infer", "mlp_bwd", "attend_fwd", "attend_bwd")}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

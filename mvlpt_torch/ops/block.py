@@ -35,46 +35,14 @@ from mvlpt_torch.ops import _build
 _EPS = 1e-5
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches per wrapper: one for each call that launches the kernel
-# on the card (CPU calls of the plain twins are not counted).
-LAUNCHES = {name: 0 for name in _build.SOURCES}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
 
 @dataclasses.dataclass(frozen=True)
 class BlockKernels:
-    """Selects the fused half-block kernels for ``core.layers.residual_block``.
-    ``inference=True`` selects the no-grad forward (no residuals kept)."""
+    """Selects the fused half-block kernels for ``core.layers.residual_block``
+    (``ops.attention.select_attn_fn``). ``inference=True`` selects the
+    no-grad forward (no residuals kept)."""
 
     inference: bool = False
-
-
-FUSED = BlockKernels()
-
-
-def select_kernels(mode: str = "auto", inference: bool = False) -> BlockKernels | None:
-    """Resolve ``TPU.USE_PALLAS``-style selection for the port.
-
-    "block" and "auto" select the fused kernels on both towers: on a
-    card they run the CUDA kernels, on the CPU their plain twins (the
-    same math). The JAX package's "auto" downgrade of the text tower is
-    a TPU measurement and does not carry over. "off" selects the plain
-    layer path (torch autograd). "on", the standalone fused attention of
-    ``mvlpt_tpu/ops/attention.py``, is not ported yet."""
-    if mode in ("block", "auto"):
-        return BlockKernels(inference=inference)
-    if mode == "off":
-        return None
-    if mode in ("on", True):
-        raise NotImplementedError(
-            "USE_PALLAS='on' (the standalone fused attention of "
-            "mvlpt_tpu/ops/attention.py) is not ported yet; see ROADMAP.md, "
-            "Queue 2. Use 'block', 'auto' or 'off'.")
-    raise ValueError(f"unknown kernel selection {mode!r}")
 
 
 # ------------------------------------------------------------ plain twins
@@ -229,7 +197,7 @@ def attn_fwd(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b, mask, n_heads,
                 _ptr(qkv_w), _ptr(qkv_b), _ptr(out_w), _ptr(out_b), _ptr(mask),
                 _ptr(xh), _ptr(qkv), _ptr(o), _ptr(probs), _ptr(mu), _ptr(rstd), _ptr(y),
                 b, s, w, n_heads, eps, _stream())
-    LAUNCHES["attn_fwd"] += 1
+    _build.LAUNCHES["attn_fwd" if save_residuals else "attn_fwd_infer"] += 1
     return y, ((qkv, probs, mu, rstd) if save_residuals else None)
 
 
@@ -250,7 +218,7 @@ def attn_bwd(x, mu, rstd, qkv, probs, ln_scale, qkv_w, out_w, gy, n_heads):
                 _ptr(probs), _ptr(ln_scale), _ptr(qkv_w), _ptr(out_w), _ptr(gy),
                 _ptr(dout), _ptr(ds), _ptr(dqkv), _ptr(dxh), _ptr(dx), b, s, w, n_heads,
                 _stream())
-    LAUNCHES["attn_bwd"] += 1
+    _build.LAUNCHES["attn_bwd"] += 1
     return dx
 
 
@@ -273,7 +241,7 @@ def mlp_fwd(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b, eps=_EPS,
     _build.call("mlp_fwd", _DTYPE_CODE[x.dtype], _ptr(x), _ptr(ln_scale), _ptr(ln_bias),
                 _ptr(fc_w), _ptr(fc_b), _ptr(proj_w), _ptr(proj_b), _ptr(xh), _ptr(hpre),
                 _ptr(act), _ptr(mu), _ptr(rstd), _ptr(y), b * s, w, w4, eps, _stream())
-    LAUNCHES["mlp_fwd"] += 1
+    _build.LAUNCHES["mlp_fwd" if save_residuals else "mlp_fwd_infer"] += 1
     return y, ((hpre, mu, rstd) if save_residuals else None)
 
 
@@ -291,7 +259,7 @@ def mlp_bwd(x, mu, rstd, hpre, ln_scale, fc_w, proj_w, gy):
     _build.call("mlp_bwd", _DTYPE_CODE[x.dtype], _ptr(x), _ptr(mu), _ptr(rstd), _ptr(hpre),
                 _ptr(ln_scale), _ptr(fc_w), _ptr(proj_w), _ptr(gy), _ptr(dh), _ptr(dxh),
                 _ptr(dx), b * s, w, w4, _stream())
-    LAUNCHES["mlp_bwd"] += 1
+    _build.LAUNCHES["mlp_bwd"] += 1
     return dx
 
 

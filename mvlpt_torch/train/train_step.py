@@ -1,9 +1,11 @@
-"""The train step: forward both towers, soft-label cross-entropy,
-backward into the prompt params only, SGD update.
+"""The train step (forward both towers, soft-label cross-entropy,
+backward into the prompt params only, SGD update) and the eval steps.
 
-The counterpart of ``make_train_step`` in
-``mvlpt_tpu/train/train_step.py``. Multi-label targets are normalised to
-distributions; accuracy is taken against the argmax of the labels.
+The counterpart of ``make_train_step``, ``make_eval_step`` and
+``make_cached_text_eval`` in ``mvlpt_tpu/train/train_step.py``.
+Multi-label targets are normalised to distributions; accuracy is taken
+against the argmax of the labels. Eval runs under ``torch.no_grad()``
+with the fused half-block kernels in their no-grad forwards.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Callable
 import torch
 
 from mvlpt_torch.models.custom_clip import MVLPTModel, TaskClassRanges
+from mvlpt_torch.ops.block import BlockKernels
 from mvlpt_torch.train.optim import build_lr_schedule, build_optimizer
 from mvlpt_torch.utils.tree import tree_leaves, tree_map
 
@@ -93,3 +96,53 @@ def make_train_step(model: MVLPTModel, task_ranges: TaskClassRanges | None = Non
         return state, metrics
 
     return step_fn
+
+
+def _inference_model(model: MVLPTModel) -> MVLPTModel:
+    """A new model whose fused half-block kernels run their no-grad
+    forwards (the JAX package's attn_block_infer / mlp_block_infer): the
+    same values, no backward residuals written. ``model`` itself is left
+    as it is. The standalone attention ('on') and the plain path ('off')
+    have no such variant: ``model`` comes back unchanged."""
+    if not isinstance(model.kernels, BlockKernels) or model.kernels.inference:
+        return model
+    return MVLPTModel(model.clip_cfg, model.spec, kernels=BlockKernels(inference=True),
+                      compute_dtype=model.compute_dtype)
+
+
+def make_eval_step(model: MVLPTModel, task_ranges: TaskClassRanges | None = None,
+                   normalize: tuple | None = None) -> Callable:
+    """eval_step(backbone, prompt_params, consts, batch) -> fp32 logits,
+    both towers each call, no gradient."""
+    model = _inference_model(model)
+
+    @torch.no_grad()
+    def eval_fn(backbone, prompt_params, consts, batch):
+        imgs, pre = _prep_images(model, backbone, batch["image"], normalize)
+        return model(backbone, prompt_params, consts, imgs, tasks=batch.get("task"),
+                     task_ranges=task_ranges, pre_embedded=pre)
+
+    return eval_fn
+
+
+def make_cached_text_eval(model: MVLPTModel, task_ranges: TaskClassRanges | None = None,
+                          normalize: tuple | None = None):
+    """(text_fn, eval_fn) for the cached-text eval fast path: the prompts
+    are frozen at eval, so ``text_fn(backbone, prompt_params, consts)``
+    computes the text features once and ``eval_fn(backbone,
+    prompt_params, text_features, batch)`` runs the image tower and the
+    logits per batch, with the same values as :func:`make_eval_step`."""
+    model = _inference_model(model)
+
+    @torch.no_grad()
+    def text_fn(backbone, prompt_params, consts):
+        return model.compute_text_features(backbone, prompt_params, consts)
+
+    @torch.no_grad()
+    def eval_fn(backbone, prompt_params, text_features, batch):
+        imgs, pre = _prep_images(model, backbone, batch["image"], normalize)
+        return model.forward_with_text(backbone, prompt_params, imgs, text_features,
+                                       tasks=batch.get("task"), task_ranges=task_ranges,
+                                       pre_embedded=pre)
+
+    return text_fn, eval_fn

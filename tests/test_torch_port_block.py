@@ -150,17 +150,25 @@ def test_wrappers_check_operands_and_never_fall_back():
 
 
 def test_kernel_selection_and_cpu_launch_counts():
-    assert block.select_kernels("auto") == block.FUSED
-    assert block.select_kernels("block", inference=True).inference
-    assert block.select_kernels("off") is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        block.select_kernels("on")
+    from mvlpt_torch.ops import _build
+    from mvlpt_torch.ops.attention import fused_attention, select_attn_fn
+
+    assert select_attn_fn("auto") == block.BlockKernels()
+    assert select_attn_fn("block", inference=True).inference
+    assert select_attn_fn("off") is None
+    # 'on' selects the standalone fused attention, with one forward for
+    # training and eval.
+    assert select_attn_fn("on") is fused_attention
+    assert select_attn_fn("on", inference=True) is fused_attention
     with pytest.raises(ValueError):
-        block.select_kernels("fast")
+        select_attn_fn("fast")
     # CPU calls run the plain twins and launch no kernel.
-    block.reset_launch_counts()
+    _build.reset_launch_counts()
     rng = np.random.RandomState(4)
     tp = jax.tree_util.tree_map(torch.from_numpy, block_params_np(rng, W))
     x = torch.from_numpy(rng.randn(2, S, W).astype(np.float32)).requires_grad_(True)
     block.fused_residual_block(x, tp, H).sum().backward()
-    assert block.LAUNCHES == {"attn_fwd": 0, "attn_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0}
+    block.fused_residual_block(x.detach(), tp, H, inference=True)
+    assert _build.LAUNCHES == {"attn_fwd": 0, "attn_fwd_infer": 0, "attn_bwd": 0, "mlp_fwd": 0,
+                               "mlp_fwd_infer": 0, "mlp_bwd": 0, "attend_fwd": 0,
+                               "attend_bwd": 0}

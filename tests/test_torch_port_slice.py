@@ -31,7 +31,7 @@ def sides(synthetic_vocab):  # noqa: F811
     from mvlpt_torch.checkpoint import backbone_from_jax, prompt_params_from_jax
     from mvlpt_torch.core.clip import CLIPConfig
     from mvlpt_torch.models import MVLPTModel
-    from mvlpt_torch.ops.block import select_kernels
+    from mvlpt_torch.ops.attention import select_attn_fn
     from mvlpt_torch.prompts import PromptSpec, build_prompt_consts, compute_cut_context_length
 
     dims = dict(embed_dim=32, image_resolution=32, vision_layers=2, vision_width=64,
@@ -55,7 +55,7 @@ def sides(synthetic_vocab):  # noqa: F811
     pp = prompt_params_from_jax(jax.tree_util.tree_map(np.asarray, j_pp), "cpu")
     spec = PromptSpec(**spec_kw)
     consts = build_prompt_consts(classnames, spec, backbone, torch.float32)
-    model = MVLPTModel(CLIPConfig(**dims), spec, kernels=select_kernels("block"),
+    model = MVLPTModel(CLIPConfig(**dims), spec, kernels=select_attn_fn("block"),
                        compute_dtype=torch.float32)
 
     rng = np.random.RandomState(0)
