@@ -7,7 +7,10 @@
    one process a source, and prints the build time, the vocab in use and
    the card.
 2. Holds each kernel against its plain PyTorch twin on the card, in fp32
-   and bf16: the half-block kernels at the flagship shapes (ViT-B/16
+   and bf16: the tensor-parallel parts at tp = 2 on rank 0's shard of
+   the image train and packed text shapes, and the tp shards' partials
+   summed and finished as the single-device kernels' outputs; the
+   half-block kernels at the flagship shapes (ViT-B/16
    image tower at batch 32, and at the eval batch 100 for the
    no-residual forwards; class-packed text tower with its block-causal
    mask), and the standalone attention (forward and backward) at the
@@ -26,7 +29,19 @@
      logits equal to the full eval step's, its soft-CE within 1e-2 of
      the plain path's;
    - zero-shot CLIP over the 100 class names and the 7 select templates,
-     at batch 100 under 'auto' and 'on', held as eval is.
+     at batch 100 under 'auto' and 'on', held as eval is;
+   - the tensor-parallel train step, train[tp2]: two ranks in two spawned
+     processes share the one card as a (data=1, model=2) mesh, each with
+     its Megatron shard of the flagship, for a few SGD steps under
+     'block'. Rank 0's first loss and grad norm held to train[auto]'s on
+     the same batch (TP_REL), in bf16 and, for one more step, in fp32;
+     each rank's layer 0 of both towers (y and dx, through the
+     all-reduce) against #1-#4 on the full weights within TOL, in bf16
+     and fp32, and equal across the ranks; the prompt params bit-equal
+     across the ranks afterwards; and on each rank only the four
+     tensor-parallel kernels launched, 24 times a step.
+     Its step time is that of two processes time-slicing one card with
+     all-reduces through the host: it is not a tensor-parallel speed.
 4. Prints a summary line (img/s, ms/step, peak memory), one JSON line of
    kernel numbers, then, as the last line, {"ok": true, "device": {...}}.
 
@@ -47,6 +62,17 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 STEPS = 6                 # SGD steps a train path (the first one warms up)
+TP = 2                    # model ranks of the tensor-parallel phases
+TP_STEPS = 4              # SGD steps of train[tp2]
+TP_TIMEOUT_S = 420        # the spawned ranks' deadline
+# train[tp2]'s first loss and grad norm against train[auto]'s on the same
+# batch, relative. In bf16 another summation order alone moves them by up
+# to 3e-4 and 1.1e-2 on an H100 (scripts/torch_port_tp_drift.py), and
+# uniform logits would move the loss by 4.8e-3; in fp32 the same
+# comparisons agree within 1e-6.
+TP_REL = {"bfloat16": {"loss": 1e-3, "grad_norm": 2e-2},
+          "float32": {"loss": 1e-5, "grad_norm": 1e-5}}
+OPTIM = dict(LR=0.002, LR_SCHEDULER="cosine", MAX_EPOCH=200)
 EVAL_BATCH = 100          # the reference TEST batch
 EVAL_BATCHES = 4          # eval and zero-shot batches a path (the first one warms up)
 HBM_BYTES_S = 3.35e12     # H100 SXM memory rate
@@ -71,12 +97,17 @@ KERNELS = {
                    ("attend_fwd", "core", "image_eval")),
     "attend_bwd": ("attend_bwd", "mvlpt_tpu/ops/attention.py:81",
                    ("attend_bwd", "core", "image_train")),
+    "attn_fwd_tp": ("attn_fwd", "mvlpt_tpu/ops/block.py:902", ("attn_fwd_tp", "part", "image")),
+    "attn_bwd_tp": ("attn_bwd", "mvlpt_tpu/ops/block.py:966", ("attn_bwd_tp", "part", "image")),
+    "mlp_fwd_tp": ("mlp_fwd", "mvlpt_tpu/ops/block.py:1024", ("mlp_fwd_tp", "part", "image")),
+    "mlp_bwd_tp": ("mlp_bwd", "mvlpt_tpu/ops/block.py:1072", ("mlp_bwd_tp", "part", "image")),
 }
 # Kernels each path must launch, and how many times per unit of work
 # (per train step or per layer-tower pass); every other kernel, 0 times.
 TRAIN_KERNELS = {"auto": ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd"),
                  "on": ("attend_fwd", "attend_bwd")}
 EVAL_KERNELS = {"auto": ("attn_fwd_infer", "mlp_fwd_infer"), "on": ("attend_fwd",)}
+TP_KERNELS = ("attn_fwd_tp", "attn_bwd_tp", "mlp_fwd_tp", "mlp_bwd_tp")
 
 
 def card_line() -> str:
@@ -232,6 +263,125 @@ def _fail_on_disagreement(rows: list[dict]) -> list[dict]:
     return rows
 
 
+def check_tp_kernels(shapes: dict) -> list[dict]:
+    """The tensor-parallel parts (#7-#10) against their plain twins on
+    rank 0's shard at tp = TP; then the TP shards' partials summed in fp32
+    and finished (bias, rounding, residual; or the LayerNorm backward)
+    against the single-device kernels #1-#4. Returns result rows."""
+    import torch
+
+    from mvlpt_torch.ops import block
+    from mvlpt_torch.parallel import shard_blocks
+
+    rows, joined = [], []
+    for (tower, dtype_name), (b, s, w, h, mask, seg, n_seq) in (
+            ((t, d), shapes[t]) for t in shapes for d in ("bfloat16", "float32")):
+        dtype = getattr(torch, dtype_name)
+        gen = torch.Generator().manual_seed(13)
+        p = layer_params(w, dtype, gen)
+        x = torch.randn((b, s, w), generator=gen).to("cuda", dtype)
+        gy = torch.randn((b, s, w), generator=gen).to("cuda", dtype)
+        esz = torch.finfo(dtype).bits // 8
+        m, d, hl, wl, w4l = b * s, w // h, h // TP, w // TP, 4 * w // TP
+        ln1, ln2 = p["ln_1"], p["ln_2"]
+        shards = [shard_blocks(p, h, TP, r) for r in range(TP)]
+
+        def attn_args(r):
+            at = shards[r]["attn"]
+            return (x, ln1["scale"], ln1["bias"], at["qkv_w"], at["qkv_b"], at["out_w"], mask, hl)
+
+        def mlp_args(r):
+            ml = shards[r]["mlp"]
+            return (x, ln2["scale"], ln2["bias"], ml["fc_w"], ml["fc_b"], ml["proj_w"])
+
+        fwd_res = [block.attn_fwd_part_plain(*attn_args(r))[1] for r in range(TP)]
+        mlp_res = [block.mlp_fwd_part_plain(*mlp_args(r))[1] for r in range(TP)]
+
+        def attn_bwd_args(r):
+            at = shards[r]["attn"]
+            return (fwd_res[r][0], fwd_res[r][1], at["qkv_w"], at["out_w"], gy, hl)
+
+        def mlp_bwd_args(r):
+            ml = shards[r]["mlp"]
+            return (mlp_res[r][0], ml["fc_w"], ml["proj_w"], gy)
+
+        # Bytes: each input read once, each output written once, on rank
+        # 0's shard. Operations: what this run's data needs (see
+        # check_kernels).
+        n_tok = n_seq * seg
+        core = 4 * hl * d * n_seq * (seg * seg if mask is None else seg * (seg + 1) // 2)
+        gemm_attn, gemm_mlp = 2 * n_tok * w * 4 * wl, 4 * n_tok * w * w4l
+        act, part, stats = m * w * esz, m * w * 4, 8 * m  # (B, S, W); fp32 partial; mu + rstd
+        probs_b, qkv_b = b * hl * s * s * esz, m * 3 * wl * esz
+        mask_b = 0 if mask is None else s * s * 4
+        attn_w, mlp_w = 4 * w * wl * esz, 2 * w * w4l * esz
+        cases = [
+            ("attn_fwd_tp", lambda: block.attn_fwd_part(*attn_args(0))[0],
+             lambda: block.attn_fwd_part_plain(*attn_args(0))[0], gemm_attn + core,
+             act + attn_w + (3 * wl + 2 * w) * esz + mask_b + part + qkv_b + probs_b + stats),
+            ("attn_bwd_tp", lambda: block.attn_bwd_part(*attn_bwd_args(0)),
+             lambda: block.attn_bwd_part_plain(*attn_bwd_args(0)), gemm_attn + 2 * core,
+             qkv_b + probs_b + attn_w + act + part),
+            ("mlp_fwd_tp", lambda: block.mlp_fwd_part(*mlp_args(0))[0],
+             lambda: block.mlp_fwd_part_plain(*mlp_args(0))[0], gemm_mlp,
+             act + mlp_w + (w4l + 2 * w) * esz + part + m * w4l * esz + stats),
+            ("mlp_bwd_tp", lambda: block.mlp_bwd_part(*mlp_bwd_args(0)),
+             lambda: block.mlp_bwd_part_plain(*mlp_bwd_args(0)), gemm_mlp,
+             m * w4l * esz + mlp_w + act + part),
+        ]
+        for name, kern, plain, flops, nbytes in cases:
+            got = kern()
+            torch.cuda.synchronize()
+            ref = plain()
+            err = (got.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            bound_ms, bound_by = bound(flops, nbytes, dtype_name)
+            row = dict(name=name, mode="part", tower=tower, dtype=dtype_name,
+                       shape=[b, s, w, hl if "attn" in name else w4l], tp=TP,
+                       masked=mask is not None, max_abs_err=err, max_abs_ref=scale,
+                       tol=TOL[dtype_name] * scale,
+                       ok=math.isfinite(err) and err <= TOL[dtype_name] * scale,
+                       ms=cuda_ms(kern), plain_ms=cuda_ms(plain), library_ms=None,
+                       bound_ms=bound_ms, bound_by=bound_by)
+            rows.append(row)
+            print("kernel-check " + json.dumps(row), flush=True)
+
+        # The TP shards' kernels, summed and finished, against #1-#4.
+        at, ml = p["attn"], p["mlp"]
+        y_attn, (qkv, probs, mu, rstd) = block.attn_fwd(
+            x, ln1["scale"], ln1["bias"], at["qkv_w"], at["qkv_b"], at["out_w"], at["out_b"],
+            mask, h)
+        y_mlp, (hpre, mu2, rstd2) = block.mlp_fwd(
+            x, ln2["scale"], ln2["bias"], ml["fc_w"], ml["fc_b"], ml["proj_w"], ml["proj_b"])
+        fa = [block.attn_fwd_part(*attn_args(r)) for r in range(TP)]
+        fm = [block.mlp_fwd_part(*mlp_args(r)) for r in range(TP)]
+        ya, ym = sum(y for y, _ in fa), sum(y for y, _ in fm)
+        parts, mparts = [res for _, res in fa], [res for _, res in fm]
+        dxa = sum(block.attn_bwd_part(parts[r][0], parts[r][1], shards[r]["attn"]["qkv_w"],
+                                      shards[r]["attn"]["out_w"], gy, hl) for r in range(TP))
+        dxm = sum(block.mlp_bwd_part(mparts[r][0], shards[r]["mlp"]["fc_w"],
+                                     shards[r]["mlp"]["proj_w"], gy) for r in range(TP))
+        pairs = [
+            ("attn_fwd_tp", x + (ya + at["out_b"].float()).to(dtype), y_attn),
+            ("mlp_fwd_tp", x + (ym + ml["proj_b"].float()).to(dtype), y_mlp),
+            ("attn_bwd_tp", block._ln_bwd(x, parts[0][2], parts[0][3], ln1["scale"], dxa, gy),
+             block.attn_bwd(x, mu, rstd, qkv, probs, ln1["scale"], at["qkv_w"], at["out_w"], gy,
+                            h)),
+            ("mlp_bwd_tp", block._ln_bwd(x, mparts[0][1], mparts[0][2], ln2["scale"], dxm, gy),
+             block.mlp_bwd(x, mu2, rstd2, hpre, ln2["scale"], ml["fc_w"], ml["proj_w"], gy)),
+        ]
+        for name, got, ref in pairs:
+            err = (got.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            row = dict(name=name, mode="reassembled", tower=tower, dtype=dtype_name, tp=TP,
+                       max_abs_err=err, max_abs_ref=scale, tol=TOL[dtype_name] * scale,
+                       ok=math.isfinite(err) and err <= TOL[dtype_name] * scale)
+            joined.append(row)
+            print("tp-reassembly " + json.dumps(row), flush=True)
+    _fail_on_disagreement(joined)
+    return _fail_on_disagreement(rows)
+
+
 def check_attend(shapes: dict) -> list[dict]:
     """The standalone attention, forward and backward, against its plain
     twins; returns result rows. ``shapes[name] = (N, S, D, mask)``, N =
@@ -296,7 +446,10 @@ def _launches(path: str, kernels: tuple, per: int) -> dict:
     must have launched ``per`` times, every other kernel never."""
     from mvlpt_torch.ops import _build
 
-    got = dict(_build.LAUNCHES)
+    return _launches_of(path, dict(_build.LAUNCHES), kernels, per)
+
+
+def _launches_of(path: str, got: dict, kernels: tuple, per: int) -> dict:
     want = {name: (per if name in kernels else 0) for name in got}
     if got != want:
         raise AssertionError(f"{path}: launches {got}, want {want}")
@@ -329,20 +482,21 @@ def drive_train(selection: str, batches: list, loss_plain: float, ocfg, norm) ->
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
-    losses, times = [], []
+    losses, grad_norms, times = [], [], []
     for bt in batches:
         t0 = time.perf_counter()
         state, metrics = step(state, backbone, consts, bt)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(metrics["loss"].item())
+        grad_norms.append(metrics["grad_norm"].item())
     layers = clip_cfg.vision_layers + clip_cfg.transformer_layers
     launches = _launches(path, TRAIN_KERNELS[selection], layers * len(batches))
     ms_step = 1e3 * sum(times[1:]) / len(times[1:])
-    out = dict(path=path, losses=losses, loss_plain_first=loss_plain, launches=launches,
-               ms_per_step=ms_step, img_per_s=len(batches[0]["label"]) * 1e3 / ms_step,
-               step_ms=[1e3 * t for t in times], peak_mem_gib=_peak_gib(),
-               grad_norm_last=metrics["grad_norm"].item())
+    out = dict(path=path, losses=losses, loss_plain_first=loss_plain, grad_norms=grad_norms,
+               launches=launches, ms_per_step=ms_step,
+               img_per_s=len(batches[0]["label"]) * 1e3 / ms_step,
+               step_ms=[1e3 * t for t in times], peak_mem_gib=_peak_gib())
     print("main-path " + json.dumps(out), flush=True)
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{path}: non-finite loss {losses}")
@@ -430,9 +584,204 @@ def drive_zeroshot(selection: str, backbone, clip_cfg, text_features, batches: l
     return out, ce
 
 
-def drive_paths() -> dict:
-    """Every path of the port under 'auto' and 'on', each against the plain
-    path ('off') on the same seeded inputs."""
+def _tp_rank(rank: int, world: int, workdir: str) -> None:
+    """One rank of train[tp2], in its own spawned process: the flagship on
+    a (data=1, model=world) mesh over the one card. First layer 0 of each
+    tower, forward and dx, on its shard and the parent's inputs; then
+    TP_STEPS SGD steps under 'block' on the parent's batches. Writes
+    rank{rank}.json (losses, grad norms, step times, launches, peak
+    memory) and rank{rank}.pt (the blocks' y and dx, the prompt params
+    after the steps), or rank{rank}.err with the traceback."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    work = Path(workdir)
+    try:
+        from mvlpt_torch.config import OptimConfig
+        from mvlpt_torch.core.layers import layer_params as take
+        from mvlpt_torch.core.layers import residual_block
+        from mvlpt_torch.flagship import CLIP_PIXEL_MEAN, CLIP_PIXEL_STD, flagship
+        from mvlpt_torch.ops import _build
+        from mvlpt_torch.parallel import create_mesh
+        from mvlpt_torch.train import init_train_state, make_train_step
+        from mvlpt_torch.utils.tree import tree_leaves
+
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        # NCCL refuses two ranks on one device, so the ranks use gloo,
+        # whose all_reduce takes CUDA tensors (through host memory); the
+        # mesh's groups inherit it.
+        dist.init_process_group("gloo", init_method=f"file://{work / 'store'}", rank=rank,
+                                world_size=world)
+        mesh = create_mesh(1, world)
+        inputs = torch.load(work / "inputs.pt", weights_only=True)
+        batches = [{k: v.cuda() for k, v in bt.items()} for bt in inputs["batches"]]
+        norm = (CLIP_PIXEL_MEAN, CLIP_PIXEL_STD)
+        blocks = {}
+
+        def layer0(model, backbone, clip_cfg, dt):
+            for tower, (x, gy, mask) in inputs["blocks"].items():
+                heads = clip_cfg.vision_heads if tower == "visual" else clip_cfg.transformer_heads
+                x = x.to("cuda", getattr(torch, dt)).requires_grad_(True)
+                y = residual_block(x, take(backbone[tower]["blocks"], 0), heads,
+                                   None if mask is None else mask.cuda(), model.kernels)
+                (dx,) = torch.autograd.grad(y, x, gy.to("cuda", x.dtype))
+                blocks[f"{tower}/{dt}"] = (y.detach().cpu(), dx.cpu())
+
+        model, backbone, pp, consts, _, clip_cfg = flagship(device="cuda", kernels="block",
+                                                            mesh=mesh)
+        layer0(model, backbone, clip_cfg, "bfloat16")
+        state = init_train_state(pp, OptimConfig(**OPTIM), 100)
+        step = make_train_step(model, normalize=norm, mesh=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        losses, grad_norms, times = [], [], []
+        for bt in batches:
+            t0 = time.perf_counter()
+            state, metrics = step(state, backbone, consts, bt)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(metrics["loss"].item())
+            grad_norms.append(metrics["grad_norm"].item())
+        launches, peak = dict(_build.LAUNCHES), _peak_gib()
+        # After the path's counts, in fp32, where no bf16 rounding flips:
+        # layer 0 again, and one step on the first batch, which holds the
+        # path to fp32 'auto' tightly.
+        model, backbone, pp, consts, _, _ = flagship(device="cuda", compute_dtype=torch.float32,
+                                                     kernels="block", mesh=mesh)
+        layer0(model, backbone, clip_cfg, "float32")
+        _, m32 = make_train_step(model, normalize=norm, mesh=mesh)(
+            init_train_state(pp, OptimConfig(**OPTIM), 100), backbone, consts, batches[0])
+        (work / f"rank{rank}.json").write_text(json.dumps(dict(
+            losses=losses, grad_norms=grad_norms, step_ms=[1e3 * t for t in times],
+            launches=launches, peak_mem_gib=peak,
+            fp32_first={"loss": m32["loss"].item(), "grad_norm": m32["grad_norm"].item()})))
+        torch.save({"blocks": blocks,
+                    "params": [t.detach().cpu() for t in tree_leaves(state.prompt_params)]},
+                   work / f"rank{rank}.pt")
+    except BaseException:
+        (work / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _tp_block_check(path: str, backbones: dict, clip_cfg, inputs: dict, got: list) -> dict:
+    """Each rank's sharded layer 0 of each tower (y and dx, through the
+    all-reduce) against kernels #1-#4 on the full weights of
+    ``backbones[dtype]``, within TOL; and bit-equal across the ranks."""
+    import torch
+
+    from mvlpt_torch.core.layers import layer_params as take
+    from mvlpt_torch.ops.block import fused_residual_block
+
+    out = {}
+    for dt, backbone in backbones.items():
+        for tower, (x, gy, mask) in inputs.items():
+            heads = clip_cfg.vision_heads if tower == "visual" else clip_cfg.transformer_heads
+            key = f"{tower}/{dt}"
+            xr = x.to("cuda", getattr(torch, dt)).requires_grad_(True)
+            y = fused_residual_block(xr, take(backbone[tower]["blocks"], 0), heads,
+                                     None if mask is None else mask.cuda())
+            (dx,) = torch.autograd.grad(y, xr, gy.to("cuda", xr.dtype))
+            for name, ref, k in (("y", y.detach().cpu(), 0), ("dx", dx.cpu(), 1)):
+                mine = got[0][key][k]
+                err = (mine.float() - ref.float()).abs().max().item()
+                tol = TOL[dt] * ref.float().abs().max().item()
+                out[f"{key}/{name}"] = dict(max_abs_err=err, tol=tol,
+                                            differ_share=(mine != ref).float().mean().item())
+                if not (math.isfinite(err) and err <= tol):
+                    raise AssertionError(f"{path}: {key} layer 0 {name} differs from #1-#4 by "
+                                         f"{err} > {tol}")
+                if not all(torch.equal(mine, g[key][k]) for g in got[1:]):
+                    raise AssertionError(f"{path}: {key} layer 0 {name} differs across ranks")
+    return out
+
+
+def drive_tp_train(batches: list, blocks: dict, backbones: dict, clip_cfg, auto: dict,
+                   auto32: dict) -> dict:
+    """train[tp2]: TP spawned ranks share the card. The kernels are built
+    already, so the ranks only load them; the batches and the block
+    inputs go to them in one file under build/. Rank 0's first loss and
+    grad norm are held to train[auto]'s on the same batch (``auto32``:
+    its first step in fp32), the blocks to #1-#4 on the full weights
+    ``backbones[dtype]``."""
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    path = "train[tp2]"
+    work = ROOT / "build" / "chip_smoke_tp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    torch.save({"batches": [{k: v.cpu() for k, v in bt.items()} for bt in batches],
+                "blocks": blocks}, work / "inputs.pt")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_tp_rank, args=(r, TP, str(work))) for r in range(TP)]
+    t0 = time.perf_counter()
+    for proc in procs:
+        proc.start()
+    try:
+        for proc in procs:
+            proc.join(max(1.0, TP_TIMEOUT_S - (time.perf_counter() - t0)))
+    finally:
+        hung = [r for r, proc in enumerate(procs) if proc.is_alive()]
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(10)
+    errs = {r: (work / f"rank{r}.err").read_text() for r in range(TP)
+            if (work / f"rank{r}.err").is_file()}
+    if hung or errs or any(proc.exitcode != 0 for proc in procs):
+        raise AssertionError(f"{path}: ranks still running after {TP_TIMEOUT_S} s: {hung}; "
+                             f"exit codes {[proc.exitcode for proc in procs]}; errors {errs}")
+    wall_s = time.perf_counter() - t0
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(TP)]
+    saved = [torch.load(work / f"rank{r}.pt", weights_only=True) for r in range(TP)]
+    layers = clip_cfg.vision_layers + clip_cfg.transformer_layers  # a step, on each rank
+    launches = [_launches_of(f"{path} rank {r}", ranks[r]["launches"], TP_KERNELS,
+                             layers * len(batches)) for r in range(TP)]
+    losses, grad_norms, fp32 = ranks[0]["losses"], ranks[0]["grad_norms"], ranks[0]["fp32_first"]
+    ms_step = sum(ranks[0]["step_ms"][1:]) / len(ranks[0]["step_ms"][1:])
+    out = dict(path=path, mesh={"data": 1, "model": TP}, losses=losses, grad_norms=grad_norms,
+               loss_auto_first=auto["losses"][0], grad_norm_auto_first=auto["grad_norms"][0],
+               loss_plain_first=auto["loss_plain_first"], fp32_first=fp32,
+               fp32_auto_first=auto32, launches=launches[0],
+               launches_by_rank=launches, ms_per_step=ms_step,
+               img_per_s=len(batches[0]["label"]) * 1e3 / ms_step,
+               step_ms=[x["step_ms"] for x in ranks],
+               peak_mem_gib=max(x["peak_mem_gib"] for x in ranks),
+               peak_mem_gib_by_rank=[x["peak_mem_gib"] for x in ranks], wall_s=wall_s,
+               blocks=_tp_block_check(path, backbones, clip_cfg, blocks,
+                                      [x["blocks"] for x in saved]))
+    print("main-path " + json.dumps(out), flush=True)
+    if not all(math.isfinite(v) for x in ranks for v in x["losses"]):
+        raise AssertionError(f"{path}: non-finite loss {[x['losses'] for x in ranks]}")
+    for dt, what, got, want in (
+            ("bfloat16", "loss", losses[0], auto["losses"][0]),
+            ("bfloat16", "grad_norm", grad_norms[0], auto["grad_norms"][0]),
+            ("float32", "loss", fp32["loss"], auto32["loss"]),
+            ("float32", "grad_norm", fp32["grad_norm"], auto32["grad_norm"])):
+        if not (math.isfinite(got) and abs(got - want) <= TP_REL[dt][what] * abs(want)):
+            raise AssertionError(f"{path}: rank 0's first {what} in {dt} {got} vs "
+                                 f"train[auto]'s {want} ({TP_REL[dt][what]} relative)")
+    for r in range(1, TP):
+        if not all(torch.equal(a, b) for a, b in zip(saved[0]["params"], saved[r]["params"])):
+            raise AssertionError(f"{path}: prompt params of rank {r} differ from rank 0's")
+    return out
+
+
+def drive_paths(tp_blocks: dict) -> dict:
+    """Every path of the port under 'auto' and 'on', each against the
+    plain path ('off') on the same seeded inputs; then the tensor-parallel
+    train step against 'auto'. ``tp_blocks[tower] = (B, S, mask)`` are
+    the shapes of train[tp2]'s layer-0 checks."""
     import numpy as np
     import torch
 
@@ -455,7 +804,7 @@ def drive_paths() -> dict:
                  "label": torch.from_numpy(rng.randint(0, 100, size)).cuda()} for _ in range(n)]
 
     train_batches, eval_batches = batches(STEPS, 32), batches(EVAL_BATCHES, EVAL_BATCH)
-    ocfg = OptimConfig(LR=0.002, LR_SCHEDULER="cosine", MAX_EPOCH=200)
+    ocfg = OptimConfig(**OPTIM)
     _, m_plain = make_train_step(plain, normalize=norm)(
         init_train_state(pp, ocfg, 100), backbone, consts, train_batches[0])
     loss_plain = m_plain["loss"].item()
@@ -481,6 +830,20 @@ def drive_paths() -> dict:
                                          ce_eval_plain, norm)[0]
         out[f"zeroshot[{sel}]"] = drive_zeroshot(sel, backbone, clip_cfg, text_features,
                                                  eval_batches, ce_zs_plain, norm)[0]
+    model32, backbone32, pp32, consts32, _, _ = flagship(
+        device="cuda", compute_dtype=torch.float32, kernels="auto")
+    _, m32 = make_train_step(model32, normalize=norm)(
+        init_train_state(pp32, ocfg, 100), backbone32, consts32, train_batches[0])
+    auto32 = {"loss": m32["loss"].item(), "grad_norm": m32["grad_norm"].item()}
+    gen = torch.Generator().manual_seed(17)
+    widths = {"visual": clip_cfg.vision_width, "text": clip_cfg.transformer_width}
+    blocks = {tower: (torch.randn((b, s, widths[tower]), generator=gen).to(torch.bfloat16),
+                      torch.randn((b, s, widths[tower]), generator=gen).to(torch.bfloat16),
+                      None if mask is None else mask.cpu())
+              for tower, (b, s, mask) in tp_blocks.items()}
+    out["train[tp2]"] = drive_tp_train(train_batches[:TP_STEPS], blocks,
+                                       {"bfloat16": backbone, "float32": backbone32}, clip_cfg,
+                                       out["train[auto]"], auto32)
     return out
 
 
@@ -543,13 +906,16 @@ def main() -> int:
         "image": (32, s_img, 768, 12, None, s_img, 32, every),
         "image_eval": (EVAL_BATCH, s_img, 768, 12, None, s_img, EVAL_BATCH, no_residual),
         "text": (rows, g * s, 512, 8, packed_mask, s, 100, every)})
+    results += check_tp_kernels({
+        "image": (32, s_img, 768, 12, None, s_img, 32),
+        "text": (rows, g * s, 512, 8, packed_mask, s, 100)})
     results += check_attend({
         "image_train": (32 * 12, s_img, 64, None),
         "image_eval": (EVAL_BATCH * 12, s_img, 64, None),
         "text_packed": (rows * 8, g * s, 64, packed_mask),
         "text_clip": (100 * 8, 77, 64, causal_mask(77, device="cuda"))})
     print(f"text tower: s={s}, G={g}, {rows} packed rows of {g * s} tokens", flush=True)
-    paths = drive_paths()
+    paths = drive_paths({"visual": (32, s_img, None), "text": (rows, g * s, packed_mask)})
 
     summary = {"card": card_line()}
     for path, out in paths.items():

@@ -15,7 +15,8 @@ the plain path come from torch autograd.
 
 ``kernels`` is what ``ops.attention.select_attn_fn`` returns: an
 ``ops.block.BlockKernels`` routes each block to the fused half-block
-kernels; an attention function (``ops.attention.fused_attention``)
+kernels (their tensor-parallel parts under a mesh with a model axis);
+an attention function (``ops.attention.fused_attention``)
 replaces the attention core between the qkv and out-projection
 products; None keeps the plain path.
 """
@@ -87,6 +88,11 @@ def residual_block(x: torch.Tensor, p: dict, n_heads: int,
     """Pre-LN residual block under a kernel selection (see the module
     docstring)."""
     if isinstance(kernels, block_ops.BlockKernels):
+        mesh = kernels.mesh
+        if mesh is not None and mesh.n_model > 1:
+            return block_ops.fused_residual_block_sharded(x, p, n_heads, mask, mesh)
+        # Without a model axis each data rank runs the fused block on its
+        # own rows.
         return block_ops.fused_residual_block(
             x, p, n_heads, mask, inference=kernels.inference)
     x = x + attention(layer_norm(x, p["ln_1"]), p["attn"], n_heads, mask, kernels)

@@ -13,6 +13,13 @@
 // image) that holds the head's q and do and reads p and ds by column;
 // the dxh GEMM with an fp32 epilogue; the LayerNorm backward rows.
 //
+// The tensor-parallel entry mvlpt_attn_bwd_part replaces the same body's
+// part=True mode (mvlpt_tpu/ops/block.py:_attn_tp_bwd): over this rank's
+// H_loc heads (qkv (B, S, 3 Wl), probabilities (B, H_loc, S, S), weights
+// Wqkv (W, 3 Wl) and Wout (Wl, W)) it writes the fp32 partial dxh and
+// stops: the LayerNorm backward needs the dxh summed over the model
+// group, so the caller runs it after the reduction.
+//
 // Bound at the flagship image shapes (B=32, S=201, W=768, H=12), per
 // layer in bf16: about 38.3 GFLOP (39 us at 989 TFLOP/s) against the
 // bytes of x, gy, qkv, probs, the weights and dx (about 95 MB, 28 us at
@@ -145,14 +152,16 @@ attn_bwd_dkv(const T* __restrict__ qkv, const T* __restrict__ probs, const T* __
   }
 }
 
+// H heads of D each (Wl = H D); gy and dxh are over the model width W.
+// part: stop at the fp32 dxh (no LayerNorm backward, x/mu/rstd unused).
 template <typename T>
 int attn_bwd_impl(const void* x, const float* mu, const float* rstd, const void* qkv,
                   const void* probs, const void* ln_scale, const void* qkv_w, const void* out_w,
                   const void* gy, void* dout, void* ds, void* dqkv, float* dxh, void* dx, int B,
-                  int S, int W, int H, cudaStream_t st) {
-  const int M = B * S, D = W / H;
-  // do[m, i] = sum_n gy[m, n] Wout[i, n]: Wout is (W_in, W_out), so B^T.
-  MVLPT_TRY((launch_gemm<T, true, EPI_ROUND>(gy, out_w, M, W, W,
+                  int S, int W, int H, int D, bool part, cudaStream_t st) {
+  const int M = B * S, Wl = H * D;
+  // do[m, i] = sum_n gy[m, n] Wout[i, n]: Wout is (Wl, W), so B^T.
+  MVLPT_TRY((launch_gemm<T, true, EPI_ROUND>(gy, out_w, M, Wl, W,
                                              EpiArgs{nullptr, nullptr, nullptr, dout, nullptr},
                                              st)));
   const size_t smem_q = dq_smem(S, D), smem_kv = dkv_smem(S, D);
@@ -168,11 +177,11 @@ int attn_bwd_impl(const void* x, const float* mu, const float* rstd, const void*
   attn_bwd_dkv<T><<<dim3((S + KT - 1) / KT, H, B), THREADS, smem_kv, st>>>(
       (const T*)qkv, (const T*)probs, (const T*)ds, (const T*)dout, (T*)dqkv, S, H, D);
   MVLPT_TRY(cudaGetLastError());
-  // dxh[m, n] = sum_k dqkv[m, k] Wqkv[n, k]: Wqkv is (W, 3W), so B^T.
-  MVLPT_TRY((launch_gemm<T, true, EPI_F32>(dqkv, qkv_w, M, W, 3 * W,
+  // dxh[m, n] = sum_k dqkv[m, k] Wqkv[n, k]: Wqkv is (W, 3Wl), so B^T.
+  MVLPT_TRY((launch_gemm<T, true, EPI_F32>(dqkv, qkv_w, M, W, 3 * Wl,
                                            EpiArgs{nullptr, nullptr, nullptr, dxh, nullptr},
                                            st)));
-  MVLPT_TRY(launch_ln_bwd<T>(x, mu, rstd, ln_scale, dxh, gy, dx, M, W, st));
+  if (!part) MVLPT_TRY(launch_ln_bwd<T>(x, mu, rstd, ln_scale, dxh, gy, dx, M, W, st));
   return 0;
 }
 
@@ -186,13 +195,33 @@ extern "C" int mvlpt_attn_bwd(int dtype, const void* x, const void* mu, const vo
                               void* ds, void* dqkv, void* dxh, void* dx, int B, int S, int W,
                               int H, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const int D = W / H;
   if (dtype == 0)
     return attn_bwd_impl<float>(x, (const float*)mu, (const float*)rstd, qkv, probs, ln_scale,
-                                qkv_w, out_w, gy, dout, ds, dqkv, (float*)dxh, dx, B, S, W, H,
-                                st);
+                                qkv_w, out_w, gy, dout, ds, dqkv, (float*)dxh, dx, B, S, W, H, D,
+                                false, st);
   if (dtype == 1)
     return attn_bwd_impl<__nv_bfloat16>(x, (const float*)mu, (const float*)rstd, qkv, probs,
                                         ln_scale, qkv_w, out_w, gy, dout, ds, dqkv, (float*)dxh,
-                                        dx, B, S, W, H, st);
+                                        dx, B, S, W, H, D, false, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Tensor-parallel part: H local heads of D each; qkv (B, S, 3HD), probs
+// (B, H, S, S), qkv_w (W, 3HD), out_w (HD, W), gy (B, S, W) -> the fp32
+// partial dxh (B, S, W). dout (B, S, HD), ds (B, H, S, S) and dqkv (B,
+// S, 3HD) are caller-allocated scratch.
+extern "C" int mvlpt_attn_bwd_part(int dtype, const void* qkv, const void* probs,
+                                   const void* qkv_w, const void* out_w, const void* gy,
+                                   void* dout, void* ds, void* dqkv, void* dxh, int B, int S,
+                                   int W, int H, int D, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return attn_bwd_impl<float>(nullptr, nullptr, nullptr, qkv, probs, nullptr, qkv_w, out_w, gy,
+                                dout, ds, dqkv, (float*)dxh, nullptr, B, S, W, H, D, true, st);
+  if (dtype == 1)
+    return attn_bwd_impl<__nv_bfloat16>(nullptr, nullptr, nullptr, qkv, probs, nullptr, qkv_w,
+                                        out_w, gy, dout, ds, dqkv, (float*)dxh, nullptr, B, S, W,
+                                        H, D, true, st);
   return (int)cudaErrorInvalidValue;
 }

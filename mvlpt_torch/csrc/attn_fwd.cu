@@ -14,6 +14,13 @@
 // the head's K and V in shared memory; the out-projection GEMM with a
 // bias + residual epilogue. qkv and o go through device memory.
 //
+// The tensor-parallel entry mvlpt_attn_fwd_part replaces the same body's
+// part=True mode (mvlpt_tpu/ops/block.py:_attn_tp_fwd): the weights hold
+// this rank's H_loc heads (qkv (W, 3 Wl), out-projection (Wl, W), Wl =
+// H_loc D), the LN runs over the full width W, and the out-projection
+// writes the fp32 partial product without bias or residual; the caller
+// sums the partials over the model group and finishes the block.
+//
 // Bound at the flagship image shapes (B=32, S=201, W=768, H=12), per
 // layer in bf16: about 34.3 GFLOP (35 us at 989 TFLOP/s) against about
 // 85 MB moved with the residuals (25 us at 3.35 TB/s): bound by
@@ -101,14 +108,17 @@ attn_core_fwd(const T* __restrict__ qkv, const float* __restrict__ mask, T* __re
   }
 }
 
+// H heads of D each (Wl = H D, the qkv width 3 Wl); the LN and the output
+// are over the model width W. part: fp32 partial out-projection into y,
+// without out_b or the residual.
 template <typename T>
 int attn_fwd_impl(const void* x, const void* ln_scale, const void* ln_bias, const void* qkv_w,
                   const void* qkv_b, const void* out_w, const void* out_b, const float* mask,
                   void* xh, void* qkv, void* o, void* probs, float* mu, float* rstd, void* y,
-                  int B, int S, int W, int H, float eps, cudaStream_t st) {
-  const int M = B * S, D = W / H;
+                  int B, int S, int W, int H, int D, float eps, bool part, cudaStream_t st) {
+  const int M = B * S, Wl = H * D;
   MVLPT_TRY(launch_ln_fwd<T>(x, ln_scale, ln_bias, xh, mu, rstd, M, W, eps, st));
-  MVLPT_TRY((launch_gemm<T, false, EPI_BIAS>(xh, qkv_w, M, 3 * W, W,
+  MVLPT_TRY((launch_gemm<T, false, EPI_BIAS>(xh, qkv_w, M, 3 * Wl, W,
                                              EpiArgs{qkv_b, nullptr, nullptr, qkv, nullptr}, st)));
   const size_t smem = core_smem(S, D);
   if (smem > kMaxDynSmem) return (int)cudaErrorInvalidConfiguration;
@@ -118,8 +128,12 @@ int attn_fwd_impl(const void* x, const void* ln_scale, const void* ln_bias, cons
   attn_core_fwd<T><<<grid, THREADS, smem, st>>>((const T*)qkv, mask, (T*)o, (T*)probs, S, H, D,
                                                 (float)pow((double)D, -0.5));
   MVLPT_TRY(cudaGetLastError());
-  MVLPT_TRY((launch_gemm<T, false, EPI_BIAS_RESID>(o, out_w, M, W, W,
-                                                   EpiArgs{out_b, x, nullptr, y, nullptr}, st)));
+  if (part)
+    MVLPT_TRY((launch_gemm<T, false, EPI_F32>(o, out_w, M, W, Wl,
+                                              EpiArgs{nullptr, nullptr, nullptr, y, nullptr}, st)));
+  else
+    MVLPT_TRY((launch_gemm<T, false, EPI_BIAS_RESID>(o, out_w, M, W, Wl,
+                                                     EpiArgs{out_b, x, nullptr, y, nullptr}, st)));
   return 0;
 }
 
@@ -133,13 +147,35 @@ extern "C" int mvlpt_attn_fwd(int dtype, const void* x, const void* ln_scale, co
                               void* probs, void* mu, void* rstd, void* y, int B, int S, int W,
                               int H, float eps, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const int D = W / H;
   if (dtype == 0)
     return attn_fwd_impl<float>(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b,
                                 (const float*)mask, xh, qkv, o, probs, (float*)mu, (float*)rstd,
-                                y, B, S, W, H, eps, st);
+                                y, B, S, W, H, D, eps, false, st);
   if (dtype == 1)
     return attn_fwd_impl<__nv_bfloat16>(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b,
                                         (const float*)mask, xh, qkv, o, probs, (float*)mu,
-                                        (float*)rstd, y, B, S, W, H, eps, st);
+                                        (float*)rstd, y, B, S, W, H, D, eps, false, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Tensor-parallel part: H local heads of D each; qkv_w (W, 3HD), qkv_b
+// (3HD), out_w (HD, W); ypart (B, S, W) fp32; qkv (B, S, 3HD), probs
+// (B, H, S, S), mu and rstd (B, S) are kept for the backward; xh (B, S,
+// W) and o (B, S, HD) are caller-allocated scratch.
+extern "C" int mvlpt_attn_fwd_part(int dtype, const void* x, const void* ln_scale,
+                                   const void* ln_bias, const void* qkv_w, const void* qkv_b,
+                                   const void* out_w, const void* mask, void* xh, void* qkv,
+                                   void* o, void* probs, void* mu, void* rstd, void* ypart, int B,
+                                   int S, int W, int H, int D, float eps, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return attn_fwd_impl<float>(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, nullptr,
+                                (const float*)mask, xh, qkv, o, probs, (float*)mu, (float*)rstd,
+                                ypart, B, S, W, H, D, eps, true, st);
+  if (dtype == 1)
+    return attn_fwd_impl<__nv_bfloat16>(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, nullptr,
+                                        (const float*)mask, xh, qkv, o, probs, (float*)mu,
+                                        (float*)rstd, ypart, B, S, W, H, D, eps, true, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -14,6 +14,7 @@ import torch
 from mvlpt_torch.core.clip import CLIPConfig, cast_backbone, init_clip_params
 from mvlpt_torch.models.custom_clip import MVLPTModel
 from mvlpt_torch.ops.attention import select_attn_fn
+from mvlpt_torch.parallel.mesh import local_batch, shard_backbone
 from mvlpt_torch.prompts import (
     PromptSpec,
     build_prompt_consts,
@@ -29,13 +30,15 @@ CLIP_PIXEL_STD = (0.26862954, 0.26130258, 0.27577711)
 
 def flagship(n_cls: int = 100, batch: int = 32, compute_dtype=torch.bfloat16,
              backbone_name: str = "ViT-B/16", kernels: str = "auto",
-             device="cuda"):
+             device="cuda", mesh=None):
     """-> (model, backbone, prompt_params, consts, images, clip_cfg).
 
     ``kernels`` is the ``USE_PALLAS`` selection ('auto', 'block', 'on'
     or 'off'; ``ops.attention.select_attn_fn``). ``images`` are (batch,
     224, 224, 3) fp32 from a fixed numpy seed. Runs on the card unless
-    ``device='cpu'``."""
+    ``device='cpu'``. Under ``mesh`` (``parallel.Mesh``) the backbone is
+    this rank's shard, the images its data rank's rows, and the model's
+    kernels run under the mesh."""
     device = resolve_device(device)
     clip_cfg = CLIPConfig.for_backbone(backbone_name)
     backbone = cast_backbone(
@@ -51,9 +54,11 @@ def flagship(n_cls: int = 100, batch: int = 32, compute_dtype=torch.bfloat16,
         vision_patch_size=clip_cfg.vision_patch_size)
     prompt_params = init_prompt_params(torch.Generator().manual_seed(1), spec, device=device)
     consts = build_prompt_consts(classnames, spec, backbone, compute_dtype)
-    model = MVLPTModel(clip_cfg, spec, kernels=select_attn_fn(kernels),
+    model = MVLPTModel(clip_cfg, spec, kernels=select_attn_fn(kernels, mesh=mesh),
                        compute_dtype=compute_dtype)
     res = clip_cfg.image_resolution
     images = torch.from_numpy(
         np.random.RandomState(0).randn(batch, res, res, 3).astype(np.float32)).to(device)
+    if mesh is not None:
+        backbone, images = shard_backbone(backbone, clip_cfg, mesh), local_batch(images, mesh)
     return model, backbone, prompt_params, consts, images, clip_cfg

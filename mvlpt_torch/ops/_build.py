@@ -26,23 +26,31 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures of the entry points (see the .cu files).
+# C entry points (see the .cu files): entry name -> (source, C function,
+# argument types). The tensor-parallel parts share their source with the
+# single-device kernels.
 _SIGNATURES = {
-    "attn_fwd": ("mvlpt_attn_fwd", [_I] + [_P] * 15 + [_I, _I, _I, _I, _F, _P]),
-    "attn_bwd": ("mvlpt_attn_bwd", [_I] + [_P] * 14 + [_I, _I, _I, _I, _P]),
-    "mlp_fwd": ("mvlpt_mlp_fwd", [_I] + [_P] * 13 + [_I, _I, _I, _F, _P]),
-    "mlp_bwd": ("mvlpt_mlp_bwd", [_I] + [_P] * 11 + [_I, _I, _I, _P]),
-    "attend_fwd": ("mvlpt_attend_fwd", [_I] + [_P] * 5 + [_I, _I, _I, _P]),
-    "attend_bwd": ("mvlpt_attend_bwd", [_I] + [_P] * 10 + [_I, _I, _I, _P]),
+    "attn_fwd": ("attn_fwd", "mvlpt_attn_fwd", [_I] + [_P] * 15 + [_I, _I, _I, _I, _F, _P]),
+    "attn_fwd_part": ("attn_fwd", "mvlpt_attn_fwd_part", [_I] + [_P] * 14 + [_I] * 5 + [_F, _P]),
+    "attn_bwd": ("attn_bwd", "mvlpt_attn_bwd", [_I] + [_P] * 14 + [_I, _I, _I, _I, _P]),
+    "attn_bwd_part": ("attn_bwd", "mvlpt_attn_bwd_part", [_I] + [_P] * 9 + [_I] * 5 + [_P]),
+    "mlp_fwd": ("mlp_fwd", "mvlpt_mlp_fwd", [_I] + [_P] * 13 + [_I, _I, _I, _F, _P]),
+    "mlp_fwd_part": ("mlp_fwd", "mvlpt_mlp_fwd_part", [_I] + [_P] * 12 + [_I] * 3 + [_F, _P]),
+    "mlp_bwd": ("mlp_bwd", "mvlpt_mlp_bwd", [_I] + [_P] * 11 + [_I, _I, _I, _P]),
+    "mlp_bwd_part": ("mlp_bwd", "mvlpt_mlp_bwd_part", [_I] + [_P] * 6 + [_I] * 3 + [_P]),
+    "attend_fwd": ("attend_fwd", "mvlpt_attend_fwd", [_I] + [_P] * 5 + [_I, _I, _I, _P]),
+    "attend_bwd": ("attend_bwd", "mvlpt_attend_bwd", [_I] + [_P] * 10 + [_I, _I, _I, _P]),
 }
 
 # Kernel launches per wrapper (ops/block.py, ops/attention.py): one for
 # each call that launches a kernel on the card; CPU calls of the plain
 # twins are not counted. The no-residual forwards (the eval kernels
-# attn_block_infer / mlp_block_infer of the JAX package) count apart from
-# the training forwards.
+# attn_block_infer / mlp_block_infer of the JAX package) and the
+# tensor-parallel parts (attn_block_tp / mlp_block_tp) count apart from
+# the single-device training kernels.
 LAUNCHES = {name: 0 for name in ("attn_fwd", "attn_fwd_infer", "attn_bwd", "mlp_fwd",
-                                 "mlp_fwd_infer", "mlp_bwd", "attend_fwd", "attend_bwd")}
+                                 "mlp_fwd_infer", "mlp_bwd", "attend_fwd", "attend_bwd",
+                                 "attn_fwd_tp", "attn_bwd_tp", "mlp_fwd_tp", "mlp_bwd_tp")}
 
 
 def reset_launch_counts() -> None:
@@ -116,19 +124,20 @@ def library(name: str) -> ctypes.CDLL:
                 build_kernels()
             for src in SOURCES:
                 lib = ctypes.CDLL(str(_lib_path(src)))
-                fn_name, argtypes = _SIGNATURES[src]
-                fn = getattr(lib, fn_name)
-                fn.argtypes, fn.restype = argtypes, ctypes.c_int
                 lib.mvlpt_error_string.argtypes = [ctypes.c_int]
                 lib.mvlpt_error_string.restype = ctypes.c_char_p
                 _libs[src] = lib
+            for src, fn_name, argtypes in _SIGNATURES.values():
+                fn = getattr(_libs[src], fn_name)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
         return _libs[name]
 
 
 def call(name: str, *args) -> None:
     """Call kernel entry ``name`` and raise on a CUDA error code."""
-    lib = library(name)
-    rc = getattr(lib, _SIGNATURES[name][0])(*args)
+    src, fn_name, _ = _SIGNATURES[name]
+    lib = library(src)
+    rc = getattr(lib, fn_name)(*args)
     if rc != 0:
         msg = lib.mvlpt_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel failed: CUDA error {rc} ({msg})")

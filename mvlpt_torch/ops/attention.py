@@ -148,24 +148,33 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _Attend.apply(q, k, v, mask).view(b, h, s, d)
 
 
-def select_attn_fn(use_pallas: str = "auto", inference: bool = False):
+def select_attn_fn(use_pallas: str = "auto", inference: bool = False, mesh=None):
     """Resolve ``TPU.USE_PALLAS`` for the port, the counterpart of
     ``mvlpt_tpu/ops/attention.py:select_attn_fn``. Returns what
     ``core.layers`` takes as ``kernels``:
 
-      * "block", "auto": ``BlockKernels(inference=...)``, the fused
-        half-block kernels on both towers (the JAX "auto" downgrade of
-        the text tower is a TPU measurement and does not carry over);
-        ``inference=True`` selects their no-grad forwards;
+      * "block", "auto": ``BlockKernels(inference=..., mesh=mesh)``, the
+        fused half-block kernels on both towers (the JAX "auto" downgrade
+        of the text tower is a TPU measurement and does not carry over);
+        ``inference=True`` selects their no-grad forwards. Under a
+        ``mesh`` (``parallel.Mesh``) with a model axis they run as the
+        tensor-parallel kernels. The JAX "auto" keeps the XLA path on a
+        tensor-parallel mesh because of a TPU measurement; no TPU
+        selection carries over, so here "auto" is "block" there too;
       * "on": ``fused_attention``, the standalone fused attention (one
         forward for training and eval);
       * "off": None, the plain layer path (torch autograd).
 
-    On a card the kernels run, on the CPU their plain twins."""
+    "on" and "off" take a mesh without a model axis only: on the JAX side
+    they reach a tensor-parallel mesh through GSPMD's sharding of the
+    plain layers, which the port does not have, and the port's sharded
+    weights would give wrong results on them. On a card the kernels run,
+    on the CPU their plain twins."""
     if use_pallas in ("block", "auto"):
-        return BlockKernels(inference=inference)
-    if use_pallas == "on":
-        return fused_attention
-    if use_pallas == "off":
-        return None
-    raise ValueError(f"unknown kernel selection {use_pallas!r}")
+        return BlockKernels(inference=inference, mesh=mesh)
+    if use_pallas not in ("on", "off"):
+        raise ValueError(f"unknown kernel selection {use_pallas!r}")
+    if mesh is not None and mesh.n_model > 1:
+        raise ValueError(f"kernel selection {use_pallas!r} does not run on a mesh with a model "
+                         f"axis ({mesh.n_model} ranks) yet; select 'block' or 'auto'")
+    return fused_attention if use_pallas == "on" else None

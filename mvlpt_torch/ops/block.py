@@ -10,6 +10,16 @@ pre-LN residual block is one kernel call:
     rounded pre-activation hpre and mu/rstd;
   * ``mlp_bwd``: dx only.
 
+Under a tensor-parallel mesh (``fused_residual_block_sharded``) each
+model rank runs the ``*_part`` kernels on its Megatron shard of the
+weights (H/tp heads, 4W/tp hidden units; ``parallel.shard_blocks``):
+``attn_fwd_part``/``mlp_fwd_part`` emit the fp32 partial projection
+without bias or residual, ``attn_bwd_part``/``mlp_bwd_part`` the fp32
+partial dxh without the LayerNorm backward. An all-reduce over the
+model group sums the partials; the bias and residual, or the LayerNorm
+backward (``_ln_bwd``), follow in plain PyTorch, as the JAX package
+finishes its ``part=True`` kernels in plain XLA.
+
 Each wrapper runs its hand-written CUDA kernel (``mvlpt_torch/csrc``)
 for a CUDA tensor, or raises; it runs the plain PyTorch twin beside it
 only for a CPU tensor. The twins state the kernels' math with the same
@@ -29,6 +39,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from mvlpt_torch.ops import _build
 
@@ -40,9 +51,12 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 class BlockKernels:
     """Selects the fused half-block kernels for ``core.layers.residual_block``
     (``ops.attention.select_attn_fn``). ``inference=True`` selects the
-    no-grad forward (no residuals kept)."""
+    no-grad forward (no residuals kept). ``mesh`` (a ``parallel.Mesh``)
+    runs the blocks under that mesh: with a model axis, through the
+    tensor-parallel kernels (``fused_residual_block_sharded``)."""
 
     inference: bool = False
+    mesh: object = None
 
 
 # ------------------------------------------------------------ plain twins
@@ -68,10 +82,12 @@ def _mm(a, b):
     return torch.matmul(a.float(), b.float())
 
 
-def attn_fwd_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b, mask,
-                   n_heads, eps=_EPS, save_residuals=True):
-    b, s, w = x.shape
-    d = w // n_heads
+def _attn_core_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, mask, n_heads, eps):
+    """LN -> qkv -> MHA over the heads of ``qkv_w`` (W, 3Wl): -> (o (B, S,
+    Wl), qkv, probs, mu, rstd)."""
+    b, s, _ = x.shape
+    wl = qkv_w.shape[-1] // 3
+    d = wl // n_heads
     dtype, scale = x.dtype, d ** -0.5
     xh32, mu, rstd = _ln2d(x.float(), ln_scale.float(), ln_bias.float(), eps)
     qkv = (_mm(xh32.to(dtype), qkv_w) + qkv_b.float()).to(dtype)
@@ -81,17 +97,43 @@ def attn_fwd_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b, mask,
     if mask is not None:
         logits = logits + mask.float()
     probs = torch.softmax(logits, dim=-1).to(dtype)
-    o = _mm(probs, v).to(dtype).transpose(1, 2).reshape(b, s, w)
-    y = x + (_mm(o, out_w) + out_b.float()).to(dtype)
+    o = _mm(probs, v).to(dtype).transpose(1, 2).reshape(b, s, wl)
+    return o, qkv, probs, mu[..., 0], rstd[..., 0]
+
+
+def attn_fwd_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b, mask,
+                   n_heads, eps=_EPS, save_residuals=True):
+    o, qkv, probs, mu, rstd = _attn_core_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, mask,
+                                               n_heads, eps)
+    y = x + (_mm(o, out_w) + out_b.float()).to(x.dtype)
     if not save_residuals:
         return y, None
-    return y, (qkv, probs, mu[..., 0], rstd[..., 0])
+    return y, (qkv, probs, mu, rstd)
 
 
-def attn_bwd_plain(x, mu, rstd, qkv, probs, ln_scale, qkv_w, out_w, gy, n_heads):
-    b, s, w = x.shape
-    d = w // n_heads
-    dtype, scale = x.dtype, d ** -0.5
+def attn_fwd_part_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, mask, n_heads, eps=_EPS):
+    """The tensor-parallel part over ``n_heads`` local heads: -> (fp32
+    partial out-projection (B, S, W), (qkv, probs, mu, rstd))."""
+    o, *res = _attn_core_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, mask, n_heads, eps)
+    return _mm(o, out_w), tuple(res)
+
+
+def _ln_bwd(x, mu, rstd, ln_scale, dxh32, gy):
+    """LayerNorm input cotangent (frozen scale/bias) of the fp32 ``dxh32``
+    plus the residual: gy + T(...). The tail of every half-block
+    backward; the tensor-parallel backward runs it after the all-reduce,
+    as the JAX package's ``_ln_bwd``."""
+    dx = _ln_in_cot(x.float(), mu[..., None], rstd[..., None], ln_scale.float(), dxh32)
+    return gy + dx.to(x.dtype)
+
+
+def attn_bwd_part_plain(qkv, probs, qkv_w, out_w, gy, n_heads):
+    """fp32 dxh over the heads of ``qkv`` (B, S, 3Wl), without the
+    LayerNorm backward (the tensor-parallel part)."""
+    b, s, wl3 = qkv.shape
+    wl = wl3 // 3
+    d = wl // n_heads
+    dtype, scale = qkv.dtype, d ** -0.5
     gy = gy.to(dtype)
     do = _mm(gy, out_w.t()).to(dtype).view(b, s, n_heads, d).transpose(1, 2)
     q, k, v = qkv.view(b, s, 3, n_heads, d).permute(2, 0, 3, 1, 4)
@@ -101,14 +143,18 @@ def attn_bwd_plain(x, mu, rstd, qkv, probs, ln_scale, qkv_w, out_w, gy, n_heads)
     ds = (p32 * (dp - (dp * p32).sum(-1, keepdim=True)) * scale).to(dtype)
     dq = _mm(ds, k).to(dtype)
     dk = _mm(ds.transpose(-1, -2), q).to(dtype)
-    dqkv = torch.stack([dq, dk, dv], 0).permute(1, 3, 0, 2, 4).reshape(b, s, 3 * w)
-    dxh = _mm(dqkv, qkv_w.t())
-    dx = _ln_in_cot(x.float(), mu[..., None], rstd[..., None], ln_scale.float(), dxh)
-    return gy + dx.to(dtype)
+    dqkv = torch.stack([dq, dk, dv], 0).permute(1, 3, 0, 2, 4).reshape(b, s, wl3)
+    return _mm(dqkv, qkv_w.t())
 
 
-def mlp_fwd_plain(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b, eps=_EPS,
-                  save_residuals=True):
+def attn_bwd_plain(x, mu, rstd, qkv, probs, ln_scale, qkv_w, out_w, gy, n_heads):
+    gy = gy.to(x.dtype)
+    return _ln_bwd(x, mu, rstd, ln_scale, attn_bwd_part_plain(qkv, probs, qkv_w, out_w, gy,
+                                                             n_heads), gy)
+
+
+def _mlp_hidden_plain(x, ln_scale, ln_bias, fc_w, fc_b, eps):
+    """LN -> FC -> QuickGELU: -> (act, hpre, mu, rstd)."""
     dtype = x.dtype
     xh32, mu, rstd = _ln2d(x.float(), ln_scale.float(), ln_bias.float(), eps)
     hpre = (_mm(xh32.to(dtype), fc_w) + fc_b.float()).to(dtype)
@@ -116,22 +162,39 @@ def mlp_fwd_plain(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b, eps=_EPS,
     # derivative is taken at the saved (rounded) hpre.
     h32 = hpre.float()
     act = (h32 * torch.sigmoid(1.702 * h32)).to(dtype)
-    y = x + (_mm(act, proj_w) + proj_b.float()).to(dtype)
+    return act, hpre, mu[..., 0], rstd[..., 0]
+
+
+def mlp_fwd_plain(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b, eps=_EPS,
+                  save_residuals=True):
+    act, *res = _mlp_hidden_plain(x, ln_scale, ln_bias, fc_w, fc_b, eps)
+    y = x + (_mm(act, proj_w) + proj_b.float()).to(x.dtype)
     if not save_residuals:
         return y, None
-    return y, (hpre, mu[..., 0], rstd[..., 0])
+    return y, tuple(res)
 
 
-def mlp_bwd_plain(x, mu, rstd, hpre, ln_scale, fc_w, proj_w, gy):
-    dtype = x.dtype
-    gy = gy.to(dtype)
+def mlp_fwd_part_plain(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, eps=_EPS):
+    """The tensor-parallel part over the hidden units of ``fc_w``: ->
+    (fp32 partial projection (B, S, W), (hpre, mu, rstd))."""
+    act, *res = _mlp_hidden_plain(x, ln_scale, ln_bias, fc_w, fc_b, eps)
+    return _mm(act, proj_w), tuple(res)
+
+
+def mlp_bwd_part_plain(hpre, fc_w, proj_w, gy):
+    """fp32 dxh over the hidden units of ``hpre``, without the LayerNorm
+    backward (the tensor-parallel part)."""
+    gy = gy.to(hpre.dtype)
     h32 = hpre.float()
     da = _mm(gy, proj_w.t())
     sig = torch.sigmoid(1.702 * h32)
-    dh = (da * (sig + 1.702 * h32 * sig * (1.0 - sig))).to(dtype)
-    dxh = _mm(dh, fc_w.t())
-    dx = _ln_in_cot(x.float(), mu[..., None], rstd[..., None], ln_scale.float(), dxh)
-    return gy + dx.to(dtype)
+    dh = (da * (sig + 1.702 * h32 * sig * (1.0 - sig))).to(hpre.dtype)
+    return _mm(dh, fc_w.t())
+
+
+def mlp_bwd_plain(x, mu, rstd, hpre, ln_scale, fc_w, proj_w, gy):
+    gy = gy.to(x.dtype)
+    return _ln_bwd(x, mu, rstd, ln_scale, mlp_bwd_part_plain(hpre, fc_w, proj_w, gy), gy)
 
 
 # --------------------------------------------------------------- wrappers
@@ -161,6 +224,14 @@ def _check(name, x, operands, stats=(), mask=None):
                 or not t.is_contiguous()):
             raise ValueError(f"{name}: got a {tuple(t.shape)} {t.dtype} tensor on {t.device}, "
                              f"want a contiguous {shape} {dtype} tensor on {x.device}")
+
+
+def _local_width(name, qkv_width, n_heads):
+    """Wl of a (.., 3Wl) qkv over ``n_heads`` heads."""
+    if qkv_width % 3 or (qkv_width // 3) % n_heads:
+        raise ValueError(f"{name}: qkv width {qkv_width} does not split into q, k, v of "
+                         f"{n_heads} heads")
+    return qkv_width // 3
 
 
 def _ptr(t):
@@ -263,6 +334,85 @@ def mlp_bwd(x, mu, rstd, hpre, ln_scale, fc_w, proj_w, gy):
     return dx
 
 
+def attn_fwd_part(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, mask, n_heads, eps=_EPS):
+    """Tensor-parallel attention part over ``n_heads`` local heads (qkv_w
+    (W, 3Wl), qkv_b (3Wl), out_w (Wl, W)) -> (fp32 partial (B, S, W),
+    (qkv, probs, mu, rstd))."""
+    if x.device.type == "cpu":
+        return attn_fwd_part_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, mask, n_heads, eps)
+    b, s, w = _dims("attn_fwd_part", x)
+    wl = _local_width("attn_fwd_part", qkv_w.shape[-1], n_heads)
+    _check("attn_fwd_part", x, [(ln_scale, (w,)), (ln_bias, (w,)), (qkv_w, (w, 3 * wl)),
+                                (qkv_b, (3 * wl,)), (out_w, (wl, w))], mask=mask)
+    f32 = torch.float32
+    ypart = _empty((b, s, w), x, f32)
+    qkv, probs = _empty((b, s, 3 * wl), x), _empty((b, n_heads, s, s), x)
+    mu, rstd = _empty((b, s), x, f32), _empty((b, s), x, f32)
+    xh, o = _empty((b, s, w), x), _empty((b, s, wl), x)  # scratch
+    _build.call("attn_fwd_part", _DTYPE_CODE[x.dtype], _ptr(x), _ptr(ln_scale), _ptr(ln_bias),
+                _ptr(qkv_w), _ptr(qkv_b), _ptr(out_w), _ptr(mask), _ptr(xh), _ptr(qkv), _ptr(o),
+                _ptr(probs), _ptr(mu), _ptr(rstd), _ptr(ypart), b, s, w, n_heads,
+                wl // n_heads, eps, _stream())
+    _build.LAUNCHES["attn_fwd_tp"] += 1
+    return ypart, (qkv, probs, mu, rstd)
+
+
+def attn_bwd_part(qkv, probs, qkv_w, out_w, gy, n_heads):
+    """Tensor-parallel attention backward part -> fp32 partial dxh (B, S, W)."""
+    if qkv.device.type == "cpu":
+        return attn_bwd_part_plain(qkv, probs, qkv_w, out_w, gy, n_heads)
+    gy = gy.to(qkv.dtype).contiguous()
+    b, s, w = _dims("attn_bwd_part", gy)
+    wl = _local_width("attn_bwd_part", qkv.shape[-1], n_heads)
+    _check("attn_bwd_part", gy, [(qkv, (b, s, 3 * wl)), (probs, (b, n_heads, s, s)),
+                                 (qkv_w, (w, 3 * wl)), (out_w, (wl, w))])
+    dxh = _empty((b, s, w), gy, torch.float32)
+    # scratch: do, ds, dqkv
+    dout, ds = _empty((b, s, wl), gy), _empty((b, n_heads, s, s), gy)
+    dqkv = _empty((b, s, 3 * wl), gy)
+    _build.call("attn_bwd_part", _DTYPE_CODE[gy.dtype], _ptr(qkv), _ptr(probs), _ptr(qkv_w),
+                _ptr(out_w), _ptr(gy), _ptr(dout), _ptr(ds), _ptr(dqkv), _ptr(dxh), b, s, w,
+                n_heads, wl // n_heads, _stream())
+    _build.LAUNCHES["attn_bwd_tp"] += 1
+    return dxh
+
+
+def mlp_fwd_part(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, eps=_EPS):
+    """Tensor-parallel MLP part over the hidden units of fc_w (W, W4) ->
+    (fp32 partial (B, S, W), (hpre, mu, rstd))."""
+    if x.device.type == "cpu":
+        return mlp_fwd_part_plain(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, eps)
+    b, s, w = _dims("mlp_fwd_part", x)
+    w4 = fc_b.shape[0]
+    _check("mlp_fwd_part", x, [(ln_scale, (w,)), (ln_bias, (w,)), (fc_w, (w, w4)),
+                               (fc_b, (w4,)), (proj_w, (w4, w))])
+    f32 = torch.float32
+    ypart, hpre = _empty((b, s, w), x, f32), _empty((b, s, w4), x)
+    mu, rstd = _empty((b, s), x, f32), _empty((b, s), x, f32)
+    xh, act = _empty((b, s, w), x), _empty((b, s, w4), x)  # scratch
+    _build.call("mlp_fwd_part", _DTYPE_CODE[x.dtype], _ptr(x), _ptr(ln_scale), _ptr(ln_bias),
+                _ptr(fc_w), _ptr(fc_b), _ptr(proj_w), _ptr(xh), _ptr(hpre), _ptr(act), _ptr(mu),
+                _ptr(rstd), _ptr(ypart), b * s, w, w4, eps, _stream())
+    _build.LAUNCHES["mlp_fwd_tp"] += 1
+    return ypart, (hpre, mu, rstd)
+
+
+def mlp_bwd_part(hpre, fc_w, proj_w, gy):
+    """Tensor-parallel MLP backward part -> fp32 partial dxh (B, S, W)."""
+    if hpre.device.type == "cpu":
+        return mlp_bwd_part_plain(hpre, fc_w, proj_w, gy)
+    gy = gy.to(hpre.dtype).contiguous()
+    b, s, w = _dims("mlp_bwd_part", gy)
+    w4 = hpre.shape[-1]
+    _check("mlp_bwd_part", gy, [(hpre, (b, s, w4)), (fc_w, (w, w4)), (proj_w, (w4, w))])
+    dxh = _empty((b, s, w), gy, torch.float32)
+    dh = _empty((b, s, w4), gy)  # scratch
+    _build.call("mlp_bwd_part", _DTYPE_CODE[gy.dtype], _ptr(hpre), _ptr(fc_w), _ptr(proj_w),
+                _ptr(gy), _ptr(dh), _ptr(dxh), b * s, w, w4, _stream())
+    _build.LAUNCHES["mlp_bwd_tp"] += 1
+    return dxh
+
+
 # ------------------------------------------------------- autograd glue
 
 def _no_grad_error(kind):
@@ -329,3 +479,73 @@ def fused_residual_block(x, p, n_heads, mask=None, inference=False):
     through them raises ``NotImplementedError``."""
     x = attn_block(x, p["ln_1"], p["attn"], mask, n_heads, inference=inference)
     return mlp_block(x, p["ln_2"], p["mlp"], inference=inference)
+
+
+# ------------------------------------------------- tensor-parallel blocks
+#
+# Megatron sharding of the fused half-blocks (mvlpt_tpu/ops/block.py:
+# attn_block_tp / mlp_block_tp). Every model rank runs the part kernel
+# on its shard, an all-reduce over the model group sums the fp32
+# partials, and the bias, rounding and residual follow. The backward
+# runs the part backward, all-reduces the fp32 dxh and finishes with the
+# LayerNorm backward, which needs the full sum. Only dx comes back. Both
+# ranks build the same autograd graph, so they make the backward's
+# all-reduces in the same order.
+
+
+class _AttnBlockTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b, mask, n_heads, group):
+        ypart, res = attn_fwd_part(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, mask, n_heads)
+        dist.all_reduce(ypart, group=group)
+        ctx.n_heads, ctx.group = n_heads, group
+        ctx.save_for_backward(x, ln_scale, qkv_w, out_w, *res)
+        return x + (ypart + out_b.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, ln_scale, qkv_w, out_w, qkv, probs, mu, rstd = ctx.saved_tensors
+        gy = gy.to(x.dtype)
+        dxh = attn_bwd_part(qkv, probs, qkv_w, out_w, gy, ctx.n_heads)
+        dist.all_reduce(dxh, group=ctx.group)
+        return (_ln_bwd(x, mu, rstd, ln_scale, dxh, gy),) + (None,) * 9
+
+
+class _MlpBlockTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b, group):
+        ypart, res = mlp_fwd_part(x, ln_scale, ln_bias, fc_w, fc_b, proj_w)
+        dist.all_reduce(ypart, group=group)
+        ctx.group = group
+        ctx.save_for_backward(x, ln_scale, fc_w, proj_w, *res)
+        return x + (ypart + proj_b.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, ln_scale, fc_w, proj_w, hpre, mu, rstd = ctx.saved_tensors
+        gy = gy.to(x.dtype)
+        dxh = mlp_bwd_part(hpre, fc_w, proj_w, gy)
+        dist.all_reduce(dxh, group=ctx.group)
+        return (_ln_bwd(x, mu, rstd, ln_scale, dxh, gy),) + (None,) * 7
+
+
+def fused_residual_block_sharded(x, p, n_heads, mask, mesh):
+    """The fused block under a mesh with a model axis, chosen by the
+    weights' shapes: a shard (``parallel.shard_blocks``) runs the
+    tensor-parallel kernels, with ``n_heads`` the tower's full head
+    count; full weights, which a tower whose heads or hidden units do
+    not divide by the model axis keeps, run the whole fused block on
+    every model rank, with the same x and the same result on each and no
+    collective. The tensor-parallel kernels have no no-grad forward:
+    they run their training forwards at eval too, as on the JAX side."""
+    tp, w = mesh.n_model, x.shape[-1]
+    at, ml = p["attn"], p["mlp"]
+    if at["qkv_w"].shape[-1] == 3 * w:
+        return fused_residual_block(x, p, n_heads, mask)
+    if at["qkv_w"].shape[-1] * tp != 3 * w or n_heads % tp:
+        raise ValueError(f"fused_residual_block_sharded: qkv_w {tuple(at['qkv_w'].shape)} is "
+                         f"not a {tp}-way shard of a {n_heads}-head tower of width {w}")
+    x = _AttnBlockTP.apply(x, p["ln_1"]["scale"], p["ln_1"]["bias"], at["qkv_w"], at["qkv_b"],
+                           at["out_w"], at["out_b"], mask, n_heads // tp, mesh.model_group)
+    return _MlpBlockTP.apply(x, p["ln_2"]["scale"], p["ln_2"]["bias"], ml["fc_w"], ml["fc_b"],
+                             ml["proj_w"], ml["proj_b"], mesh.model_group)

@@ -6,6 +6,12 @@ The counterpart of ``make_train_step``, ``make_eval_step`` and
 Multi-label targets are normalised to distributions; accuracy is taken
 against the argmax of the labels. Eval runs under ``torch.no_grad()``
 with the fused half-block kernels in their no-grad forwards.
+
+Under a mesh (``parallel.Mesh``) the train step takes the global batch,
+runs this data rank's rows, and takes the mean of the prompt gradients,
+the loss and the accuracy over the data group, so that every rank makes
+the global-batch step. The text tower runs whole on every data rank (the
+JAX package pads and splits its rows instead; the values are the same).
 """
 
 from __future__ import annotations
@@ -14,9 +20,11 @@ import dataclasses
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from mvlpt_torch.models.custom_clip import MVLPTModel, TaskClassRanges
 from mvlpt_torch.ops.block import BlockKernels
+from mvlpt_torch.parallel.mesh import local_batch
 from mvlpt_torch.train.optim import build_lr_schedule, build_optimizer
 from mvlpt_torch.utils.tree import tree_leaves, tree_map
 
@@ -63,17 +71,30 @@ def _prep_images(model, backbone, images, normalize):
     return images, False
 
 
+def _data_mean(tensors, mesh) -> None:
+    """In place: the mean of each tensor over the mesh's data group."""
+    if mesh is None or mesh.n_data == 1:
+        return
+    for t in tensors:
+        dist.all_reduce(t, group=mesh.data_group)
+        t.div_(mesh.n_data)
+
+
 def make_train_step(model: MVLPTModel, task_ranges: TaskClassRanges | None = None,
-                    normalize: tuple | None = None) -> Callable:
+                    normalize: tuple | None = None, mesh=None) -> Callable:
     """step(state, backbone, consts, batch) -> (state, metrics).
 
     batch = {"image": (B,H,W,3) float (or uint8 with ``normalize``),
     "label": (B,) int or (B,C), and optionally "task": (B,) int}. The
     state's params and optimizer are updated in place. Metrics are
     0-dim tensors (loss, acc, grad_norm); reading them waits for the
-    device."""
+    device. Under ``mesh`` the batch is the global one and must divide
+    over the data ranks; ``backbone`` is this rank's shard
+    (``parallel.shard_backbone``) and the model's kernels carry the mesh."""
 
     def step_fn(state: TrainState, backbone, consts, batch):
+        if mesh is not None:
+            batch = local_batch(batch, mesh)
         params = state.prompt_params
         leaves = tree_leaves(params)
         imgs, pre = _prep_images(model, backbone, batch["image"], normalize)
@@ -82,6 +103,8 @@ def make_train_step(model: MVLPTModel, task_ranges: TaskClassRanges | None = Non
         loss = soft_cross_entropy(logits, batch["label"])
         grads = torch.autograd.grad(loss, leaves)
         with torch.no_grad():
+            loss, acc = loss.detach(), accuracy(logits, batch["label"])
+            _data_mean(grads + (loss, acc), mesh)
             grad_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
             for p, g in zip(leaves, grads):
                 p.grad = g
@@ -90,8 +113,7 @@ def make_train_step(model: MVLPTModel, task_ranges: TaskClassRanges | None = Non
                 group["lr"] = lr
             state.optimizer.step()
             state.optimizer.zero_grad(set_to_none=True)
-            metrics = {"loss": loss.detach(), "acc": accuracy(logits, batch["label"]),
-                       "grad_norm": grad_norm}
+            metrics = {"loss": loss, "acc": acc, "grad_norm": grad_norm}
         state.step += 1
         return state, metrics
 
@@ -103,10 +125,12 @@ def _inference_model(model: MVLPTModel) -> MVLPTModel:
     forwards (the JAX package's attn_block_infer / mlp_block_infer): the
     same values, no backward residuals written. ``model`` itself is left
     as it is. The standalone attention ('on') and the plain path ('off')
-    have no such variant: ``model`` comes back unchanged."""
+    have no such variant: ``model`` comes back unchanged. The kernels'
+    mesh carries over."""
     if not isinstance(model.kernels, BlockKernels) or model.kernels.inference:
         return model
-    return MVLPTModel(model.clip_cfg, model.spec, kernels=BlockKernels(inference=True),
+    return MVLPTModel(model.clip_cfg, model.spec,
+                      kernels=dataclasses.replace(model.kernels, inference=True),
                       compute_dtype=model.compute_dtype)
 
 

@@ -1,7 +1,8 @@
-"""The port stands alone: no module of mvlpt_torch, and not chip_smoke.py,
-imports JAX, the JAX package, or a package the GPU host lacks (regex,
-yaml, optax); entry points refuse to run without CUDA unless asked for
-the CPU."""
+"""The port stands alone: no module of mvlpt_torch, not chip_smoke.py, and
+not the entry module of the tensor-parallel tests' spawned ranks imports
+JAX, the JAX package, or a package the GPU host lacks (regex, yaml,
+optax); entry points refuse to run without CUDA unless asked for the
+CPU."""
 
 import ast
 import os
@@ -15,7 +16,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "mvlpt_tpu", "regex", "yaml", "optax", "flax")
-SOURCES = sorted((ROOT / "mvlpt_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted((ROOT / "mvlpt_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_port_tp_child.py"]
 
 
 def _imported(path: Path) -> set[str]:
@@ -40,6 +42,12 @@ def test_importing_every_module_loads_no_forbidden_package():
         "for m in pkgutil.walk_packages(mvlpt_torch.__path__, 'mvlpt_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "from tests import torch_port_tp_child\n"
+        # The entry functions of the spawned ranks (chip_smoke's train[tp2]
+        # and the CPU tests') are module-level, so a spawned child imports
+        # only their modules.
+        "assert callable(chip_smoke._tp_rank) and callable(torch_port_tp_child.run)\n"
+        "assert 'mvlpt_torch.parallel.mesh' in sys.modules\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "print('ok', len([m for m in sys.modules if m.startswith('mvlpt_torch')]))\n")
