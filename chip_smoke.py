@@ -14,8 +14,13 @@
    image tower at batch 32, and at the eval batch 100 for the
    no-residual forwards; class-packed text tower with its block-causal
    mask), and the standalone attention (forward and backward) at the
-   image train and eval shapes, the packed text rows and CLIP's full
-   text context. Times
+   image train and eval shapes, the packed text rows, CLIP's full text
+   context and the edges of the tensor-core tiling (S = 1, 17, 261 and
+   each route's largest S), each row naming its route (bf16 on the
+   tensor cores, fp32 on the CUDA cores); in bf16 each wrapper may
+   request nothing beyond its outputs (and the backward's row
+   statistics), and ptxas must report no spills for any tensor-core
+   attention kernel, in this run's build or the cached one's. Times
    kernel, twin and a library call computing the same function
    (scaled_dot_product_attention on the attention core).
 3. Drives the port's paths, each with the launch counts set to 0 just
@@ -384,16 +389,19 @@ def check_tp_kernels(shapes: dict) -> list[dict]:
 
 def check_attend(shapes: dict) -> list[dict]:
     """The standalone attention, forward and backward, against its plain
-    twins; returns result rows. ``shapes[name] = (N, S, D, mask)``, N =
-    batch x heads."""
+    twins; returns result rows, each with the route its dtype took
+    (``attention.ROUTES``). ``shapes[name] = (N, S, D, mask, dtypes,
+    kernels)``, N = batch x heads. On the bf16 route each wrapper must
+    request from the allocator its outputs (and the backward its (3, N, S)
+    row statistics) and nothing more: no (N, S, S) tensor."""
     import torch
     import torch.nn.functional as F
 
     from mvlpt_torch.ops import attention
 
     rows = []
-    for (path, dtype_name), (n, s, d, mask) in (
-            ((p, t), shapes[p]) for p in shapes for t in ("bfloat16", "float32")):
+    for (path, dtype_name), (n, s, d, mask, _, names) in (
+            ((p, t), shapes[p]) for p in shapes for t in shapes[p][4]):
         dtype = getattr(torch, dtype_name)
         gen = torch.Generator().manual_seed(11)
         q, k, v, do = (torch.randn((n, s, d), generator=gen).to("cuda", dtype) for _ in range(4))
@@ -422,23 +430,76 @@ def check_attend(shapes: dict) -> list[dict]:
              lambda: attention.attend_bwd_plain(q, k, v, mask, do), 10 * n * d * pairs,
              7 * rows_b + mask_b, lib_bwd),
         ]
-        for name, kern, plain, flops, nbytes, lib in cases:
+        for name, kern, plain, flops, nbytes, lib in (c for c in cases if c[0] in names):
+            # Bytes the wrapper asked the caching allocator for. Its block
+            # counts (memory_allocated) would add whatever a cached free
+            # block holds beyond the request when it is reused unsplit.
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_stats()["requested_bytes.all.current"]
             got = kern()
             torch.cuda.synchronize()
+            alloc = torch.cuda.memory_stats()["requested_bytes.all.peak"] - before
             ref = plain()
             errs = [(g.float() - r.float()).abs().max().item() for g, r in zip(got, ref)]
             scales = [r.float().abs().max().item() for r in ref]
             ok = all(math.isfinite(e) and e <= TOL[dtype_name] * sc for e, sc in zip(errs, scales))
-            worst = max(range(len(errs)), key=lambda i: errs[i] / scales[i])
+            worst = max(range(len(errs)), key=lambda i: errs[i] / max(scales[i], 1e-30))
             bound_ms, bound_by = bound(flops, nbytes, dtype_name)
+            # In bf16: the outputs and, backward, the row statistics; nothing
+            # more, so no (N, S, S) tensor.
+            want = len(got) * rows_b
+            if name == "attend_bwd" and dtype == torch.bfloat16:
+                want += 3 * n * s * 4
             row = dict(name=name, mode="core", tower=path, dtype=dtype_name, shape=[n, s, d],
-                       masked=mask is not None, max_abs_err=errs[worst],
-                       max_abs_ref=scales[worst], tol=TOL[dtype_name] * scales[worst], ok=ok,
+                       route=attention.ROUTES[dtype], masked=mask is not None,
+                       max_abs_err=errs[worst], max_abs_ref=scales[worst],
+                       tol=TOL[dtype_name] * scales[worst], ok=ok, requested_bytes=alloc,
                        ms=cuda_ms(kern), plain_ms=cuda_ms(plain), library_ms=cuda_ms(lib),
                        bound_ms=bound_ms, bound_by=bound_by)
             rows.append(row)
             print("kernel-check " + json.dumps(row), flush=True)
+            if dtype == torch.bfloat16 and alloc != want:
+                raise AssertionError(f"{name} ({path}, bf16): requested {alloc} bytes, not "
+                                     f"those of its outputs and row statistics ({want})")
     return _fail_on_disagreement(rows)
+
+
+def tc_ptxas(log: str) -> list[tuple[str, int, int]]:
+    """(kernel<bucket>, registers, bytes of spills) of each tensor-core
+    attention kernel in one source's ptxas -v log, read per kernel
+    because the fp32 route shares the source."""
+    rows = []
+    for chunk in log.split("Compiling entry function '")[1:]:
+        mangled = chunk.split("'", 1)[0]
+        kernel = re.search(r"attend_(?:fwd|bwd_dq|bwd_dkv)_tc", mangled)
+        if kernel is None:
+            continue
+        nt = re.search(r"ILi(\d+)EE", mangled)
+        regs = re.search(r"Used (\d+) registers", chunk)
+        rows.append((f"{kernel.group(0)}<NT={nt.group(1) if nt else '?'}>",
+                     int(regs.group(1)) if regs else -1,
+                     sum(int(b) for b in re.findall(r"(\d+) bytes spill", chunk))))
+    return rows
+
+
+def check_tc_spills(logs: dict) -> None:
+    """ptxas's registers and spills of each tensor-core attention kernel
+    (the bf16 route of attend_fwd.cu and attend_bwd.cu, one per register
+    bucket), printed; any spill fails the run, and so does a source whose
+    build log (``_build.build_kernels``: this run's or the cached
+    library's) names no such kernel."""
+    rows = []
+    for src in ("attend_fwd", "attend_bwd"):
+        found = tc_ptxas(logs[src])
+        if not found:
+            raise AssertionError(f"ptxas: no tensor-core kernel in {src}.cu's build log")
+        rows += found
+    for label, regs, spill in rows:
+        print(f"ptxas {label}: {regs} registers, {spill} bytes of spills", flush=True)
+    spilled = [label for label, _, spill in rows if spill]
+    if spilled:
+        raise AssertionError(f"ptxas: tensor-core attention kernels spill: {spilled}")
 
 
 def _launches(path: str, kernels: tuple, per: int) -> dict:
@@ -894,8 +955,10 @@ def main() -> int:
     for name, log in info["ptxas"].items():
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
         spill = sum(int(b) for b in re.findall(r"(\d+) bytes spill", log))
-        print(f"ptxas {name}: {len(regs)} kernels, at most {max(regs, default=0)} registers "
-              f"a thread, {spill} bytes of spills", flush=True)
+        print(f"ptxas {name}{'' if name in info['built'] else ' (cached build)'}: {len(regs)} "
+              f"kernels, at most {max(regs, default=0)} registers a thread, {spill} bytes of "
+              f"spills", flush=True)
+    check_tc_spills(info["ptxas"])
 
     s = compute_cut_context_length([f"class number {i}" for i in range(100)], 4)
     g, rows = packing(100, s)
@@ -909,11 +972,22 @@ def main() -> int:
     results += check_tp_kernels({
         "image": (32, s_img, 768, 12, None, s_img, 32),
         "text": (rows, g * s, 512, 8, packed_mask, s, 100)})
+    both, fb = ("bfloat16", "float32"), ("attend_fwd", "attend_bwd")
     results += check_attend({
-        "image_train": (32 * 12, s_img, 64, None),
-        "image_eval": (EVAL_BATCH * 12, s_img, 64, None),
-        "text_packed": (rows * 8, g * s, 64, packed_mask),
-        "text_clip": (100 * 8, 77, 64, causal_mask(77, device="cuda"))})
+        "image_train": (32 * 12, s_img, 64, None, both, fb),
+        "image_eval": (EVAL_BATCH * 12, s_img, 64, None, both, fb),
+        "text_packed": (rows * 8, g * s, 64, packed_mask, both, fb),
+        "text_clip": (100 * 8, 77, 64, causal_mask(77, device="cuda"), both, fb),
+        # The tiling's edges: below one mma tile, ragged, ViT-L/14 with 4
+        # VPT rows (8 images x 16 heads), and each route's largest S.
+        "edge_s1": (64, 1, 64, None, both, fb),
+        "edge_s17": (64, 17, 64, causal_mask(17, device="cuda"), both, fb),
+        "vitl_s261": (8 * 16, 1 + 16 * 16 + 4, 64, None, both, fb),
+        "max_fwd_bf16": (64, 352, 64, None, ("bfloat16",), ("attend_fwd",)),
+        "max_fwd_fp32": (64, 348, 64, None, ("float32",), ("attend_fwd",)),
+        "max_bwd_bf16": (64, 280, 64, causal_mask(280, device="cuda"), ("bfloat16",),
+                         ("attend_bwd",)),
+        "max_bwd_fp32": (64, 278, 64, None, ("float32",), ("attend_bwd",))})
     print(f"text tower: s={s}, G={g}, {rows} packed rows of {g * s} tokens", flush=True)
     paths = drive_paths({"visual": (32, s_img, None), "text": (rows, g * s, packed_mask)})
 

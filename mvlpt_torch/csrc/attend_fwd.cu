@@ -3,30 +3,141 @@
 // Replaces the Pallas kernel mvlpt_tpu/ops/attention.py:_fwd_kernel
 // (called by _attend_fwd), with its rounding points: s = q k^T on the
 // unscaled q, accumulated in fp32; then s * scale + mask in fp32, with
-// scale = D^-1/2; fp32 softmax; p rounded to T; o = T(p v), accumulated
-// in fp32. (The half-block kernel of attn_fwd.cu scales and rounds q
-// before the product instead.)
+// scale = D^-1/2 and no fused multiply-add; an exact fp32 softmax (max,
+// expf, sum, divide); p rounded to T; o = T(p v), accumulated in fp32.
+// (The half-block kernel of attn_fwd.cu scales and rounds q before the
+// product instead.)
 //
 // The TPU program holds G (batch*head) rows of q, k, v and their fp32
 // scores in VMEM, with S padded to a multiple of 128 and finfo.min on the
 // padded keys. Padded keys take no probability there, so the real rows
-// equal an unpadded call's: this kernel does not pad, and masks the
-// ragged edge by bounds. One block per (batch*head row, tile of QT
-// queries) holds that row's K and V in shared memory as fp32 and walks
-// its queries one warp at a time (scores, softmax, p v). Past the shared
-// memory of one block (S above 348 at D = 64) it refuses to launch.
+// equal an unpadded call's. Two routes, by dtype:
+//
+// bfloat16: tensor cores (attend_fwd_tc). One block of 4 warps per
+//   (batch*head row, share of its query groups) stages that row's K and
+//   V once as bf16 in shared memory (16-byte cp.async, rows skewed
+//   against bank conflicts). Each warp takes 16 queries at a time: q k^T
+//   with mma.sync m16n8k16, the whole 16 x S score row in registers
+//   (the kernel is templated on NT key tiles of 8, S <= 8 NT, so the
+//   array has a compile-time length; above S = 208 the row sits in the
+//   warp's own shared memory instead, as registers would spill); padded
+//   keys get -inf; the row max and sum over the four lanes of a row; p
+//   divided, rounded to bf16 and packed from the accumulator fragments
+//   straight into the A fragments of p v, so p never leaves registers.
+//   D = 64 only; S <= 352.
+// float32: CUDA cores (attend_fwd_kernel), fp32 FMAs; TF32 would not
+//   hold fp32's tolerance. One block per (row, tile of QT queries) holds
+//   the row's K and V in shared memory as fp32 and walks its queries one
+//   warp at a time. Past one block's shared memory (S above 348 at
+//   D = 64) it refuses to launch.
 //
 // Bound: the function reads q, k, v and writes o. At the image eval shape
 // (N = B*H = 1200, S = 201, D = 64, bf16) that is 123.5 MB, 36.9 us at
 // 3.35 TB/s, against 12.4 GFLOP of products, 12.5 us at 989 TFLOP/s:
-// bound by bytes. This first version runs its products as fp32 FMAs on
-// the CUDA cores and reads K and V once for each query tile, so it sits
-// far above that bound.
+// bound by bytes. The tensor-core route reads each of q, k, v once from
+// device memory; its products are cheap beside that.
 #include "common.cuh"
+#include "mma.cuh"
 
 using namespace mvlpt;
 
 namespace {
+
+// ------------------------------------------------ bf16, tensor cores
+
+constexpr int TC_WARPS = 4;
+constexpr int TC_THREADS = 32 * TC_WARPS;
+constexpr int FWD_NT[] = {10, 16, 26, 35, 44};  // buckets: S <= 80, 128, 208, 280, 352
+// Up to this bucket a warp's score row lives in registers; above it, in
+// the warp's shared memory (ScoreRow), where ptxas would otherwise spill.
+// At S <= 208 a shared row made the forward slower than the register row.
+constexpr int FWD_REG_NT = 26;
+
+template <int NT>
+constexpr bool fwd_row_shared = NT > FWD_REG_NT;
+
+template <int NT>
+constexpr int fwd_smem() {
+  return 2 * 16 * ((NT + 1) / 2) * mma::ROW * (int)sizeof(__nv_bfloat16) +
+         (fwd_row_shared<NT> ? TC_WARPS * mma::row_floats<NT> * (int)sizeof(float) : 0);
+}
+
+template <int NT>
+__global__ void __launch_bounds__(TC_THREADS)
+attend_fwd_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, const float* __restrict__ mask,
+              __nv_bfloat16* __restrict__ o, int S, float scale) {
+  using namespace mvlpt::mma;
+  constexpr int KC = (NT + 1) / 2;  // key chunks of 16, the k steps of p v
+  constexpr int ROWS = 16 * KC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Vs = Ks + ROWS * ROW;
+  float* rows_buf = reinterpret_cast<float*>(Vs + ROWS * ROW);  // fwd_row_shared only
+  const size_t base = (size_t)blockIdx.x * S * D;
+  stage_rows(Ks, k + base, S, ROWS, threadIdx.x, TC_THREADS);
+  stage_rows(Vs, v + base, S, ROWS, threadIdx.x, TC_THREADS);
+  cp_async_wait();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int groups = (S + 15) / 16;
+  for (int grp = blockIdx.y * TC_WARPS + warp; grp < groups; grp += gridDim.y * TC_WARPS) {
+    const int q0 = grp * 16;
+    uint32_t qa[D / 16][4];
+    load_a_rows(qa, q + base, q0, S, lane);
+
+    ScoreRow<NT, fwd_row_shared<NT>> sc(rows_buf + warp * row_floats<NT>, lane);
+    float mx[2], sum[2];
+    softmax_rows<NT>(sc, mx, sum, qa, Ks, mask, q0, S, scale, lane);
+
+    // o = T(p) v: each key chunk's probabilities, divided and rounded,
+    // are the A fragment of one k step.
+    const float rs[2] = {rcp(sum[0]), rcp(sum[1])};
+    float acc[D / 8][4] = {};
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      const bool full = 2 * kc + 1 < NT;  // an odd NT leaves the last chunk's right half empty
+      const int jh = full ? 2 * kc + 1 : 2 * kc;
+      float lo[4], hi[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        lo[e] = div_rn(sc(2 * kc, e), sum[e >> 1], rs[e >> 1]);
+        hi[e] = full ? div_rn(sc(jh, e), sum[e >> 1], rs[e >> 1]) : 0.f;
+      }
+      uint32_t pa[4];
+      pack_a(pa, lo, hi);
+      acc_rows16(acc, pa, Vs, 16 * kc, lane);
+    }
+    store_rows(o + base, acc, q0, S, lane);
+  }
+}
+
+template <int NT>
+int launch_fwd_tc(const void* q, const void* k, const void* v, const float* mask, void* o, int N,
+                  int S, cudaStream_t st) {
+  constexpr int smem = fwd_smem<NT>();
+  MVLPT_TRY(cudaFuncSetAttribute(attend_fwd_tc<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem));
+  attend_fwd_tc<NT><<<dim3(N, mma::row_shares(N, S, TC_WARPS)), TC_THREADS, smem, st>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, mask,
+      (__nv_bfloat16*)o, S, 0.125f);  // 64^-1/2
+  return (int)cudaGetLastError();
+}
+
+int attend_fwd_bf16(const void* q, const void* k, const void* v, const float* mask, void* o,
+                    int N, int S, int D, cudaStream_t st) {
+  if (D != mma::D || S < 1) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15) return (int)cudaErrorMisalignedAddress;
+  if (S <= 8 * FWD_NT[0]) return launch_fwd_tc<FWD_NT[0]>(q, k, v, mask, o, N, S, st);
+  if (S <= 8 * FWD_NT[1]) return launch_fwd_tc<FWD_NT[1]>(q, k, v, mask, o, N, S, st);
+  if (S <= 8 * FWD_NT[2]) return launch_fwd_tc<FWD_NT[2]>(q, k, v, mask, o, N, S, st);
+  if (S <= 8 * FWD_NT[3]) return launch_fwd_tc<FWD_NT[3]>(q, k, v, mask, o, N, S, st);
+  if (S <= 8 * FWD_NT[4]) return launch_fwd_tc<FWD_NT[4]>(q, k, v, mask, o, N, S, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// --------------------------------------------------- fp32, CUDA cores
 
 constexpr int QT = 32;        // query rows per block
 constexpr int THREADS = 256;  // 8 warps, one query row per warp at a time
@@ -36,10 +147,10 @@ size_t fwd_smem(int S, int D) {
 }
 
 // q, k, v, o: (N, S, D) contiguous; mask: (S, S) fp32 or null.
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-attend_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  const float* __restrict__ mask, T* __restrict__ o, int S, int D, float scale) {
+attend_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ mask,
+                  float* __restrict__ o, int S, int D, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int q0 = blockIdx.y * QT;
   const size_t base = (size_t)blockIdx.x * S * D;
@@ -50,11 +161,11 @@ attend_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 
   for (int idx = threadIdx.x; idx < S * D; idx += THREADS) {
     const int j = idx / D, d = idx - j * D;
-    Ks[j * (D + 1) + d] = to_f(k[base + idx]);
-    Vs[idx] = to_f(v[base + idx]);
+    Ks[j * (D + 1) + d] = k[base + idx];
+    Vs[idx] = v[base + idx];
   }
   for (int idx = threadIdx.x; idx < QT * D; idx += THREADS)
-    Qs[idx] = q0 + idx / D < S ? to_f(q[base + (size_t)q0 * D + idx]) : 0.f;
+    Qs[idx] = q0 + idx / D < S ? q[base + (size_t)q0 * D + idx] : 0.f;
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -81,37 +192,37 @@ attend_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int j = lane; j < S; j += 32) prow[j] = rnd<T>(prow[j] / sum);
+    for (int j = lane; j < S; j += 32) prow[j] = prow[j] / sum;
     __syncwarp();
     for (int d = lane; d < D; d += 32) {
       float acc = 0.f;
       for (int j = 0; j < S; ++j) acc = fmaf(prow[j], Vs[j * D + d], acc);
-      o[base + (size_t)qi * D + d] = from_f<T>(acc);
+      o[base + (size_t)qi * D + d] = acc;
     }
   }
 }
 
-template <typename T>
-int attend_fwd_impl(const void* q, const void* k, const void* v, const float* mask, void* o,
-                    int N, int S, int D, cudaStream_t st) {
+int attend_fwd_f32(const void* q, const void* k, const void* v, const float* mask, void* o,
+                   int N, int S, int D, cudaStream_t st) {
   const size_t smem = fwd_smem(S, D);
   if (smem > kMaxDynSmem) return (int)cudaErrorInvalidConfiguration;
-  MVLPT_TRY(cudaFuncSetAttribute(attend_fwd_kernel<T>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  MVLPT_TRY(cudaFuncSetAttribute(attend_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem));
   dim3 grid(N, (S + QT - 1) / QT);
-  attend_fwd_kernel<T><<<grid, THREADS, smem, st>>>((const T*)q, (const T*)k, (const T*)v, mask,
-                                                    (T*)o, S, D, (float)pow((double)D, -0.5));
+  attend_fwd_kernel<<<grid, THREADS, smem, st>>>((const float*)q, (const float*)k,
+                                                 (const float*)v, mask, (float*)o, S, D,
+                                                 (float)pow((double)D, -0.5));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. mask may be null (no mask).
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores, D = 64,
+// S <= 352). mask may be null (no mask).
 extern "C" int mvlpt_attend_fwd(int dtype, const void* q, const void* k, const void* v,
                                 const void* mask, void* o, int N, int S, int D, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return attend_fwd_impl<float>(q, k, v, (const float*)mask, o, N, S, D, st);
-  if (dtype == 1)
-    return attend_fwd_impl<__nv_bfloat16>(q, k, v, (const float*)mask, o, N, S, D, st);
+  if (dtype == 0) return attend_fwd_f32(q, k, v, (const float*)mask, o, N, S, D, st);
+  if (dtype == 1) return attend_fwd_bf16(q, k, v, (const float*)mask, o, N, S, D, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -4,7 +4,8 @@ Each ``.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, all sources at once in
 parallel, and loaded with ``ctypes``. Libraries are named by a digest of
 their sources and flags, so a changed source is rebuilt and an unchanged
-one is reused. The build directory is ``$MVLPT_TORCH_BUILD_DIR`` or
+one is reused; nvcc's output (ptxas's registers and spills) is kept
+beside each library. The build directory is ``$MVLPT_TORCH_BUILD_DIR`` or
 ``build/mvlpt_torch_kernels`` beside the package (git ignores
 ``build/``). Nothing is built at import: the first kernel call builds.
 """
@@ -21,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd", "attend_fwd", "attend_bwd")
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,7 +40,7 @@ _SIGNATURES = {
     "mlp_bwd": ("mlp_bwd", "mvlpt_mlp_bwd", [_I] + [_P] * 11 + [_I, _I, _I, _P]),
     "mlp_bwd_part": ("mlp_bwd", "mvlpt_mlp_bwd_part", [_I] + [_P] * 6 + [_I] * 3 + [_P]),
     "attend_fwd": ("attend_fwd", "mvlpt_attend_fwd", [_I] + [_P] * 5 + [_I, _I, _I, _P]),
-    "attend_bwd": ("attend_bwd", "mvlpt_attend_bwd", [_I] + [_P] * 10 + [_I, _I, _I, _P]),
+    "attend_bwd": ("attend_bwd", "mvlpt_attend_bwd", [_I] + [_P] * 11 + [_I, _I, _I, _P]),
 }
 
 # Kernel launches per wrapper (ops/block.py, ops/attention.py): one for
@@ -71,6 +72,11 @@ def _lib_path(name: str) -> Path:
     return build_dir() / f"lib{name}-{_digest(name)}.so"
 
 
+def _log_path(name: str) -> Path:
+    """nvcc's output (ptxas -v) of the library at ``_lib_path(name)``."""
+    return _lib_path(name).with_suffix(".log")
+
+
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     candidates = [os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []
@@ -89,31 +95,33 @@ def _digest(name: str) -> str:
 
 
 def build_kernels() -> dict:
-    """Compile every source whose library is missing, in parallel.
-    Returns {"built": [names], "ptxas": {name: log}}. Raises if any
-    compile fails."""
+    """Compile every source whose library (or its build log) is missing,
+    in parallel. Returns {"built": [names], "ptxas": {name: log}} with the
+    log of every source, the cached ones' read back from their build.
+    Raises if any compile fails."""
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in SOURCES:
         lib = _lib_path(name)
-        if lib.is_file():
+        if lib.is_file() and _log_path(name).is_file():
             continue
         tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), tmp, lib)
-    reports, failed = {}, []
+    failed = []
     for name, (proc, tmp, lib) in procs.items():
         log, _ = proc.communicate()
-        reports[name] = log
         if proc.returncode != 0:
             failed.append(f"--- {name}.cu (nvcc exit {proc.returncode})\n{log}")
             continue
+        _log_path(name).write_text(log)
         os.replace(tmp, lib)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return dict(built=sorted(procs), ptxas=reports)
+    return dict(built=sorted(procs),
+                ptxas={name: _log_path(name).read_text() for name in SOURCES})
 
 
 def library(name: str) -> ctypes.CDLL:

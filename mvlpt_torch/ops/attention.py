@@ -20,7 +20,15 @@ The JAX side pads S to a multiple of 128 with ``finfo.min`` on the
 padded keys. They take no probability there, so the real rows equal an
 unpadded call's, and the port does not pad. Each wrapper runs its CUDA
 kernel (``csrc/attend_{fwd,bwd}.cu``) on a CUDA tensor, or raises; it
-runs the plain twin beside it only on a CPU tensor.
+runs the plain twin beside it only on a CPU tensor. The kernels take
+one of two routes by dtype (``ROUTES``):
+
+  * bfloat16 on the tensor cores (``mma.sync``, ``csrc/mma.cuh``): D = 64
+    only, S up to 352 forward and 280 backward (``_TC_MAX_S``); the
+    backward keeps only a (3, N, S) fp32 scratch of row statistics;
+  * float32 on the CUDA cores: any D, S up to what one block's shared
+    memory holds (348 forward and 278 backward at D = 64); the backward
+    moves p and ds through two (N, S, S) scratch tensors.
 """
 
 from __future__ import annotations
@@ -30,8 +38,16 @@ import torch
 from mvlpt_torch.ops import _build
 from mvlpt_torch.ops.block import _DTYPE_CODE, BlockKernels, _ptr, _stream
 
-# Shared memory of one block, in fp32 words, as csrc/attend_{fwd,bwd}.cu
-# lay it out (32-row query and key tiles); a shape past it is refused.
+ROUTES = {torch.bfloat16: "tensor cores (mma.sync, bf16)",
+          torch.float32: "CUDA cores (fp32 FMA)"}
+
+# The bf16 route: the head width its fragments take, and the largest S of
+# its register buckets (csrc/attend_fwd.cu FWD_NT, attend_bwd.cu BWD_NT).
+_TC_D = 64
+_TC_MAX_S = {"attend_fwd": 352, "attend_bwd": 280}
+
+# The fp32 route: shared memory of one block, in fp32 words, as
+# csrc/attend_{fwd,bwd}.cu lay it out (32-row query and key tiles).
 _TILE = 32
 _SMEM_WORDS = 232448 // 4
 
@@ -40,6 +56,18 @@ def _smem_words(kind: str, s: int, d: int) -> int:
     if kind == "attend_fwd":
         return s * (d + 1) + s * d + _TILE * d + _TILE * s
     return max(2 * s * (d + 1) + 2 * _TILE * d + 2 * _TILE * s, 2 * s * d + 2 * _TILE * s)
+
+
+def _check_route(name: str, dtype: torch.dtype, s: int, d: int) -> None:
+    """Raise if the route of ``dtype`` does not take an (S, D) row."""
+    if dtype == torch.bfloat16:
+        if d != _TC_D:
+            raise ValueError(f"{name}: the bf16 tensor-core route takes D = {_TC_D}, got D = {d}")
+        if s > _TC_MAX_S[name]:
+            raise ValueError(f"{name}: S={s} is past the bf16 tensor-core route's largest S "
+                             f"({_TC_MAX_S[name]})")
+    elif _smem_words(name, s, d) > _SMEM_WORDS:
+        raise ValueError(f"{name}: S={s}, D={d} needs more shared memory than one block has")
 
 
 # ------------------------------------------------------------ plain twins
@@ -75,7 +103,7 @@ def attend_bwd_plain(q, k, v, mask, do):
 def _rows(name, q, others, mask):
     """(N, S, D) of the CUDA rows the kernels take: ``others`` must match
     q's shape, dtype and device, ``mask`` be an fp32 (S, S) tensor or
-    None, all contiguous, and the shape fit one block's shared memory."""
+    None, all contiguous, and the shape within its route's limits."""
     if q.dim() != 3:
         raise ValueError(f"{name}: q must be (N, S, D), got {tuple(q.shape)}")
     n, s, d = q.shape
@@ -87,12 +115,14 @@ def _rows(name, q, others, mask):
                 or not t.is_contiguous()):
             raise ValueError(f"{name}: got a {tuple(t.shape)} {t.dtype} tensor on {t.device}, "
                              f"want a contiguous {shape} {dtype} tensor on {q.device}")
-    if _smem_words(name, s, d) > _SMEM_WORDS:
-        raise ValueError(f"{name}: S={s}, D={d} needs more shared memory than one block has")
+    _check_route(name, q.dtype, s, d)
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {q.device}")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: dtype {q.dtype} not supported (float32, bfloat16)")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, *others)):
+        raise ValueError(f"{name}: the bf16 route copies rows in 16-byte pieces; "
+                         f"q, k, v and do must start on a 16-byte boundary")
     return n, s, d
 
 
@@ -108,6 +138,18 @@ def attend_fwd(q, k, v, mask=None):
     return o
 
 
+def _bwd_scratch(q):
+    """The backward's scratch for (N, S, D) rows q, as (p, ds, stats):
+    the bf16 route keeps only the row statistics (max, sum, rowsum(dp p))
+    as one (3, N, S) fp32 tensor; the fp32 route moves p and ds through
+    two (N, S, S) tensors."""
+    n, s, _ = q.shape
+    if q.dtype == torch.bfloat16:
+        return None, None, torch.empty((3, n, s), dtype=torch.float32, device=q.device)
+    p = torch.empty((n, s, s), dtype=q.dtype, device=q.device)
+    return p, torch.empty_like(p), None
+
+
 def attend_bwd(q, k, v, mask, do):
     """Fused attention backward on (N, S, D) rows -> (dq, dk, dv)."""
     if q.device.type == "cpu":
@@ -115,10 +157,10 @@ def attend_bwd(q, k, v, mask, do):
     do = do.to(q.dtype).contiguous()
     n, s, d = _rows("attend_bwd", q, (k, v, do), mask)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
-    p = torch.empty((n, s, s), dtype=q.dtype, device=q.device)  # scratch: T(p), ds
-    ds = torch.empty_like(p)
+    p, ds, stats = _bwd_scratch(q)  # named locals: they must outlive the launch
     _build.call("attend_bwd", _DTYPE_CODE[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(mask),
-                _ptr(do), _ptr(p), _ptr(ds), _ptr(dq), _ptr(dk), _ptr(dv), n, s, d, _stream())
+                _ptr(do), _ptr(p), _ptr(ds), _ptr(stats), _ptr(dq), _ptr(dk), _ptr(dv), n, s,
+                d, _stream())
     _build.LAUNCHES["attend_bwd"] += 1
     return dq, dk, dv
 

@@ -2,7 +2,8 @@
 the JAX package's ``pallas_attention`` in interpret mode: fp32 forward
 to 2e-6 and dq/dk/dv to 5e-6 x max|ref|, as tests/test_fused_block.py
 holds the Pallas kernels; one bf16 case at 5e-3 x max|ref|. S = 37, 128
-and 129 cover the JAX side's padding to a multiple of 128."""
+and 129 cover the JAX side's padding to a multiple of 128; S = 201 and
+126 at D = 64 are the image and packed text rows at CLIP's head width."""
 
 import jax
 import jax.numpy as jnp
@@ -31,9 +32,9 @@ def _mask(kind, s):
     return np.where(keep, 0.0, NEG).astype(np.float32)
 
 
-def _inputs(s, seed):
+def _inputs(s, seed, b=B, h=H, d=D):
     rng = np.random.RandomState(seed)
-    return [rng.randn(B, H, s, D).astype(np.float32) for _ in range(4)]  # q, k, v, do
+    return [rng.randn(b, h, s, d).astype(np.float32) for _ in range(4)]  # q, k, v, do
 
 
 def _run_both(q, k, v, do, mask, dtype):
@@ -56,6 +57,18 @@ def test_fused_attention_matches_pallas(kind, s):
     q, k, v, do = _inputs(s, seed=s)
     (jo, *jg), (to, *tg) = _run_both(q, k, v, do, _mask(kind, s), torch.float32)
     np.testing.assert_allclose(to, jo, atol=2e-6)
+    for name, want, got in zip(("dq", "dk", "dv"), jg, tg):
+        np.testing.assert_allclose(got, want, atol=5e-6 * np.abs(want).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("s,kind", [(201, "none"), (126, "packed")])
+def test_fused_attention_matches_pallas_at_clip_head_width(s, kind):
+    """D = 64, the only head width of CLIP's towers and the one the bf16
+    tensor-core route takes: ViT-B/16 with 4 VPT rows, and the packed
+    text rows with their block-causal mask."""
+    q, k, v, do = _inputs(s, seed=s, b=1, h=2, d=64)
+    (jo, *jg), (to, *tg) = _run_both(q, k, v, do, _mask(kind, s), torch.float32)
+    np.testing.assert_allclose(to, jo, atol=2e-6 * np.abs(jo).max())
     for name, want, got in zip(("dq", "dk", "dv"), jg, tg):
         np.testing.assert_allclose(got, want, atol=5e-6 * np.abs(want).max(), err_msg=name)
 
@@ -106,34 +119,75 @@ def test_residuals_are_q_k_v_and_mask():
     assert sorted(saved) == sorted([(B * H, 21, D)] * 3 + [(21, 21)])
 
 
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     """Off the CPU a wrapper launches its kernel or raises: another
     device is refused, not sent to the plain twin; so are operands of
-    the wrong shape, dtype or layout, and shapes past one block's shared
-    memory (the limits csrc/attend_{fwd,bwd}.cu state)."""
-    def meta(*shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device="meta")
-
-    q = meta(6, 9, D)
+    the wrong shape, dtype or layout, and a bf16 head width that the
+    tensor-core route does not take (it is never sent to the fp32
+    kernel)."""
+    q = _meta(6, 9, D)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         attention.attend_fwd(q, q, q)
     with pytest.raises(ValueError, match="no kernel for device meta"):
-        attention.attend_bwd(q, q, q, meta(9, 9), q)
-    for k, mask in ((meta(6, 9, 8), None),                      # shape
-                    (meta(6, 9, D, dtype=torch.float64), None),  # dtype
-                    (meta(6, D, 9).transpose(1, 2), None),       # not contiguous
-                    (q, meta(9, 9, dtype=torch.bfloat16))):      # mask dtype
+        attention.attend_bwd(q, q, q, _meta(9, 9), q)
+    for k, mask in ((_meta(6, 9, 8), None),                      # shape
+                    (_meta(6, 9, D, dtype=torch.float64), None),  # dtype
+                    (_meta(6, D, 9).transpose(1, 2), None),       # not contiguous
+                    (q, _meta(9, 9, dtype=torch.bfloat16))):      # mask dtype
         with pytest.raises(ValueError, match="want a contiguous"):
             attention.attend_fwd(q, k, q, mask)
-    with pytest.raises(ValueError, match="more shared memory"):
-        attention.attend_fwd(*(meta(2, 349, 64) for _ in range(3)))
-    with pytest.raises(ValueError, match="more shared memory"):
-        attention.attend_bwd(*(meta(2, 279, 64) for _ in range(3)), None, meta(2, 279, 64))
-    words, limit = attention._smem_words, attention._SMEM_WORDS
-    assert words("attend_fwd", 348, 64) <= limit < words("attend_fwd", 349, 64)
-    assert words("attend_bwd", 278, 64) <= limit < words("attend_bwd", 279, 64)
-    for s in (77, 126, 201):  # CLIP text, packed text rows, ViT-B/16 + 4 VPT rows
-        assert words("attend_bwd", s, 64) <= limit
+    for d in (D, 32, 128):  # CLIP's heads are 64 wide
+        r = _meta(6, 9, d, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="tensor-core route takes D = 64"):
+            attention.attend_fwd(r, r, r)
+        with pytest.raises(ValueError, match="tensor-core route takes D = 64"):
+            attention.attend_bwd(r, r, r, None, r)
+
+
+@pytest.mark.parametrize("name,most", [("attend_fwd", {torch.bfloat16: 352, torch.float32: 348}),
+                                       ("attend_bwd", {torch.bfloat16: 280, torch.float32: 278})])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_each_route_takes_clip_rows_and_refuses_past_its_limit(name, most, dtype):
+    """Each route takes CLIP text (77), the packed text rows (126),
+    ViT-B/16 + 4 VPT rows (201), ViT-L/14 + 4 VPT rows (261) and the
+    fp32 kernels' shared-memory maxima (348 forward, 278 backward) at
+    D = 64, and refuses one past its own largest S: the bf16 route's
+    register buckets (csrc/attend_{fwd,bwd}.cu), the fp32 route's one
+    block of shared memory."""
+    fn = getattr(attention, name)
+
+    def call(s):
+        r = _meta(2, s, 64, dtype=dtype)
+        return fn(r, r, r) if name == "attend_fwd" else fn(r, r, r, None, r)
+
+    for s in (1, 17, 77, 126, 201, 261, most[torch.float32], most[dtype]):
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            call(s)  # past the route's checks, refused only for the device
+    past = "largest S" if dtype == torch.bfloat16 else "more shared memory"
+    with pytest.raises(ValueError, match=past):
+        call(most[dtype] + 1)
+    if dtype == torch.float32:
+        words, limit = attention._smem_words, attention._SMEM_WORDS
+        assert words(name, most[dtype], 64) <= limit < words(name, most[dtype] + 1, 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_scratch_of_each_route(dtype):
+    """The bf16 backward allocates no (N, S, S) tensor: only the (3, N, S)
+    fp32 row statistics (max, sum, rowsum(dp p)) pass between its two
+    launches. The fp32 route moves p and ds through (N, S, S) tensors."""
+    n, s = 384, 201  # the image train shape: 32 images x 12 heads
+    p, ds, stats = attention._bwd_scratch(_meta(n, s, 64, dtype=dtype))
+    if dtype == torch.bfloat16:
+        assert p is None and ds is None
+        assert (tuple(stats.shape), stats.dtype) == ((3, n, s), torch.float32)
+    else:
+        assert stats is None
+        assert [(tuple(t.shape), t.dtype) for t in (p, ds)] == [((n, s, s), dtype)] * 2
 
 
 def test_cpu_calls_launch_no_kernel():

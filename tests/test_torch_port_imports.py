@@ -92,6 +92,66 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
         _build.build_kernels()
 
 
+_PTXAS_ENTRY = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{name}' for 'sm_90a'\n"
+                "    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads\n"
+                "ptxas info    : Used {regs} registers, used 1 barriers\n")
+
+
+def _ptxas_log(*entries) -> str:
+    return "".join(_PTXAS_ENTRY.format(name=n, spill=s, regs=r) for n, s, r in entries)
+
+
+def test_kernel_build_keeps_each_log_beside_its_library(tmp_path, monkeypatch):
+    """A cached library comes back with its build's ptxas log, so the spill
+    check reads every source however warm the build directory is; a
+    library whose log is missing is built again."""
+    from mvlpt_torch.ops import _build
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f"#!{sys.executable}\nimport sys\n"
+                    "open(sys.argv[sys.argv.index('-o') + 1], 'w').close()\n"
+                    "print('ptxas info    : Used 7 registers,', sys.argv[-1].rsplit('/', 1)[-1])\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("MVLPT_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    first = _build.build_kernels()
+    assert first["built"] == sorted(_build.SOURCES)
+    for name in _build.SOURCES:
+        assert first["ptxas"][name].strip() == f"ptxas info    : Used 7 registers, {name}.cu"
+
+    monkeypatch.setattr(_build, "_nvcc", lambda: (_ for _ in ()).throw(
+        AssertionError("a cached library was rebuilt")))
+    assert _build.build_kernels() == dict(first, built=[])
+
+    _build._log_path("attend_bwd").unlink()
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    again = _build.build_kernels()
+    assert again["built"] == ["attend_bwd"] and again["ptxas"] == first["ptxas"]
+
+
+@pytest.mark.parametrize("fwd, bwd, error", [
+    ([("attend_fwd_tcILi26EEEv", 0, 230), ("attend_fwd_kernelEPKf", 0, 32)],
+     [("attend_bwd_dq_tcILi26EEEv", 0, 127), ("attend_bwd_dkv_tcILi26EEEv", 0, 168)], None),
+    ([("attend_fwd_tcILi26EEEv", 0, 230)],
+     [("attend_bwd_dq_tcILi26EEEv", 40, 255)], "spill"),
+    ([("attend_fwd_kernelEPKf", 0, 32)],
+     [("attend_bwd_dq_tcILi26EEEv", 0, 127)], "no tensor-core kernel in attend_fwd"),
+], ids=["clean", "spill", "no-tc-kernel"])
+def test_chip_smoke_spill_check_reads_each_attention_kernel(fwd, bwd, error, capsys):
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    logs = {"attend_fwd": _ptxas_log(*fwd), "attend_bwd": _ptxas_log(*bwd)}
+    if error is None:
+        chip_smoke.check_tc_spills(logs)
+        assert "attend_fwd_tc<NT=26>: 230 registers, 0 bytes of spills" in capsys.readouterr().out
+    else:
+        with pytest.raises(AssertionError, match=error):
+            chip_smoke.check_tc_spills(logs)
+
+
 def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):
     alone = tmp_path / "alone"
     alone.mkdir()
