@@ -17,12 +17,17 @@
    image train and eval shapes, the packed text rows, CLIP's full text
    context and the edges of the tensor-core tiling (S = 1, 17, 261 and
    each route's largest S), each row naming its route (bf16 on the
-   tensor cores, fp32 on the CUDA cores); in bf16 each wrapper may
-   request nothing beyond its outputs (and the backward's row
-   statistics), and ptxas must report no spills for any tensor-core
-   attention kernel, in this run's build or the cached one's. Times
-   kernel, twin and a library call computing the same function
-   (scaled_dot_product_attention on the attention core).
+   tensor cores, fp32 on the CUDA cores; the MLP forwards' rows too:
+   bf16 through the wgmma GEMM); in bf16 each standalone-attention
+   wrapper may request nothing beyond its outputs (and the backward's
+   row statistics), and mlp_fwd nothing beyond its outputs and its xh
+   and act scratch. ptxas must report no spills for any tensor-core
+   kernel (the attention's and the wgmma GEMM's), in this run's build or
+   the cached one's, and mlp_fwd's library must hold HGMMA in its SASS.
+   Times kernel, twin and a library call computing the same function
+   (scaled_dot_product_attention on the attention core), and, as a
+   yardstick for the MLP forwards' products alone, cuBLAS's two
+   products on the same xh and act (gemm_library_ms).
 3. Drives the port's paths, each with the launch counts set to 0 just
    before it and read just after, against the plain path ('off') on the
    same inputs:
@@ -241,9 +246,9 @@ def check_kernels(shapes: dict) -> list[dict]:
              lambda: block.mlp_bwd_plain(*mlp_bwd_args), gemm_mlp,
              act + stats + m * w4 * esz + (2 * w * w4 + w) * esz + act + act, None),
         ]
+        gemm_lib = mlp_gemm_library(*mlp_args[:6])
         for name, mode, kern, plain, flops, nbytes, lib in (c for c in cases if c[1] in modes):
-            got = kern()
-            torch.cuda.synchronize()
+            got, alloc = requested(kern)
             ref = plain()
             err = (got.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
@@ -255,9 +260,48 @@ def check_kernels(shapes: dict) -> list[dict]:
                        ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
                        library_ms=None if lib is None else cuda_ms(lib),
                        bound_ms=bound_ms, bound_by=bound_by)
+            if name == "mlp_fwd":
+                # The bf16 route's wrapper requests its outputs and the xh
+                # and act scratch, nothing more.
+                train = mode == "train"
+                want = act + (m * w4 * esz + stats if train else 0) + act + m * w4 * esz
+                row.update(route=block.MLP_ROUTES[dtype], gemm_library_ms=cuda_ms(gemm_lib),
+                           requested_bytes=alloc, want_bytes=want)
+                if dtype == torch.bfloat16 and alloc != want:
+                    raise AssertionError(f"mlp_fwd ({mode}, {tower}, bf16): requested {alloc} "
+                                         f"bytes, not those of its outputs and scratch ({want})")
             rows.append(row)
             print("kernel-check " + json.dumps(row), flush=True)
     return _fail_on_disagreement(rows)
+
+
+def requested(fn):
+    """fn()'s result and the bytes it asked the caching allocator for at
+    its peak. Its block counts (memory_allocated) would add whatever a
+    cached free block holds beyond the request when it is reused unsplit."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    got = fn()
+    torch.cuda.synchronize()
+    return got, torch.cuda.memory_stats()["requested_bytes.all.peak"] - before
+
+
+def mlp_gemm_library(x, ln_scale, ln_bias, fc_w, fc_b, proj_w):
+    """A yardstick for the MLP forwards' two products alone, not the same
+    function (no LayerNorm, epilogues or rounding between): cuBLAS
+    (torch.matmul) in x's dtype on the twin's xh and act, which the port
+    never calls. Returns the callable that gemm_library_ms times."""
+    import torch
+
+    from mvlpt_torch.ops import block
+
+    xh = block._ln2d(x.float(), ln_scale.float(), ln_bias.float(), 1e-5)[0].to(x.dtype)
+    act = block._mlp_hidden_plain(x, ln_scale, ln_bias, fc_w, fc_b, 1e-5)[0]
+    w, w4 = fc_w.shape
+    return lambda: (torch.matmul(xh.view(-1, w), fc_w), torch.matmul(act.view(-1, w4), proj_w))
 
 
 def _fail_on_disagreement(rows: list[dict]) -> list[dict]:
@@ -348,6 +392,9 @@ def check_tp_kernels(shapes: dict) -> list[dict]:
                        ok=math.isfinite(err) and err <= TOL[dtype_name] * scale,
                        ms=cuda_ms(kern), plain_ms=cuda_ms(plain), library_ms=None,
                        bound_ms=bound_ms, bound_by=bound_by)
+            if name == "mlp_fwd_tp":
+                row.update(route=block.MLP_ROUTES[dtype],
+                           gemm_library_ms=cuda_ms(mlp_gemm_library(*mlp_args(0))))
             rows.append(row)
             print("kernel-check " + json.dumps(row), flush=True)
 
@@ -431,15 +478,7 @@ def check_attend(shapes: dict) -> list[dict]:
              7 * rows_b + mask_b, lib_bwd),
         ]
         for name, kern, plain, flops, nbytes, lib in (c for c in cases if c[0] in names):
-            # Bytes the wrapper asked the caching allocator for. Its block
-            # counts (memory_allocated) would add whatever a cached free
-            # block holds beyond the request when it is reused unsplit.
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            before = torch.cuda.memory_stats()["requested_bytes.all.current"]
-            got = kern()
-            torch.cuda.synchronize()
-            alloc = torch.cuda.memory_stats()["requested_bytes.all.peak"] - before
+            got, alloc = requested(kern)
             ref = plain()
             errs = [(g.float() - r.float()).abs().max().item() for g, r in zip(got, ref)]
             scales = [r.float().abs().max().item() for r in ref]
@@ -465,33 +504,47 @@ def check_attend(shapes: dict) -> list[dict]:
     return _fail_on_disagreement(rows)
 
 
-def tc_ptxas(log: str) -> list[tuple[str, int, int]]:
-    """(kernel<bucket>, registers, bytes of spills) of each tensor-core
-    attention kernel in one source's ptxas -v log, read per kernel
-    because the fp32 route shares the source."""
+# The tensor-core kernels of each source, by their mangled names: the
+# bf16 route of attend_fwd.cu / attend_bwd.cu (one kernel a register
+# bucket NT) and mlp_fwd.cu's wgmma GEMM (one an epilogue EPI and tile
+# width BN).
+TC_KERNELS = {"attend_fwd": r"attend_fwd_tc", "attend_bwd": r"attend_bwd_(?:dq|dkv)_tc",
+              "mlp_fwd": r"wgmma_gemm_kernel"}
+# setmaxnreg's split in csrc/wgmma.cuh needs the 168 registers a thread
+# that a block of 384 threads holds at entry; with fewer, the consumers'
+# request could never be met.
+WGMMA_ENTRY_REGS = 168
+
+
+def tc_ptxas(log: str, pattern: str) -> list[tuple[str, int, int]]:
+    """(kernel<template arguments>, registers, bytes of spills) of each
+    kernel whose mangled name matches ``pattern`` in one source's ptxas
+    -v log, read per kernel because the fp32 routes share the sources."""
     rows = []
     for chunk in log.split("Compiling entry function '")[1:]:
         mangled = chunk.split("'", 1)[0]
-        kernel = re.search(r"attend_(?:fwd|bwd_dq|bwd_dkv)_tc", mangled)
+        kernel = re.search(pattern, mangled)
         if kernel is None:
             continue
-        nt = re.search(r"ILi(\d+)EE", mangled)
+        args = re.search(r"ILi(\d+)E(?:Li(\d+)E)?E", mangled)
+        label = ("?" if args is None else
+                 f"NT={args.group(1)}" if args.group(2) is None
+                 else f"EPI={args.group(1)},BN={args.group(2)}")
         regs = re.search(r"Used (\d+) registers", chunk)
-        rows.append((f"{kernel.group(0)}<NT={nt.group(1) if nt else '?'}>",
-                     int(regs.group(1)) if regs else -1,
+        rows.append((f"{kernel.group(0)}<{label}>", int(regs.group(1)) if regs else -1,
                      sum(int(b) for b in re.findall(r"(\d+) bytes spill", chunk))))
     return rows
 
 
 def check_tc_spills(logs: dict) -> None:
-    """ptxas's registers and spills of each tensor-core attention kernel
-    (the bf16 route of attend_fwd.cu and attend_bwd.cu, one per register
-    bucket), printed; any spill fails the run, and so does a source whose
-    build log (``_build.build_kernels``: this run's or the cached
-    library's) names no such kernel."""
+    """ptxas's registers and spills of each tensor-core kernel
+    (TC_KERNELS), printed; any spill fails the run, and so does a source
+    whose build log (``_build.build_kernels``: this run's or the cached
+    library's) names no such kernel, or a wgmma GEMM kernel holding fewer
+    than WGMMA_ENTRY_REGS registers."""
     rows = []
-    for src in ("attend_fwd", "attend_bwd"):
-        found = tc_ptxas(logs[src])
+    for src, pattern in TC_KERNELS.items():
+        found = tc_ptxas(logs[src], pattern)
         if not found:
             raise AssertionError(f"ptxas: no tensor-core kernel in {src}.cu's build log")
         rows += found
@@ -499,7 +552,27 @@ def check_tc_spills(logs: dict) -> None:
         print(f"ptxas {label}: {regs} registers, {spill} bytes of spills", flush=True)
     spilled = [label for label, _, spill in rows if spill]
     if spilled:
-        raise AssertionError(f"ptxas: tensor-core attention kernels spill: {spilled}")
+        raise AssertionError(f"ptxas: tensor-core kernels spill: {spilled}")
+    short = [label for label, regs, _ in rows
+             if label.startswith("wgmma") and regs < WGMMA_ENTRY_REGS]
+    if short:
+        raise AssertionError(f"ptxas: wgmma GEMM kernels below {WGMMA_ENTRY_REGS} registers "
+                             f"at entry, which setmaxnreg's split needs: {short}")
+
+
+def check_hgmma() -> None:
+    """The built mlp_fwd library's SASS (the toolkit's cuobjdump) must
+    hold HGMMA, the instruction wgmma compiles to: the bf16 route really
+    reaches the tensor cores through wgmma."""
+    from mvlpt_torch.ops import _build
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(_build._lib_path("mlp_fwd"))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    count = len(re.findall(r"\bHGMMA\.", sass))
+    print(f"sass mlp_fwd: {count} HGMMA instructions", flush=True)
+    if not count:
+        raise AssertionError("sass: no HGMMA in mlp_fwd's library: the bf16 route misses wgmma")
 
 
 def _launches(path: str, kernels: tuple, per: int) -> dict:
@@ -921,7 +994,12 @@ def kernel_entries(results: list[dict], paths: dict) -> list[dict]:
                     "launches_by_path": by_path, "shape": r["shape"],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                    "library_ms": r["library_ms"]})
+                    "library_ms": r["library_ms"],
+                    # The row's route by dtype (MLP_ROUTES, attention.ROUTES) and
+                    # the MLP products' cuBLAS yardstick, where the row has them.
+                    **({"dtype_route": r["route"]} if "route" in r else {}),
+                    **({"gemm_library_ms": r["gemm_library_ms"]} if "gemm_library_ms" in r
+                       else {})})
     return out
 
 
@@ -959,6 +1037,7 @@ def main() -> int:
               f"kernels, at most {max(regs, default=0)} registers a thread, {spill} bytes of "
               f"spills", flush=True)
     check_tc_spills(info["ptxas"])
+    check_hgmma()
 
     s = compute_cut_context_length([f"class number {i}" for i in range(100)], 4)
     g, rows = packing(100, s)

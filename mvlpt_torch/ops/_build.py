@@ -22,7 +22,6 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd", "attend_fwd", "attend_bwd")
-_HEADERS = ("common.cuh", "mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -87,9 +86,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
 
 
+def _headers() -> list[str]:
+    """Every header under csrc/: each keys every library's digest, so no
+    header can leave a stale library behind."""
+    return sorted(p.name for p in CSRC.glob("*.cuh"))
+
+
 def _digest(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (f"{name}.cu",) + _HEADERS:
+    for f in [f"{name}.cu"] + _headers():
+        h.update(f.encode())
         h.update((CSRC / f).read_bytes())
     return h.hexdigest()[:16]
 

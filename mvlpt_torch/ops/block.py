@@ -45,6 +45,14 @@ from mvlpt_torch.ops import _build
 
 _EPS = 1e-5
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# The routes of the MLP forwards' two products (mlp_fwd, mlp_fwd_part),
+# by dtype: bf16 on the tensor cores (csrc/wgmma.cuh), fp32 on the CUDA
+# cores (csrc/common.cuh). The other half-block kernels keep the CUDA-core
+# GEMM in both dtypes.
+MLP_ROUTES = {torch.bfloat16: "tensor cores (wgmma + TMA, bf16)",
+              torch.float32: "CUDA cores (fp32 FMA)"}
+# The bf16 route's TMA tiles: K and N in slabs of 64 values.
+_WG_MULTIPLE = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,6 +242,20 @@ def _local_width(name, qkv_width, n_heads):
     return qkv_width // 3
 
 
+def _check_mlp_route(name, x, w4, operands):
+    """The bf16 route (MLP_ROUTES) reads its operands by TMA and writes
+    16-byte pieces: W and W4 must be multiples of 64 and every base
+    16-byte aligned. It raises rather than take another route."""
+    w = x.shape[-1]
+    if x.dtype != torch.bfloat16:
+        return
+    if w % _WG_MULTIPLE or w4 % _WG_MULTIPLE:
+        raise ValueError(f"{name}: the bf16 tensor-core route takes W and 4W in multiples of "
+                         f"{_WG_MULTIPLE}, got W = {w}, 4W = {w4}")
+    if any(t.data_ptr() % 16 for t in (x, *operands)):
+        raise ValueError(f"{name}: the bf16 tensor-core route needs 16-byte-aligned tensors")
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -295,7 +317,9 @@ def attn_bwd(x, mu, rstd, qkv, probs, ln_scale, qkv_w, out_w, gy, n_heads):
 
 def mlp_fwd(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b, eps=_EPS,
             save_residuals=True):
-    """MLP half-block forward -> (y, (hpre, mu, rstd) or None)."""
+    """MLP half-block forward -> (y, (hpre, mu, rstd) or None). On the
+    card its two products take the dtype's route in ``MLP_ROUTES``: bf16
+    on the tensor cores (wgmma fed by TMA), fp32 on the CUDA cores."""
     if x.device.type == "cpu":
         return mlp_fwd_plain(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b, eps,
                              save_residuals)
@@ -303,6 +327,7 @@ def mlp_fwd(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b, eps=_EPS,
     w4 = fc_b.shape[0]
     _check("mlp_fwd", x, [(ln_scale, (w,)), (ln_bias, (w,)), (fc_w, (w, w4)), (fc_b, (w4,)),
                           (proj_w, (w4, w)), (proj_b, (w,))])
+    _check_mlp_route("mlp_fwd", x, w4, (fc_w, fc_b, proj_w, proj_b))
     f32 = torch.float32
     hpre = _empty((b, s, w4), x) if save_residuals else None
     mu = _empty((b, s), x, f32) if save_residuals else None
@@ -379,13 +404,14 @@ def attn_bwd_part(qkv, probs, qkv_w, out_w, gy, n_heads):
 
 def mlp_fwd_part(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, eps=_EPS):
     """Tensor-parallel MLP part over the hidden units of fc_w (W, W4) ->
-    (fp32 partial (B, S, W), (hpre, mu, rstd))."""
+    (fp32 partial (B, S, W), (hpre, mu, rstd)); routes as ``mlp_fwd``."""
     if x.device.type == "cpu":
         return mlp_fwd_part_plain(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, eps)
     b, s, w = _dims("mlp_fwd_part", x)
     w4 = fc_b.shape[0]
     _check("mlp_fwd_part", x, [(ln_scale, (w,)), (ln_bias, (w,)), (fc_w, (w, w4)),
                                (fc_b, (w4,)), (proj_w, (w4, w))])
+    _check_mlp_route("mlp_fwd_part", x, w4, (fc_w, fc_b, proj_w))
     f32 = torch.float32
     ypart, hpre = _empty((b, s, w), x, f32), _empty((b, s, w4), x)
     mu, rstd = _empty((b, s), x, f32), _empty((b, s), x, f32)

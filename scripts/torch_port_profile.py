@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time of the port's flagship train step goes, on one card.
+"""Where the time of the port's flagship train step, or of its eval, goes,
+on one card.
 
-    python3 scripts/torch_port_profile.py [--steps 3] [--out DIR]
+    python3 scripts/torch_port_profile.py [--path train|eval] [--steps 3] [--out DIR]
 
 Runs the flagship MVLPT UPT train step (ViT-B/16, batch 32, 100
-classes, bf16, fused half-block kernels on both towers) for two warm-up
-steps, then traces ``--steps`` steps with torch.profiler. Prints the
+classes, bf16, fused half-block kernels on both towers), or with
+``--path eval`` the cached-text eval's image tower at batch 100 (the
+no-grad half-block kernels; the text features computed once before),
+for two warm-up steps, then traces ``--steps`` steps with
+torch.profiler. Prints the
 card (nvidia-smi name and power limit), ms/step on the host clock, the
 device time a step summed over kernels, the device's idle share, and
 device time by kernel name; writes the Chrome trace to ``--out``.
@@ -27,6 +31,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--path", choices=("train", "eval"), default="train")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "torch_port_profile"))
     args = ap.parse_args()
@@ -43,27 +48,40 @@ def main() -> int:
     from chip_smoke import card_line, setup_vocab
     from mvlpt_torch.config import OptimConfig
     from mvlpt_torch.flagship import CLIP_PIXEL_MEAN, CLIP_PIXEL_STD, flagship
-    from mvlpt_torch.train import init_train_state, make_train_step
+    from mvlpt_torch.train import init_train_state, make_cached_text_eval, make_train_step
 
     print(card_line())  # name, power limit (nvidia-smi)
     print(setup_vocab())
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    norm = (CLIP_PIXEL_MEAN, CLIP_PIXEL_STD)
     model, backbone, pp, consts, _, clip_cfg = flagship(device="cuda", kernels="auto")
-    state = init_train_state(pp, OptimConfig(LR=0.002, LR_SCHEDULER="cosine", MAX_EPOCH=200),
-                             100)
-    step = make_train_step(model, normalize=(CLIP_PIXEL_MEAN, CLIP_PIXEL_STD))
     rng = np.random.RandomState(0)
-    batch = {"image": torch.from_numpy(rng.randint(0, 256, (32, 224, 224, 3)).astype(np.uint8)).cuda(),
-             "label": torch.from_numpy(rng.randint(0, 100, 32)).cuda()}
+    size = 32 if args.path == "train" else 100
+    batch = {"image": torch.from_numpy(rng.randint(0, 256, (size, 224, 224, 3)).astype(
+                 np.uint8)).cuda(),
+             "label": torch.from_numpy(rng.randint(0, 100, size)).cuda()}
+    if args.path == "train":
+        state = init_train_state(pp, OptimConfig(LR=0.002, LR_SCHEDULER="cosine",
+                                                 MAX_EPOCH=200), 100)
+        train_step = make_train_step(model, normalize=norm)
+
+        def step():
+            train_step(state, backbone, consts, batch)
+    else:
+        text_fn, eval_fn = make_cached_text_eval(model, normalize=norm)
+        text_features = text_fn(backbone, pp, consts)
+
+        def step():
+            eval_fn(backbone, pp, text_features, batch)
     for _ in range(2):
-        step(state, backbone, consts, batch)
+        step()
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            step(state, backbone, consts, batch)
+            step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     os.makedirs(args.out, exist_ok=True)
@@ -76,11 +94,13 @@ def main() -> int:
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3 / args.steps
     step_ms = wall * 1e3 / args.steps
-    print(json.dumps({"ms_per_step_host": step_ms, "device_ms_per_step": busy_ms,
+    print(json.dumps({"path": args.path, "ms_per_step_host": step_ms,
+                      "device_ms_per_step": busy_ms,
                       "device_idle_share": max(0.0, 1 - busy_ms / step_ms),
                       "steps": args.steps}))
     for dev_us, count, key in rows[:30]:
-        print(f"{dev_us / 1e3 / args.steps:9.3f} ms/step {count // args.steps:6d} calls/step  {key[:110]}")
+        print(f"{dev_us / 1e3 / args.steps:9.3f} ms/step {count // args.steps:6d} calls/step  "
+              f"{key[:140]}")
     return 0
 
 

@@ -1,13 +1,17 @@
 """The port's fused half-block kernels (plain twins on the CPU) against
 the JAX package's Pallas kernels in interpret mode, fp32: forward to
 2e-6 and dx to 5e-6, as tests/test_fused_block.py holds the Pallas
-kernels to the XLA path."""
+kernels to the XLA path. The MLP forwards' twins, which the card's bf16
+kernels are held to, are also held to the Pallas bodies in bf16."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from mvlpt_tpu.core import layers as jlayers
 from mvlpt_tpu.core import text as jtext
@@ -173,3 +177,114 @@ def test_kernel_selection_and_cpu_launch_counts():
                                "mlp_fwd_infer": 0, "mlp_bwd": 0, "attend_fwd": 0,
                                "attend_bwd": 0, "attn_fwd_tp": 0, "attn_bwd_tp": 0,
                                "mlp_fwd_tp": 0, "mlp_bwd_tp": 0}
+
+
+# --------------------------------------------------- MLP forwards in bf16
+
+def _bf16_close(got, want, name):
+    """5e-3 x max|ref|, the card's bf16 TOL: the products sum in another
+    order, so an output on a rounding boundary moves by one bf16 ulp."""
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=5e-3 * np.abs(want).max(),
+                               err_msg=name)
+
+
+def _mlp_bf16_inputs(seed, b=3, s=17, w=64):
+    """A ragged row count (B S = 51 rows, not a multiple of a tile), as
+    (jax x, jax params, torch x, torch params) in bf16."""
+    rng = np.random.RandomState(seed)
+    p_np = block_params_np(rng, w)
+    x_np = rng.randn(b, s, w).astype(np.float32)
+    jp = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.bfloat16), p_np)
+    tp = jax.tree_util.tree_map(lambda a: torch.from_numpy(a).bfloat16(), p_np)
+    return jnp.asarray(x_np, jnp.bfloat16), jp, torch.from_numpy(x_np).bfloat16(), tp
+
+
+def _mlp_twin_args(tp):
+    ln, ml = tp["ln_2"], tp["mlp"]
+    return ln["scale"], ln["bias"], ml["fc_w"], ml["fc_b"], ml["proj_w"], ml["proj_b"]
+
+
+def test_mlp_fwd_twin_matches_pallas_in_bf16():
+    """mlp_fwd_plain in bf16 against _mlp_fwd (y and the residuals hpre,
+    mu, rstd) and mlp_block_infer, in interpret mode."""
+    jx, jp, tx, tp = _mlp_bf16_inputs(8)
+    jy, (_, _, _, jhpre, jmu, jrstd) = jblock._mlp_fwd(jx, jp["ln_2"], jp["mlp"], 1e-5)
+    y, (hpre, mu, rstd) = block.mlp_fwd_plain(tx, *_mlp_twin_args(tp))
+    assert y.dtype == hpre.dtype == torch.bfloat16
+    _bf16_close(y, jy, "y")
+    _bf16_close(hpre, jhpre, "hpre")
+    # The LayerNorm statistics are fp32 of the same bf16 x.
+    np.testing.assert_allclose(mu.numpy(), np.asarray(jmu)[..., 0], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(rstd.numpy(), np.asarray(jrstd)[..., 0], rtol=1e-5)
+    jyi = jblock.mlp_block_infer(jx, jp["ln_2"], jp["mlp"])
+    yi, res = block.mlp_fwd_plain(tx, *_mlp_twin_args(tp), save_residuals=False)
+    assert res is None
+    _bf16_close(yi, jyi, "y (no residuals)")
+
+
+def _jax_mlp_part(x, ln_p, fc_w, fc_b, proj_w):
+    """The JAX package's part kernel (_mlp_fwd_kernel, part=True) as
+    _mlp_tp_fwd calls it on one model rank's shard, one image a program."""
+    b, s, w = x.shape
+    w4l = fc_w.shape[1]
+    row2 = pl.BlockSpec((1, s, 1), lambda i: (i, 0, 0), memory_space=jblock.pltpu.VMEM)
+    f32 = jnp.float32
+    return pl.pallas_call(
+        functools.partial(jblock._mlp_fwd_kernel, eps=1e-5, g_imgs=1, part=True),
+        grid=(b,),
+        in_specs=[jblock._row3(1, s, w), jblock._full(w), jblock._full(w),
+                  jblock._full(w, w4l), jblock._full(w4l), jblock._full(w4l, w)],
+        out_specs=(jblock._row3(1, s, w), jblock._row3(1, s, w4l), row2, row2),
+        out_shape=(jax.ShapeDtypeStruct((b, s, w), f32),
+                   jax.ShapeDtypeStruct((b, s, w4l), x.dtype),
+                   jax.ShapeDtypeStruct((b, s, 1), f32), jax.ShapeDtypeStruct((b, s, 1), f32)),
+        interpret=jblock._interpret(),
+    )(x, ln_p["scale"], ln_p["bias"], fc_w, fc_b, proj_w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mlp_fwd_part_twin_matches_pallas_part_kernel(dtype):
+    """mlp_fwd_part_plain on the second of two hidden-unit shards against
+    the Pallas part kernel: the fp32 partial, hpre, mu and rstd. bf16 at
+    the card's TOL, fp32 at the block tolerance."""
+    jx, jp, tx, tp = _mlp_bf16_inputs(9)
+    if dtype == torch.float32:
+        jx, tx = jx.astype(jnp.float32), tx.float()
+        jp = jax.tree_util.tree_map(lambda a: a.astype(jnp.float32), jp)
+        tp = jax.tree_util.tree_map(lambda t: t.float(), tp)
+    w4l = tp["mlp"]["fc_b"].shape[0] // 2
+    cols = slice(w4l, 2 * w4l)
+    jm, tm = jp["mlp"], tp["mlp"]
+    want = _jax_mlp_part(jx, jp["ln_2"], jm["fc_w"][:, cols], jm["fc_b"][cols],
+                         jm["proj_w"][cols])
+    ypart, (hpre, mu, rstd) = block.mlp_fwd_part_plain(
+        tx, tp["ln_2"]["scale"], tp["ln_2"]["bias"], tm["fc_w"][:, cols].contiguous(),
+        tm["fc_b"][cols].contiguous(), tm["proj_w"][cols].contiguous())
+    assert ypart.dtype == torch.float32 and hpre.dtype == dtype
+    if dtype == torch.bfloat16:
+        _bf16_close(ypart, want[0], "ypart")
+        _bf16_close(hpre, want[1], "hpre")
+    else:
+        np.testing.assert_allclose(ypart.numpy(), np.asarray(want[0]), atol=2e-6)
+        np.testing.assert_allclose(hpre.numpy(), np.asarray(want[1]), atol=2e-6)
+    np.testing.assert_allclose(mu.numpy(), np.asarray(want[2])[..., 0], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(rstd.numpy(), np.asarray(want[3])[..., 0], rtol=1e-5)
+
+
+def test_mlp_bf16_route_checks_widths_and_alignment():
+    """The bf16 route (MLP_ROUTES) takes W and 4W in multiples of 64 and
+    16-byte-aligned tensors, and raises on anything else; fp32 keeps the
+    CUDA-core GEMM and takes any width."""
+    assert set(block.MLP_ROUTES) == {torch.bfloat16, torch.float32}
+    assert "wgmma" in block.MLP_ROUTES[torch.bfloat16]
+    bf = torch.bfloat16
+    x, fc_w = torch.zeros(2, 3, 64, dtype=bf), torch.zeros(64, 256, dtype=bf)
+    block._check_mlp_route("t", x, 256, (fc_w,))
+    with pytest.raises(ValueError, match="multiples of 64"):
+        block._check_mlp_route("t", torch.zeros(2, 3, 96, dtype=bf), 384, ())
+    with pytest.raises(ValueError, match="multiples of 64"):
+        block._check_mlp_route("t", x, 224, ())
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        block._check_mlp_route("t", x, 256, (torch.zeros(64 * 256 + 1, dtype=bf)[1:],))
+    block._check_mlp_route("t", torch.zeros(2, 3, 96), 384, ())  # fp32: any width

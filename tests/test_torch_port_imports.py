@@ -129,27 +129,71 @@ def test_kernel_build_keeps_each_log_beside_its_library(tmp_path, monkeypatch):
     assert again["built"] == ["attend_bwd"] and again["ptxas"] == first["ptxas"]
 
 
-@pytest.mark.parametrize("fwd, bwd, error", [
+_WG = "wgmma_gemm_kernelILi{}ELi{}EEEv14CUtensorMap_stS0_iiiN5mvlpt7EpiArgsE"
+_MLP_CLEAN = [(_WG.format(4, 256), 0, 168), (_WG.format(3, 128), 0, 168),
+              ("gemm_kernelIfLb0ELi4EEEvPKT_S3_iiiNS_7EpiArgsE", 0, 80)]
+
+
+@pytest.mark.parametrize("fwd, bwd, mlp, error", [
     ([("attend_fwd_tcILi26EEEv", 0, 230), ("attend_fwd_kernelEPKf", 0, 32)],
-     [("attend_bwd_dq_tcILi26EEEv", 0, 127), ("attend_bwd_dkv_tcILi26EEEv", 0, 168)], None),
+     [("attend_bwd_dq_tcILi26EEEv", 0, 127), ("attend_bwd_dkv_tcILi26EEEv", 0, 168)],
+     _MLP_CLEAN, None),
     ([("attend_fwd_tcILi26EEEv", 0, 230)],
-     [("attend_bwd_dq_tcILi26EEEv", 40, 255)], "spill"),
+     [("attend_bwd_dq_tcILi26EEEv", 40, 255)], _MLP_CLEAN, "spill"),
     ([("attend_fwd_kernelEPKf", 0, 32)],
-     [("attend_bwd_dq_tcILi26EEEv", 0, 127)], "no tensor-core kernel in attend_fwd"),
-], ids=["clean", "spill", "no-tc-kernel"])
-def test_chip_smoke_spill_check_reads_each_attention_kernel(fwd, bwd, error, capsys):
+     [("attend_bwd_dq_tcILi26EEEv", 0, 127)], _MLP_CLEAN, "no tensor-core kernel in attend_fwd"),
+    ([("attend_fwd_tcILi26EEEv", 0, 230)], [("attend_bwd_dq_tcILi26EEEv", 0, 127)],
+     [(_WG.format(4, 256), 24, 168), (_WG.format(3, 128), 0, 168)], "spill"),
+    ([("attend_fwd_tcILi26EEEv", 0, 230)], [("attend_bwd_dq_tcILi26EEEv", 0, 127)],
+     _MLP_CLEAN[2:], "no tensor-core kernel in mlp_fwd"),
+    ([("attend_fwd_tcILi26EEEv", 0, 230)], [("attend_bwd_dq_tcILi26EEEv", 0, 127)],
+     [(_WG.format(4, 256), 0, 128)], "below 168 registers"),
+], ids=["clean", "spill", "no-tc-kernel", "wgmma-spill", "no-wgmma-kernel", "wgmma-short"])
+def test_chip_smoke_spill_check_reads_each_attention_kernel(fwd, bwd, mlp, error, capsys):
+    """The spill check reads the tensor-core kernels of each source: the
+    standalone attention's and mlp_fwd's wgmma GEMM, which must also hold
+    the registers setmaxnreg's split needs."""
     sys.path.insert(0, str(ROOT))
     try:
         import chip_smoke
     finally:
         sys.path.remove(str(ROOT))
-    logs = {"attend_fwd": _ptxas_log(*fwd), "attend_bwd": _ptxas_log(*bwd)}
+    logs = {"attend_fwd": _ptxas_log(*fwd), "attend_bwd": _ptxas_log(*bwd),
+            "mlp_fwd": _ptxas_log(*mlp)}
     if error is None:
         chip_smoke.check_tc_spills(logs)
-        assert "attend_fwd_tc<NT=26>: 230 registers, 0 bytes of spills" in capsys.readouterr().out
+        out = capsys.readouterr().out
+        assert "attend_fwd_tc<NT=26>: 230 registers, 0 bytes of spills" in out
+        assert "wgmma_gemm_kernel<EPI=4,BN=256>: 168 registers, 0 bytes of spills" in out
+        assert "gemm_kernelIf" not in out
     else:
         with pytest.raises(AssertionError, match=error):
             chip_smoke.check_tc_spills(logs)
+
+
+def test_every_header_keys_every_library(tmp_path, monkeypatch):
+    """A library's digest covers its source and every header under csrc/,
+    a header added later included: a change to any header rebuilds every
+    library, so none is left stale."""
+    from mvlpt_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    headers = sorted(p.name for p in csrc.glob("*.cuh"))
+    assert {"common.cuh", "mma.cuh", "wgmma.cuh"} <= set(headers)
+    base = {name: _build._digest(name) for name in _build.SOURCES}
+    for header in headers + ["later.cuh"]:
+        path = csrc / header
+        old = path.read_bytes() if path.exists() else None
+        path.write_bytes((old or b"") + b"// edited\n")
+        after = {name: _build._digest(name) for name in _build.SOURCES}
+        assert all(after[n] != base[n] for n in _build.SOURCES), header
+        if old is None:
+            path.unlink()
+        else:
+            path.write_bytes(old)
+    assert {name: _build._digest(name) for name in _build.SOURCES} == base
 
 
 def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):
