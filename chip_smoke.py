@@ -13,21 +13,28 @@
    half-block kernels at the flagship shapes (ViT-B/16
    image tower at batch 32, and at the eval batch 100 for the
    no-residual forwards; class-packed text tower with its block-causal
-   mask), and the standalone attention (forward and backward) at the
-   image train and eval shapes, the packed text rows, CLIP's full text
-   context and the edges of the tensor-core tiling (S = 1, 17, 261 and
-   each route's largest S), each row naming its route (bf16 on the
-   tensor cores, fp32 on the CUDA cores; the MLP forwards' rows too:
-   bf16 through the wgmma GEMM); in bf16 each standalone-attention
-   wrapper may request nothing beyond its outputs (and the backward's
-   row statistics), and mlp_fwd nothing beyond its outputs and its xh
-   and act scratch. ptxas must report no spills for any tensor-core
-   kernel (the attention's and the wgmma GEMM's), in this run's build or
-   the cached one's, and mlp_fwd's library must hold HGMMA in its SASS.
-   Times kernel, twin and a library call computing the same function
-   (scaled_dot_product_attention on the attention core), and, as a
-   yardstick for the MLP forwards' products alone, cuBLAS's two
-   products on the same xh and act (gemm_library_ms).
+   mask); the attention half-blocks (#1, #2, #5, and #7/#8 at tp = 2) at
+   ViT-L/14@336px width and length (W = 1024, H = 16, S = 581, batch 4);
+   and the standalone attention (forward and backward) at the image
+   train and eval shapes, the packed text rows, CLIP's full text context,
+   the edges of the tensor-core tiling (S = 1, 17, 261, each bf16
+   bucket's largest S and one past it, the fp32 kernels' largest S before
+   they streamed their rows) and S = 581 and 1024. Each row names its
+   route where it has more than one: the standalone attention's by dtype
+   and S (attention.route_of: bf16 on the tensor cores up to the
+   buckets, on the CUDA cores past them; fp32 on the CUDA cores), the
+   MLP forwards' by dtype (bf16 through the wgmma GEMM). In bf16 each
+   standalone-attention wrapper may request nothing beyond its outputs
+   and its route's scratch, and mlp_fwd nothing beyond its outputs and
+   its xh and act scratch. ptxas must report no spills for any
+   tensor-core kernel (the standalone attention's and the wgmma GEMM's),
+   in this run's build or the cached one's, and the mlp_fwd library must
+   hold HGMMA in its SASS. Times kernel, twin and a library call
+   computing the same function (scaled_dot_product_attention on the
+   attention core) as the median of REPS event-timed runs each, the
+   kernel's spread [min, max] beside it, and, as a yardstick for the MLP
+   forwards' products alone, cuBLAS's two products on the same xh and
+   act (gemm_library_ms).
 3. Drives the port's paths, each with the launch counts set to 0 just
    before it and read just after, against the plain path ('off') on the
    same inputs:
@@ -51,7 +58,10 @@
      across the ranks afterwards; and on each rank only the four
      tensor-parallel kernels launched, 24 times a step.
      Its step time is that of two processes time-slicing one card with
-     all-reduces through the host: it is not a tensor-parallel speed.
+     all-reduces through the host: it is not a tensor-parallel speed;
+   - ViT-L/14@336px (S = 581 on the image tower) at batch 8: one train
+     step under 'auto' and 'on', first loss within 1e-2 of 'off''s, and
+     one cached-text eval batch under each, held as eval is.
 4. Prints a summary line (img/s, ms/step, peak memory), one JSON line of
    kernel numbers, then, as the last line, {"ok": true, "device": {...}}.
 
@@ -84,6 +94,7 @@ TP_REL = {"bfloat16": {"loss": 1e-3, "grad_norm": 2e-2},
           "float32": {"loss": 1e-5, "grad_norm": 1e-5}}
 OPTIM = dict(LR=0.002, LR_SCHEDULER="cosine", MAX_EPOCH=200)
 EVAL_BATCH = 100          # the reference TEST batch
+REPS = 20                 # event-timed runs a kernel, twin or library call (median, spread)
 EVAL_BATCHES = 4          # eval and zero-shot batches a path (the first one warms up)
 HBM_BYTES_S = 3.35e12     # H100 SXM memory rate
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor cores; fp32 CUDA cores
@@ -118,6 +129,9 @@ TRAIN_KERNELS = {"auto": ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd"),
                  "on": ("attend_fwd", "attend_bwd")}
 EVAL_KERNELS = {"auto": ("attn_fwd_infer", "mlp_fwd_infer"), "on": ("attend_fwd",)}
 TP_KERNELS = ("attn_fwd_tp", "attn_bwd_tp", "mlp_fwd_tp", "mlp_bwd_tp")
+# The long-sequence phase: ViT-L/14@336px, whose image tower runs S = 1 +
+# 24 x 24 + 4 VPT rows = 581.
+VITL336 = dict(backbone_name="ViT-L/14@336px", batch=8)
 
 
 def card_line() -> str:
@@ -139,18 +153,40 @@ def setup_vocab() -> str:
     return f"vocab: synthetic at {path}"
 
 
-def cuda_ms(fn, reps: int = 10) -> float:
+def cuda_times(fn, reps: int = REPS) -> tuple[float, float, float]:
+    """(median, min, max) ms of ``reps`` runs of fn, each between its own
+    pair of CUDA events. A sleep kernel holds the card while the host
+    enqueues every run, so each pair reads the card's time for that run
+    alone, not the host's launch gaps."""
     import torch
 
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    warm_s = time.perf_counter() - t0
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    # Cycles at about 1.5 GHz: longer than the host takes to enqueue them all.
+    torch.cuda._sleep(int(min(1.5 * reps * warm_s, 5.0) * 1.5e9))
+    for start, end in events:
+        start.record()
         fn()
-    end.record()
+        end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    ms = sorted(start.elapsed_time(end) for start, end in events)
+    return ms[len(ms) // 2], ms[0], ms[-1]
+
+
+def cuda_ms(fn) -> float:
+    return cuda_times(fn)[0]
+
+
+def timed(kern, plain, lib=None) -> dict:
+    """A check row's times: the kernel's median and spread [min, max], the
+    plain twin's and the library call's medians (None without one)."""
+    med, lo, hi = cuda_times(kern)
+    return dict(ms=med, ms_spread=[lo, hi], plain_ms=cuda_ms(plain),
+                library_ms=None if lib is None else cuda_ms(lib))
 
 
 def layer_params(w: int, dtype, gen):
@@ -186,7 +222,8 @@ def check_kernels(shapes: dict) -> list[dict]:
     rows = []
     # shapes[tower] = (B, S, W, H, mask, seg, n_seq, modes): n_seq sequences
     # of seg tokens hold data (images; or classes packed G to a row);
-    # ``modes`` are the kernel modes checked at that shape.
+    # ``modes`` are the kernel modes checked at that shape (a mode for
+    # every kernel, or a (kernel, mode) pair).
     for (tower, dtype_name), (b, s, w, h, mask, seg, n_seq, modes) in (
             ((t, d), shapes[t]) for t in shapes for d in ("bfloat16", "float32")):
         dtype = getattr(torch, dtype_name)
@@ -247,7 +284,8 @@ def check_kernels(shapes: dict) -> list[dict]:
              act + stats + m * w4 * esz + (2 * w * w4 + w) * esz + act + act, None),
         ]
         gemm_lib = mlp_gemm_library(*mlp_args[:6])
-        for name, mode, kern, plain, flops, nbytes, lib in (c for c in cases if c[1] in modes):
+        for name, mode, kern, plain, flops, nbytes, lib in (
+                c for c in cases if c[1] in modes or (c[0], c[1]) in modes):
             got, alloc = requested(kern)
             ref = plain()
             err = (got.float() - ref.float()).abs().max().item()
@@ -257,9 +295,8 @@ def check_kernels(shapes: dict) -> list[dict]:
             row = dict(name=name, mode=mode, tower=tower, dtype=dtype_name,
                        shape=[b, s, w, h], masked=mask is not None, max_abs_err=err,
                        max_abs_ref=scale, tol=TOL[dtype_name] * scale, ok=ok,
-                       ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
-                       library_ms=None if lib is None else cuda_ms(lib),
-                       bound_ms=bound_ms, bound_by=bound_by)
+                       differ_share=(got != ref).float().mean().item(),
+                       **timed(kern, plain, lib), bound_ms=bound_ms, bound_by=bound_by)
             if name == "mlp_fwd":
                 # The bf16 route's wrapper requests its outputs and the xh
                 # and act scratch, nothing more.
@@ -323,7 +360,9 @@ def check_tp_kernels(shapes: dict) -> list[dict]:
     from mvlpt_torch.parallel import shard_blocks
 
     rows, joined = [], []
-    for (tower, dtype_name), (b, s, w, h, mask, seg, n_seq) in (
+    # shapes[tower] = (B, S, W, H, mask, seg, n_seq, names): as check_kernels',
+    # with the part kernels checked at that shape.
+    for (tower, dtype_name), (b, s, w, h, mask, seg, n_seq, names) in (
             ((t, d), shapes[t]) for t in shapes for d in ("bfloat16", "float32")):
         dtype = getattr(torch, dtype_name)
         gen = torch.Generator().manual_seed(13)
@@ -378,7 +417,7 @@ def check_tp_kernels(shapes: dict) -> list[dict]:
              lambda: block.mlp_bwd_part_plain(*mlp_bwd_args(0)), gemm_mlp,
              m * w4l * esz + mlp_w + act + part),
         ]
-        for name, kern, plain, flops, nbytes in cases:
+        for name, kern, plain, flops, nbytes in (c for c in cases if c[0] in names):
             got = kern()
             torch.cuda.synchronize()
             ref = plain()
@@ -390,8 +429,7 @@ def check_tp_kernels(shapes: dict) -> list[dict]:
                        masked=mask is not None, max_abs_err=err, max_abs_ref=scale,
                        tol=TOL[dtype_name] * scale,
                        ok=math.isfinite(err) and err <= TOL[dtype_name] * scale,
-                       ms=cuda_ms(kern), plain_ms=cuda_ms(plain), library_ms=None,
-                       bound_ms=bound_ms, bound_by=bound_by)
+                       **timed(kern, plain), bound_ms=bound_ms, bound_by=bound_by)
             if name == "mlp_fwd_tp":
                 row.update(route=block.MLP_ROUTES[dtype],
                            gemm_library_ms=cuda_ms(mlp_gemm_library(*mlp_args(0))))
@@ -400,28 +438,37 @@ def check_tp_kernels(shapes: dict) -> list[dict]:
 
         # The TP shards' kernels, summed and finished, against #1-#4.
         at, ml = p["attn"], p["mlp"]
-        y_attn, (qkv, probs, mu, rstd) = block.attn_fwd(
-            x, ln1["scale"], ln1["bias"], at["qkv_w"], at["qkv_b"], at["out_w"], at["out_b"],
-            mask, h)
-        y_mlp, (hpre, mu2, rstd2) = block.mlp_fwd(
-            x, ln2["scale"], ln2["bias"], ml["fc_w"], ml["fc_b"], ml["proj_w"], ml["proj_b"])
-        fa = [block.attn_fwd_part(*attn_args(r)) for r in range(TP)]
-        fm = [block.mlp_fwd_part(*mlp_args(r)) for r in range(TP)]
-        ya, ym = sum(y for y, _ in fa), sum(y for y, _ in fm)
-        parts, mparts = [res for _, res in fa], [res for _, res in fm]
-        dxa = sum(block.attn_bwd_part(parts[r][0], parts[r][1], shards[r]["attn"]["qkv_w"],
-                                      shards[r]["attn"]["out_w"], gy, hl) for r in range(TP))
-        dxm = sum(block.mlp_bwd_part(mparts[r][0], shards[r]["mlp"]["fc_w"],
-                                     shards[r]["mlp"]["proj_w"], gy) for r in range(TP))
-        pairs = [
-            ("attn_fwd_tp", x + (ya + at["out_b"].float()).to(dtype), y_attn),
-            ("mlp_fwd_tp", x + (ym + ml["proj_b"].float()).to(dtype), y_mlp),
-            ("attn_bwd_tp", block._ln_bwd(x, parts[0][2], parts[0][3], ln1["scale"], dxa, gy),
-             block.attn_bwd(x, mu, rstd, qkv, probs, ln1["scale"], at["qkv_w"], at["out_w"], gy,
-                            h)),
-            ("mlp_bwd_tp", block._ln_bwd(x, mparts[0][1], mparts[0][2], ln2["scale"], dxm, gy),
-             block.mlp_bwd(x, mu2, rstd2, hpre, ln2["scale"], ml["fc_w"], ml["proj_w"], gy)),
-        ]
+        pairs = []
+        if "attn_fwd_tp" in names:
+            y_attn, (qkv, probs, mu, rstd) = block.attn_fwd(
+                x, ln1["scale"], ln1["bias"], at["qkv_w"], at["qkv_b"], at["out_w"],
+                at["out_b"], mask, h)
+            fa = [block.attn_fwd_part(*attn_args(r)) for r in range(TP)]
+            parts = [res for _, res in fa]
+            pairs.append(("attn_fwd_tp",
+                          x + (sum(y for y, _ in fa) + at["out_b"].float()).to(dtype), y_attn))
+        if "attn_bwd_tp" in names:
+            dxa = sum(block.attn_bwd_part(parts[r][0], parts[r][1], shards[r]["attn"]["qkv_w"],
+                                          shards[r]["attn"]["out_w"], gy, hl) for r in range(TP))
+            pairs.append(("attn_bwd_tp",
+                          block._ln_bwd(x, parts[0][2], parts[0][3], ln1["scale"], dxa, gy),
+                          block.attn_bwd(x, mu, rstd, qkv, probs, ln1["scale"], at["qkv_w"],
+                                         at["out_w"], gy, h)))
+        if "mlp_fwd_tp" in names:
+            y_mlp, (hpre, mu2, rstd2) = block.mlp_fwd(
+                x, ln2["scale"], ln2["bias"], ml["fc_w"], ml["fc_b"], ml["proj_w"],
+                ml["proj_b"])
+            fm = [block.mlp_fwd_part(*mlp_args(r)) for r in range(TP)]
+            mparts = [res for _, res in fm]
+            pairs.append(("mlp_fwd_tp",
+                          x + (sum(y for y, _ in fm) + ml["proj_b"].float()).to(dtype), y_mlp))
+        if "mlp_bwd_tp" in names:
+            dxm = sum(block.mlp_bwd_part(mparts[r][0], shards[r]["mlp"]["fc_w"],
+                                         shards[r]["mlp"]["proj_w"], gy) for r in range(TP))
+            pairs.append(("mlp_bwd_tp",
+                          block._ln_bwd(x, mparts[0][1], mparts[0][2], ln2["scale"], dxm, gy),
+                          block.mlp_bwd(x, mu2, rstd2, hpre, ln2["scale"], ml["fc_w"],
+                                        ml["proj_w"], gy)))
         for name, got, ref in pairs:
             err = (got.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
@@ -436,11 +483,13 @@ def check_tp_kernels(shapes: dict) -> list[dict]:
 
 def check_attend(shapes: dict) -> list[dict]:
     """The standalone attention, forward and backward, against its plain
-    twins; returns result rows, each with the route its dtype took
-    (``attention.ROUTES``). ``shapes[name] = (N, S, D, mask, dtypes,
-    kernels)``, N = batch x heads. On the bf16 route each wrapper must
-    request from the allocator its outputs (and the backward its (3, N, S)
-    row statistics) and nothing more: no (N, S, S) tensor."""
+    twins; returns result rows, each with the route its dtype and S took
+    (``attention.route_of``). ``shapes[name] = (N, S, D, mask, dtypes,
+    kernels)``, N = batch x heads. In bf16 each wrapper must request from
+    the allocator its outputs and its route's scratch and nothing more: on
+    the tensor cores the backward's (3, N, S) row statistics and no
+    (N, S, S) tensor; past the buckets, on the CUDA cores, the backward's
+    two (N, S, S) bf16 tensors."""
     import torch
     import torch.nn.functional as F
 
@@ -467,7 +516,8 @@ def check_attend(shapes: dict) -> list[dict]:
         # the (query, key) pairs the mask leaves, for the score and value
         # products (and, backward, the recomputed scores, dv, dp, dq, dk).
         pairs = s * s if mask is None else int((mask > torch.finfo(torch.float32).min / 2).sum())
-        rows_b = n * s * d * (torch.finfo(dtype).bits // 8)  # one (N, S, D) tensor
+        esz = torch.finfo(dtype).bits // 8
+        rows_b = n * s * d * esz  # one (N, S, D) tensor
         mask_b = 0 if mask is None else s * s * 4
         cases = [
             ("attend_fwd", lambda: (attention.attend_fwd(q, k, v, mask),),
@@ -482,34 +532,39 @@ def check_attend(shapes: dict) -> list[dict]:
             ref = plain()
             errs = [(g.float() - r.float()).abs().max().item() for g, r in zip(got, ref)]
             scales = [r.float().abs().max().item() for r in ref]
-            ok = all(math.isfinite(e) and e <= TOL[dtype_name] * sc for e, sc in zip(errs, scales))
+            ok = all(math.isfinite(e) and e <= TOL[dtype_name] * sc
+                     for e, sc in zip(errs, scales))
             worst = max(range(len(errs)), key=lambda i: errs[i] / max(scales[i], 1e-30))
             bound_ms, bound_by = bound(flops, nbytes, dtype_name)
-            # In bf16: the outputs and, backward, the row statistics; nothing
-            # more, so no (N, S, S) tensor.
+            # The outputs and the backward's scratch of the route taken.
+            route = attention.route_of(name, dtype, s)
             want = len(got) * rows_b
-            if name == "attend_bwd" and dtype == torch.bfloat16:
-                want += 3 * n * s * 4
+            if name == "attend_bwd":
+                want += 3 * n * s * 4 if route == "mma" else 2 * n * s * s * esz
             row = dict(name=name, mode="core", tower=path, dtype=dtype_name, shape=[n, s, d],
-                       route=attention.ROUTES[dtype], masked=mask is not None,
+                       route=attention.ROUTES[route], masked=mask is not None,
                        max_abs_err=errs[worst], max_abs_ref=scales[worst],
                        tol=TOL[dtype_name] * scales[worst], ok=ok, requested_bytes=alloc,
-                       ms=cuda_ms(kern), plain_ms=cuda_ms(plain), library_ms=cuda_ms(lib),
-                       bound_ms=bound_ms, bound_by=bound_by)
+                       **timed(kern, plain, lib), bound_ms=bound_ms, bound_by=bound_by)
             rows.append(row)
             print("kernel-check " + json.dumps(row), flush=True)
             if dtype == torch.bfloat16 and alloc != want:
                 raise AssertionError(f"{name} ({path}, bf16): requested {alloc} bytes, not "
-                                     f"those of its outputs and row statistics ({want})")
+                                     f"those of its outputs and its route's scratch ({want})")
     return _fail_on_disagreement(rows)
 
 
 # The tensor-core kernels of each source, by their mangled names: the
 # bf16 route of attend_fwd.cu / attend_bwd.cu (one kernel a register
-# bucket NT) and mlp_fwd.cu's wgmma GEMM (one an epilogue EPI and tile
-# width BN).
+# bucket NT) and the wgmma GEMM in mlp_fwd.cu (one an epilogue EPI and
+# tile width BN).
 TC_KERNELS = {"attend_fwd": r"attend_fwd_tc", "attend_bwd": r"attend_bwd_(?:dq|dkv)_tc",
               "mlp_fwd": r"wgmma_gemm_kernel"}
+# The template arguments of each tensor-core kernel, in order.
+TC_TEMPLATE_ARGS = {"attend_fwd_tc": ("NT",), "attend_bwd_dq_tc": ("NT",),
+                    "attend_bwd_dkv_tc": ("NT",), "wgmma_gemm_kernel": ("EPI", "BN")}
+# Sources whose bf16 products must reach wgmma (HGMMA in their SASS).
+HGMMA_SOURCES = ("mlp_fwd",)
 # setmaxnreg's split in csrc/wgmma.cuh needs the 168 registers a thread
 # that a block of 384 threads holds at entry; with fewer, the consumers'
 # request could never be met.
@@ -526,10 +581,10 @@ def tc_ptxas(log: str, pattern: str) -> list[tuple[str, int, int]]:
         kernel = re.search(pattern, mangled)
         if kernel is None:
             continue
-        args = re.search(r"ILi(\d+)E(?:Li(\d+)E)?E", mangled)
-        label = ("?" if args is None else
-                 f"NT={args.group(1)}" if args.group(2) is None
-                 else f"EPI={args.group(1)},BN={args.group(2)}")
+        args = re.search(r"I((?:L[ib]\d+E)+)E", mangled)
+        values = re.findall(r"L[ib](\d+)E", args.group(1)) if args else []
+        names = TC_TEMPLATE_ARGS[kernel.group(0)]
+        label = ",".join(f"{n}={v}" for n, v in zip(names, values)) or "?"
         regs = re.search(r"Used (\d+) registers", chunk)
         rows.append((f"{kernel.group(0)}<{label}>", int(regs.group(1)) if regs else -1,
                      sum(int(b) for b in re.findall(r"(\d+) bytes spill", chunk))))
@@ -547,32 +602,34 @@ def check_tc_spills(logs: dict) -> None:
         found = tc_ptxas(logs[src], pattern)
         if not found:
             raise AssertionError(f"ptxas: no tensor-core kernel in {src}.cu's build log")
-        rows += found
+        rows += [(f"{src} {label}", regs, spill) for label, regs, spill in found]
     for label, regs, spill in rows:
         print(f"ptxas {label}: {regs} registers, {spill} bytes of spills", flush=True)
     spilled = [label for label, _, spill in rows if spill]
     if spilled:
         raise AssertionError(f"ptxas: tensor-core kernels spill: {spilled}")
     short = [label for label, regs, _ in rows
-             if label.startswith("wgmma") and regs < WGMMA_ENTRY_REGS]
+             if " wgmma" in label and regs < WGMMA_ENTRY_REGS]
     if short:
         raise AssertionError(f"ptxas: wgmma GEMM kernels below {WGMMA_ENTRY_REGS} registers "
                              f"at entry, which setmaxnreg's split needs: {short}")
 
 
 def check_hgmma() -> None:
-    """The built mlp_fwd library's SASS (the toolkit's cuobjdump) must
-    hold HGMMA, the instruction wgmma compiles to: the bf16 route really
-    reaches the tensor cores through wgmma."""
+    """The SASS (the toolkit's cuobjdump) of each library in HGMMA_SOURCES
+    must hold HGMMA, the instruction wgmma compiles to: their bf16 routes
+    really reach the tensor cores through wgmma."""
     from mvlpt_torch.ops import _build
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(_build._lib_path("mlp_fwd"))],
-                          capture_output=True, text=True, check=True, timeout=300).stdout
-    count = len(re.findall(r"\bHGMMA\.", sass))
-    print(f"sass mlp_fwd: {count} HGMMA instructions", flush=True)
-    if not count:
-        raise AssertionError("sass: no HGMMA in mlp_fwd's library: the bf16 route misses wgmma")
+    for src in HGMMA_SOURCES:
+        sass = subprocess.run([str(cuobjdump), "--dump-sass", str(_build._lib_path(src))],
+                              capture_output=True, text=True, check=True, timeout=300).stdout
+        count = len(re.findall(r"\bHGMMA\.", sass))
+        print(f"sass {src}: {count} HGMMA instructions", flush=True)
+        if not count:
+            raise AssertionError(f"sass: no HGMMA in {src}'s library: its bf16 route misses "
+                                 f"wgmma")
 
 
 def _launches(path: str, kernels: tuple, per: int) -> dict:
@@ -601,16 +658,20 @@ def _peak_gib() -> float:
     return torch.cuda.max_memory_allocated() / 2 ** 30
 
 
-def drive_train(selection: str, batches: list, loss_plain: float, ocfg, norm) -> dict:
-    """The flagship train step under ``selection``, one step a batch."""
+def drive_train(selection: str, batches: list, loss_plain: float, ocfg, norm, name="train",
+                **flagship_kw) -> dict:
+    """The flagship train step under ``selection``, one step a batch
+    (``flagship_kw``: another backbone and batch). With more than one
+    step the first is a warm-up, left out of ms_per_step."""
     import torch
 
     from mvlpt_torch.flagship import flagship
     from mvlpt_torch.ops import _build
     from mvlpt_torch.train import init_train_state, make_train_step
 
-    path = f"train[{selection}]"
-    model, backbone, pp, consts, _, clip_cfg = flagship(device="cuda", kernels=selection)
+    path = f"{name}[{selection}]"
+    model, backbone, pp, consts, _, clip_cfg = flagship(device="cuda", kernels=selection,
+                                                        **flagship_kw)
     state = init_train_state(pp, ocfg, 100)
     step = make_train_step(model, normalize=norm)
     torch.cuda.synchronize()
@@ -626,10 +687,10 @@ def drive_train(selection: str, batches: list, loss_plain: float, ocfg, norm) ->
         grad_norms.append(metrics["grad_norm"].item())
     layers = clip_cfg.vision_layers + clip_cfg.transformer_layers
     launches = _launches(path, TRAIN_KERNELS[selection], layers * len(batches))
-    ms_step = 1e3 * sum(times[1:]) / len(times[1:])
+    ms_step = 1e3 * sum(times[1:]) / len(times[1:]) if len(times) > 1 else None
     out = dict(path=path, losses=losses, loss_plain_first=loss_plain, grad_norms=grad_norms,
                launches=launches, ms_per_step=ms_step,
-               img_per_s=len(batches[0]["label"]) * 1e3 / ms_step,
+               img_per_s=len(batches[0]["label"]) * 1e3 / ms_step if ms_step else None,
                step_ms=[1e3 * t for t in times], peak_mem_gib=_peak_gib())
     print("main-path " + json.dumps(out), flush=True)
     if not all(math.isfinite(v) for v in losses):
@@ -638,16 +699,18 @@ def drive_train(selection: str, batches: list, loss_plain: float, ocfg, norm) ->
     return out
 
 
-def drive_eval(selection: str, model, backbone, pp, consts, batches: list, ce_plain, norm):
+def drive_eval(selection: str, model, backbone, pp, consts, batches: list, ce_plain, norm,
+               name="eval"):
     """The cached-text eval under ``selection``: text features once, then
     the image tower per batch; each batch's logits against the full eval
-    step's, the soft-CE against the plain path's."""
+    step's, the soft-CE against the plain path's. With more than one
+    batch the first is a warm-up, left out of img_per_s."""
     import torch
 
     from mvlpt_torch.ops import _build
     from mvlpt_torch.train import make_cached_text_eval, make_eval_step, soft_cross_entropy
 
-    path = f"eval[{selection}]"
+    path = f"{name}[{selection}]"
     text_fn, eval_fn = make_cached_text_eval(model, normalize=norm)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -675,8 +738,9 @@ def drive_eval(selection: str, model, backbone, pp, consts, batches: list, ce_pl
                                  f"eval step's by {diff}")
     ce = soft_cross_entropy(torch.cat(logits), torch.cat([bt["label"] for bt in batches])).item()
     out = dict(path=path, launches=launches, text_ms=text_ms, batch_ms=[1e3 * t for t in times],
-               img_per_s=EVAL_BATCH * len(times[1:]) / sum(times[1:]), soft_ce=ce,
-               soft_ce_plain=ce_plain, peak_mem_gib=peak)
+               img_per_s=(len(batches[0]["label"]) * len(times[1:]) / sum(times[1:])
+                          if len(times) > 1 else None),
+               soft_ce=ce, soft_ce_plain=ce_plain, peak_mem_gib=peak)
     print("main-path " + json.dumps(out), flush=True)
     if ce_plain is not None:
         _near(path, "soft-CE", ce, ce_plain)
@@ -978,6 +1042,44 @@ def drive_paths(tp_blocks: dict) -> dict:
     out["train[tp2]"] = drive_tp_train(train_batches[:TP_STEPS], blocks,
                                        {"bfloat16": backbone, "float32": backbone32}, clip_cfg,
                                        out["train[auto]"], auto32)
+    out.update(drive_vitl336(norm))
+    return out
+
+
+def drive_vitl336(norm) -> dict:
+    """ViT-L/14@336px (``VITL336``; its image tower has S = 581, past every
+    tensor-core bucket of #11/#12): one train step under 'auto' and 'on',
+    the first loss held to 'off''s (1e-2), and one cached-text eval batch
+    under each, its soft-CE held the same way."""
+    import numpy as np
+    import torch
+
+    from mvlpt_torch.config import OptimConfig
+    from mvlpt_torch.flagship import flagship
+    from mvlpt_torch.models import MVLPTModel
+    from mvlpt_torch.ops.attention import select_attn_fn
+    from mvlpt_torch.train import init_train_state, make_train_step
+
+    plain, backbone, pp, consts, _, clip_cfg = flagship(device="cuda", kernels="off", **VITL336)
+    res, n = clip_cfg.image_resolution, VITL336["batch"]
+    rng = np.random.RandomState(2)
+    batch = [{"image": torch.from_numpy(rng.randint(0, 256, (n, res, res, 3)).astype(
+                  np.uint8)).cuda(),
+              "label": torch.from_numpy(rng.randint(0, 100, n)).cuda()}]
+    ocfg = OptimConfig(**OPTIM)
+    _, m_plain = make_train_step(plain, normalize=norm)(
+        init_train_state(pp, ocfg, 100), backbone, consts, batch[0])
+    loss_plain = m_plain["loss"].item()
+    out = {}
+    _, ce_plain = drive_eval("off", plain, backbone, pp, consts, batch, None, norm,
+                             name="eval_vitl336")
+    for sel in ("auto", "on"):
+        out[f"train_vitl336[{sel}]"] = drive_train(sel, batch, loss_plain, ocfg, norm,
+                                                   name="train_vitl336", **VITL336)
+        model = MVLPTModel(clip_cfg, plain.spec, kernels=select_attn_fn(sel),
+                           compute_dtype=plain.compute_dtype)
+        out[f"eval_vitl336[{sel}]"] = drive_eval(sel, model, backbone, pp, consts, batch,
+                                                 ce_plain, norm, name="eval_vitl336")[0]
     return out
 
 
@@ -992,7 +1094,8 @@ def kernel_entries(results: list[dict], paths: dict) -> list[dict]:
         out.append({"name": name, "route": "cuda", "source": f"mvlpt_torch/csrc/{source}.cu",
                     "replaces": replaces, "launches": sum(by_path.values()),
                     "launches_by_path": by_path, "shape": r["shape"],
-                    "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "max_abs_err": r["max_abs_err"], "ms": r["ms"], "ms_spread": r["ms_spread"],
+                    "plain_ms": r["plain_ms"],
                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"],
                     # The row's route by dtype (MLP_ROUTES, attention.ROUTES) and
@@ -1001,6 +1104,37 @@ def kernel_entries(results: list[dict], paths: dict) -> list[dict]:
                     **({"gemm_library_ms": r["gemm_library_ms"]} if "gemm_library_ms" in r
                        else {})})
     return out
+
+
+def text_and_image_shapes():
+    """(text length s, classes a packed row G, packed rows, the image
+    tower's S at ViT-B/16 and at ViT-L/14@336px, the packed rows' mask)."""
+    from mvlpt_torch.core.text import block_causal_mask, packing
+    from mvlpt_torch.prompts import compute_cut_context_length
+
+    s = compute_cut_context_length([f"class number {i}" for i in range(100)], 4)
+    g, rows = packing(100, s)
+    s_img = 1 + 14 * 14 + 4  # CLS + patches + VPT rows
+    s_l336 = 1 + 24 * 24 + 4  # ViT-L/14@336px: the same, 24 x 24 patches
+    return s, g, rows, s_img, s_l336, block_causal_mask(g, s, device="cuda")
+
+
+def half_block_shapes() -> tuple[dict, dict]:
+    """The shapes of check_kernels' and check_tp_kernels' rows."""
+    s, g, rows, s_img, s_l336, packed_mask = text_and_image_shapes()
+    every, no_residual = ("train", "no-residual"), ("no-residual",)
+    attn_only = (("attn_fwd", "train"), ("attn_fwd", "no-residual"), ("attn_bwd", "train"))
+    kernel_shapes = {
+        "image": (32, s_img, 768, 12, None, s_img, 32, every),
+        "image_eval": (EVAL_BATCH, s_img, 768, 12, None, s_img, EVAL_BATCH, no_residual),
+        "text": (rows, g * s, 512, 8, packed_mask, s, 100, every),
+        # ViT-L/14@336px's attention half-blocks at batch 4.
+        "vitl336": (4, s_l336, 1024, 16, None, s_l336, 4, attn_only)}
+    tp_shapes = {
+        "image": (32, s_img, 768, 12, None, s_img, 32, TP_KERNELS),
+        "text": (rows, g * s, 512, 8, packed_mask, s, 100, TP_KERNELS),
+        "vitl336": (4, s_l336, 1024, 16, None, s_l336, 4, ("attn_fwd_tp", "attn_bwd_tp"))}
+    return kernel_shapes, tp_shapes
 
 
 def main() -> int:
@@ -1018,9 +1152,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from mvlpt_torch.core.layers import causal_mask
-    from mvlpt_torch.core.text import block_causal_mask, packing
     from mvlpt_torch.ops import _build
-    from mvlpt_torch.prompts import compute_cut_context_length
 
     print(card_line(), flush=True)  # name, power limit (nvidia-smi)
     print(setup_vocab(), flush=True)
@@ -1039,18 +1171,10 @@ def main() -> int:
     check_tc_spills(info["ptxas"])
     check_hgmma()
 
-    s = compute_cut_context_length([f"class number {i}" for i in range(100)], 4)
-    g, rows = packing(100, s)
-    s_img = 1 + 14 * 14 + 4  # CLS + patches + VPT rows
-    packed_mask = block_causal_mask(g, s, device="cuda")
-    every, no_residual = ("train", "no-residual"), ("no-residual",)
-    results = check_kernels({
-        "image": (32, s_img, 768, 12, None, s_img, 32, every),
-        "image_eval": (EVAL_BATCH, s_img, 768, 12, None, s_img, EVAL_BATCH, no_residual),
-        "text": (rows, g * s, 512, 8, packed_mask, s, 100, every)})
-    results += check_tp_kernels({
-        "image": (32, s_img, 768, 12, None, s_img, 32),
-        "text": (rows, g * s, 512, 8, packed_mask, s, 100)})
+    s, g, rows, s_img, s_l336, packed_mask = text_and_image_shapes()
+    kernel_shapes, tp_shapes = half_block_shapes()
+    results = check_kernels(kernel_shapes)
+    results += check_tp_kernels(tp_shapes)
     both, fb = ("bfloat16", "float32"), ("attend_fwd", "attend_bwd")
     results += check_attend({
         "image_train": (32 * 12, s_img, 64, None, both, fb),
@@ -1058,15 +1182,22 @@ def main() -> int:
         "text_packed": (rows * 8, g * s, 64, packed_mask, both, fb),
         "text_clip": (100 * 8, 77, 64, causal_mask(77, device="cuda"), both, fb),
         # The tiling's edges: below one mma tile, ragged, ViT-L/14 with 4
-        # VPT rows (8 images x 16 heads), and each route's largest S.
+        # VPT rows (8 images x 16 heads); the bf16 buckets' largest S and
+        # one past it (the CUDA-core route), the fp32 route's largest S
+        # before this PR; ViT-L/14@336px (4 images x 16 heads) and S = 1024.
         "edge_s1": (64, 1, 64, None, both, fb),
         "edge_s17": (64, 17, 64, causal_mask(17, device="cuda"), both, fb),
         "vitl_s261": (8 * 16, 1 + 16 * 16 + 4, 64, None, both, fb),
         "max_fwd_bf16": (64, 352, 64, None, ("bfloat16",), ("attend_fwd",)),
+        "past_fwd_bf16": (64, 353, 64, None, ("bfloat16",), ("attend_fwd",)),
         "max_fwd_fp32": (64, 348, 64, None, ("float32",), ("attend_fwd",)),
         "max_bwd_bf16": (64, 280, 64, causal_mask(280, device="cuda"), ("bfloat16",),
                          ("attend_bwd",)),
-        "max_bwd_fp32": (64, 278, 64, None, ("float32",), ("attend_bwd",))})
+        "past_bwd_bf16": (64, 281, 64, causal_mask(281, device="cuda"), ("bfloat16",),
+                          ("attend_bwd",)),
+        "max_bwd_fp32": (64, 278, 64, None, ("float32",), ("attend_bwd",)),
+        "vitl336_s581": (4 * 16, s_l336, 64, None, both, fb),
+        "s1024": (64, 1024, 64, causal_mask(1024, device="cuda"), both, fb)})
     print(f"text tower: s={s}, G={g}, {rows} packed rows of {g * s} tokens", flush=True)
     paths = drive_paths({"visual": (32, s_img, None), "text": (rows, g * s, packed_mask)})
 

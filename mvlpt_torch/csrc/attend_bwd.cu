@@ -11,10 +11,10 @@
 // The TPU program does this for G whole (batch*head) rows in VMEM. Here
 // dk and dv reduce over queries and dq over keys, and blocks run in no
 // order, so each route is two launches with no atomics (results do not
-// change from run to run). Two routes, by dtype:
+// change from run to run). Two routes, by dtype and S:
 //
-// bfloat16: tensor cores, mma.sync m16n8k16 (csrc/mma.cuh), D = 64,
-//   S <= 280; no (N, S, S) tensor in device memory.
+// bfloat16 up to S = 280 (the buckets): tensor cores, mma.sync m16n8k16
+//   (csrc/mma.cuh), D = 64; no (N, S, S) tensor in device memory.
 //   1. attend_bwd_dq_tc, one block of 4 warps per (row, share of its
 //      query groups), K and V staged once as bf16 in shared memory. A
 //      warp takes 16 queries: the exact p as in attend_fwd.cu, held in
@@ -33,13 +33,18 @@
 //      comes out in the accumulator layout that is the A operand of
 //      dv += T(p^T) do; dp^T = v do^T; ds^T = T(p^T (dp^T - t) scale);
 //      dk += ds^T q.
-// float32: CUDA cores, fp32 FMAs (TF32 would not hold fp32's tolerance).
-//   1. one block per (row, query tile) holds the row's K and V, recomputes
-//      p, takes dp, ds and dq, and writes p and ds to (N, S, S) scratch;
-//   2. one block per (row, key tile) holds the row's q and do and reads
-//      p and ds by column for dv and dk.
-//   Past the shared memory of one block (S above 278 at D = 64) it
-//   refuses to launch.
+// CUDA cores, fp32 FMAs (TF32 would not hold fp32's tolerance), templated
+//   on T with the rounding points above: every fp32 call, and a bf16 call
+//   past the largest bucket, chosen openly by shape
+//   (ops/attention.route_of).
+//   1. one block per (row, query tile) streams the row's K and V through
+//      shared memory in key chunks, recomputes p, takes dp, ds and dq,
+//      and writes T(p) and ds to (N, S, S) scratch in T; each query keeps
+//      its S-long p and dp rows, and a block takes fewer queries as S
+//      grows: any S whose one pair of rows fits a block (about 24,800 at
+//      D = 64);
+//   2. one block per (row, key tile) streams q, do, p and ds through
+//      shared memory in query chunks for dv and dk.
 //
 // Bound: the function reads q, k, v, do and writes dq, dk, dv. At the
 // image train shape (N = B*H = 384, S = 201, D = 64, bf16) that is
@@ -48,6 +53,7 @@
 // tensor-core route moves q, k, v and do twice (one staging a launch)
 // and 0.9 MB of statistics besides.
 #include "common.cuh"
+#include "fma_attn.cuh"
 #include "mma.cuh"
 
 using namespace mvlpt;
@@ -261,84 +267,85 @@ int launch_bwd_tc(const void* q, const void* k, const void* v, const float* mask
   return (int)cudaGetLastError();
 }
 
-int attend_bwd_bf16(const void* q, const void* k, const void* v, const float* mask,
-                    const void* dout, float* stats, void* dq, void* dk, void* dv, int N, int S,
-                    int D, cudaStream_t st) {
-  if (D != mma::D || S < 1 || stats == nullptr) return (int)cudaErrorInvalidValue;
-  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout) & 15)
-    return (int)cudaErrorMisalignedAddress;
-  if (S <= 8 * BWD_NT[0])
-    return launch_bwd_tc<BWD_NT[0]>(q, k, v, mask, dout, stats, dq, dk, dv, N, S, st);
-  if (S <= 8 * BWD_NT[1])
-    return launch_bwd_tc<BWD_NT[1]>(q, k, v, mask, dout, stats, dq, dk, dv, N, S, st);
-  if (S <= 8 * BWD_NT[2])
-    return launch_bwd_tc<BWD_NT[2]>(q, k, v, mask, dout, stats, dq, dk, dv, N, S, st);
-  if (S <= 8 * BWD_NT[3])
-    return launch_bwd_tc<BWD_NT[3]>(q, k, v, mask, dout, stats, dq, dk, dv, N, S, st);
-  return (int)cudaErrorInvalidValue;
+// --------------------------------------------------- CUDA cores, in T
+
+using fma_core::FMA_KC;
+using fma_core::FMA_THREADS;
+using fma_core::fma_rows;
+
+constexpr int KT = 32;  // key rows per dk/dv block
+
+inline size_t dq_fixed(int D) { return 2 * (size_t)FMA_KC * (D + 1); }
+inline size_t dq_row(int S, int D) { return 3 * (size_t)D + 2 * (size_t)S; }
+inline size_t dkv_words(int D) {
+  return 2 * (size_t)FMA_KC * D + 2 * (size_t)KT * (FMA_KC + 1) + 2 * (size_t)KT * D;
 }
 
-// --------------------------------------------------- fp32, CUDA cores
-
-constexpr int QT = 32;        // query rows per dq block
-constexpr int KT = 32;        // key rows per dk/dv block
-constexpr int THREADS = 256;  // 8 warps
-
-size_t dq_smem(int S, int D) {
-  return sizeof(float) * (2 * (size_t)S * (D + 1) + 2 * (size_t)QT * D + 2 * (size_t)QT * S);
-}
-
-size_t dkv_smem(int S, int D) {
-  return sizeof(float) * (2 * (size_t)S * D + 2 * (size_t)KT * S);
-}
-
-// Per query row: p, dp, ds, dq; p and ds go to scratch.
-__global__ void __launch_bounds__(THREADS)
-attend_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ mask,
-              const float* __restrict__ dout, float* __restrict__ p_g, float* __restrict__ ds_g,
-              float* __restrict__ dq, int S, int D, float scale) {
+// Per query row: p, dp, ds, dq; T(p) and ds go to the (N, S, S) scratch.
+template <typename T>
+__global__ void __launch_bounds__(FMA_THREADS)
+attend_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const float* __restrict__ mask, const T* __restrict__ dout, T* __restrict__ p_g,
+              T* __restrict__ ds_g, T* __restrict__ dq, int S, int D, float scale, int qt) {
   extern __shared__ __align__(16) float smem[];
-  const int q0 = blockIdx.y * QT;
+  const int q0 = blockIdx.y * qt;
   const size_t base = (size_t)blockIdx.x * S * D;
-  float* Ks = smem;                // S x (D+1)
-  float* Vs = Ks + S * (D + 1);    // S x (D+1)
-  float* Qs = Vs + S * (D + 1);    // QT x D
-  float* dOs = Qs + QT * D;        // QT x D
-  float* Ps = dOs + QT * D;        // QT x S: scores, then probabilities
-  float* DPs = Ps + QT * S;        // QT x S: dp, then ds
+  float* Kc = smem;                    // FMA_KC x (D+1)
+  float* Vc = Kc + FMA_KC * (D + 1);   // FMA_KC x (D+1)
+  float* Qs = Vc + FMA_KC * (D + 1);   // qt x D
+  float* dOs = Qs + qt * D;            // qt x D
+  float* dQ = dOs + qt * D;            // qt x D, the dq accumulators
+  float* Ps = dQ + qt * D;             // qt x S: scores, then probabilities
+  float* DPs = Ps + qt * S;            // qt x S: dp, then ds
 
-  for (int idx = threadIdx.x; idx < S * D; idx += THREADS) {
-    const int j = idx / D, d = idx - j * D;
-    Ks[j * (D + 1) + d] = k[base + idx];
-    Vs[j * (D + 1) + d] = v[base + idx];
-  }
-  for (int idx = threadIdx.x; idx < QT * D; idx += THREADS) {
+  for (int idx = threadIdx.x; idx < qt * D; idx += FMA_THREADS) {
     const bool in = q0 + idx / D < S;
     const size_t g = base + (size_t)q0 * D + idx;
-    Qs[idx] = in ? q[g] : 0.f;
-    dOs[idx] = in ? dout[g] : 0.f;
+    Qs[idx] = in ? to_f(q[g]) : 0.f;
+    dOs[idx] = in ? to_f(dout[g]) : 0.f;
+    dQ[idx] = 0.f;
   }
-  __syncthreads();
-
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < QT; r += THREADS / 32) {
+
+  // The scores and dp = do v^T, a key chunk at a time.
+  for (int k0 = 0; k0 < S; k0 += FMA_KC) {
+    const int nk = min(FMA_KC, S - k0);
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < nk * D; idx += FMA_THREADS) {
+      const int j = idx / D, d = idx - j * D;
+      const size_t g = base + (size_t)k0 * D + idx;
+      Kc[j * (D + 1) + d] = to_f(k[g]);
+      Vc[j * (D + 1) + d] = to_f(v[g]);
+    }
+    __syncthreads();
+    for (int r = warp; r < qt; r += FMA_THREADS / 32) {
+      const int qi = q0 + r;
+      if (qi >= S) break;
+      const float* qrow = Qs + r * D;
+      const float* dorow = dOs + r * D;
+      for (int j = lane; j < nk; j += 32) {
+        const float* krow = Kc + j * (D + 1);
+        const float* vrow = Vc + j * (D + 1);
+        float s = 0.f, dp = 0.f;
+        for (int d = 0; d < D; ++d) s = fmaf(qrow[d], krow[d], s);
+        for (int d = 0; d < D; ++d) dp = fmaf(dorow[d], vrow[d], dp);
+        s = __fmul_rn(s, scale);
+        if (mask != nullptr) s += mask[(size_t)qi * S + k0 + j];
+        Ps[r * S + k0 + j] = s;
+        DPs[r * S + k0 + j] = dp;
+      }
+    }
+  }
+
+  // The exact softmax of each whole row, t = rowsum(dp p) and
+  // ds = T(p (dp - t) scale) from the unrounded p.
+  for (int r = warp; r < qt; r += FMA_THREADS / 32) {
     const int qi = q0 + r;
     if (qi >= S) break;
-    const float* qrow = Qs + r * D;
-    const float* dorow = dOs + r * D;
     float* prow = Ps + r * S;
     float* drow = DPs + r * S;
     float mx = -INFINITY;
-    for (int j = lane; j < S; j += 32) {
-      const float* krow = Ks + j * (D + 1);
-      float s = 0.f;
-      for (int d = 0; d < D; ++d) s = fmaf(qrow[d], krow[d], s);
-      s = __fmul_rn(s, scale);
-      if (mask != nullptr) s += mask[(size_t)qi * S + j];
-      prow[j] = s;
-      mx = fmaxf(mx, s);
-    }
+    for (int j = lane; j < S; j += 32) mx = fmaxf(mx, prow[j]);
     mx = warp_max(mx);
     float sum = 0.f;
     for (int j = lane; j < S; j += 32) {
@@ -350,111 +357,165 @@ attend_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
     float t = 0.f;
     for (int j = lane; j < S; j += 32) {
       const float p = prow[j] / sum;
-      const float* vrow = Vs + j * (D + 1);
-      float dp = 0.f;
-      for (int d = 0; d < D; ++d) dp = fmaf(dorow[d], vrow[d], dp);
       prow[j] = p;
-      drow[j] = dp;
-      t += dp * p;
+      t += drow[j] * p;
     }
     t = warp_sum(t);
     const size_t prow_off = ((size_t)blockIdx.x * S + qi) * S;
     for (int j = lane; j < S; j += 32) {
       const float p = prow[j];
-      const float ds = __fmul_rn(p * (drow[j] - t), scale);
-      drow[j] = ds;
+      const T ds = from_f<T>(__fmul_rn(p * (drow[j] - t), scale));
+      drow[j] = to_f(ds);
       ds_g[prow_off + j] = ds;
-      p_g[prow_off + j] = p;
+      p_g[prow_off + j] = from_f<T>(p);
     }
-    __syncwarp();
-    for (int d = lane; d < D; d += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < S; ++j) acc = fmaf(drow[j], Ks[j * (D + 1) + d], acc);
-      dq[base + (size_t)qi * D + d] = acc;
+  }
+
+  // dq = ds k, a key chunk at a time.
+  for (int k0 = 0; k0 < S; k0 += FMA_KC) {
+    const int nk = min(FMA_KC, S - k0);
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < nk * D; idx += FMA_THREADS) {
+      const int j = idx / D, d = idx - j * D;
+      Kc[j * (D + 1) + d] = to_f(k[base + (size_t)k0 * D + idx]);
     }
+    __syncthreads();
+    for (int r = warp; r < qt; r += FMA_THREADS / 32) {
+      if (q0 + r >= S) break;
+      const float* drow = DPs + r * S + k0;
+      for (int d = lane; d < D; d += 32) {
+        float acc = dQ[r * D + d];
+        for (int j = 0; j < nk; ++j) acc = fmaf(drow[j], Kc[j * (D + 1) + d], acc);
+        dQ[r * D + d] = acc;
+      }
+    }
+  }
+  for (int r = warp; r < qt; r += FMA_THREADS / 32) {
+    const int qi = q0 + r;
+    if (qi >= S) break;
+    for (int d = lane; d < D; d += 32) dq[base + (size_t)qi * D + d] = from_f<T>(dQ[r * D + d]);
   }
 }
 
-// Per key row k: dv = sum_q p[q,k] do[q], dk = sum_q ds[q,k] q[q].
-__global__ void __launch_bounds__(THREADS)
-attend_bwd_dkv(const float* __restrict__ q, const float* __restrict__ dout,
-               const float* __restrict__ p_g, const float* __restrict__ ds_g,
-               float* __restrict__ dk, float* __restrict__ dv, int S, int D) {
+// Per key row k: dv = T(sum_q T(p)[q,k] do[q]), dk = T(sum_q ds[q,k] q[q]),
+// the queries a chunk of FMA_KC at a time.
+template <typename T>
+__global__ void __launch_bounds__(FMA_THREADS)
+attend_bwd_dkv(const T* __restrict__ q, const T* __restrict__ dout, const T* __restrict__ p_g,
+               const T* __restrict__ ds_g, T* __restrict__ dk, T* __restrict__ dv, int S, int D) {
   extern __shared__ __align__(16) float smem[];
+  constexpr int QC = FMA_KC, PT = QC + 1;  // query chunk; padded row of Pt and DSt
   const int k0 = blockIdx.y * KT;
   const size_t base = (size_t)blockIdx.x * S * D;
-  float* Qs = smem;            // S x D
-  float* dOs = Qs + S * D;     // S x D
-  float* Pt = dOs + S * D;     // KT x S, p transposed
-  float* DSt = Pt + KT * S;    // KT x S, ds transposed
-
-  for (int idx = threadIdx.x; idx < S * D; idx += THREADS) {
-    Qs[idx] = q[base + idx];
-    dOs[idx] = dout[base + idx];
-  }
   const size_t row_off = (size_t)blockIdx.x * S * S;
-  for (int idx = threadIdx.x; idx < KT * S; idx += THREADS) {
-    const int qi = idx / KT, kk = idx - qi * KT;
-    const int kj = k0 + kk;
-    const bool in = kj < S;
-    Pt[kk * S + qi] = in ? p_g[row_off + (size_t)qi * S + kj] : 0.f;
-    DSt[kk * S + qi] = in ? ds_g[row_off + (size_t)qi * S + kj] : 0.f;
-  }
-  __syncthreads();
-
+  float* Qc = smem;             // QC x D
+  float* dOc = Qc + QC * D;     // QC x D
+  float* Pt = dOc + QC * D;     // KT x PT, p transposed
+  float* DSt = Pt + KT * PT;    // KT x PT, ds transposed
+  float* dK = DSt + KT * PT;    // KT x D, the dk accumulators
+  float* dV = dK + KT * D;      // KT x D, the dv accumulators
+  for (int idx = threadIdx.x; idx < KT * D; idx += FMA_THREADS) dK[idx] = dV[idx] = 0.f;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int kk = warp; kk < KT; kk += THREADS / 32) {
+
+  for (int c0 = 0; c0 < S; c0 += QC) {
+    const int nq = min(QC, S - c0);
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < nq * D; idx += FMA_THREADS) {
+      const size_t g = base + (size_t)c0 * D + idx;
+      Qc[idx] = to_f(q[g]);
+      dOc[idx] = to_f(dout[g]);
+    }
+    for (int idx = threadIdx.x; idx < KT * nq; idx += FMA_THREADS) {
+      const int qi = idx / KT, kk = idx - qi * KT;
+      const int kj = k0 + kk;
+      const bool in = kj < S;
+      const size_t g = row_off + (size_t)(c0 + qi) * S + kj;
+      Pt[kk * PT + qi] = in ? to_f(p_g[g]) : 0.f;
+      DSt[kk * PT + qi] = in ? to_f(ds_g[g]) : 0.f;
+    }
+    __syncthreads();
+    for (int kk = warp; kk < KT; kk += FMA_THREADS / 32) {
+      if (k0 + kk >= S) break;
+      const float* pcol = Pt + kk * PT;
+      const float* dscol = DSt + kk * PT;
+      for (int d = lane; d < D; d += 32) {
+        float accv = dV[kk * D + d], acck = dK[kk * D + d];
+        for (int qi = 0; qi < nq; ++qi) {
+          accv = fmaf(pcol[qi], dOc[qi * D + d], accv);
+          acck = fmaf(dscol[qi], Qc[qi * D + d], acck);
+        }
+        dV[kk * D + d] = accv;
+        dK[kk * D + d] = acck;
+      }
+    }
+  }
+  for (int kk = warp; kk < KT; kk += FMA_THREADS / 32) {
     const int kj = k0 + kk;
     if (kj >= S) break;
-    const float* pcol = Pt + kk * S;
-    const float* dscol = DSt + kk * S;
     for (int d = lane; d < D; d += 32) {
-      float accv = 0.f, acck = 0.f;
-      for (int qi = 0; qi < S; ++qi) {
-        accv = fmaf(pcol[qi], dOs[qi * D + d], accv);
-        acck = fmaf(dscol[qi], Qs[qi * D + d], acck);
-      }
-      dk[base + (size_t)kj * D + d] = acck;
-      dv[base + (size_t)kj * D + d] = accv;
+      dk[base + (size_t)kj * D + d] = from_f<T>(dK[kk * D + d]);
+      dv[base + (size_t)kj * D + d] = from_f<T>(dV[kk * D + d]);
     }
   }
 }
 
-int attend_bwd_f32(const void* q, const void* k, const void* v, const float* mask,
+template <typename T>
+int attend_bwd_fma(const void* q, const void* k, const void* v, const float* mask,
                    const void* dout, void* p, void* ds, void* dq, void* dk, void* dv, int N, int S,
                    int D, cudaStream_t st) {
-  const size_t smem_q = dq_smem(S, D), smem_kv = dkv_smem(S, D);
-  if (smem_q > kMaxDynSmem || smem_kv > kMaxDynSmem) return (int)cudaErrorInvalidConfiguration;
-  if (p == nullptr || ds == nullptr) return (int)cudaErrorInvalidValue;
-  MVLPT_TRY(cudaFuncSetAttribute(attend_bwd_dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (p == nullptr || ds == nullptr || S < 1) return (int)cudaErrorInvalidValue;
+  const int qt = fma_rows(dq_fixed(D), dq_row(S, D));
+  const size_t smem_kv = sizeof(float) * dkv_words(D);
+  if (qt < 1 || smem_kv > kMaxDynSmem) return (int)cudaErrorInvalidConfiguration;
+  const size_t smem_q = sizeof(float) * (dq_fixed(D) + (size_t)qt * dq_row(S, D));
+  MVLPT_TRY(cudaFuncSetAttribute(attend_bwd_dq<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)smem_q));
-  MVLPT_TRY(cudaFuncSetAttribute(attend_bwd_dkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  MVLPT_TRY(cudaFuncSetAttribute(attend_bwd_dkv<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)smem_kv));
-  attend_bwd_dq<<<dim3(N, (S + QT - 1) / QT), THREADS, smem_q, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, mask, (const float*)dout, (float*)p,
-      (float*)ds, (float*)dq, S, D, (float)pow((double)D, -0.5));
+  attend_bwd_dq<T><<<dim3(N, (S + qt - 1) / qt), FMA_THREADS, smem_q, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, mask, (const T*)dout, (T*)p, (T*)ds, (T*)dq, S, D,
+      (float)pow((double)D, -0.5), qt);
   MVLPT_TRY(cudaGetLastError());
-  attend_bwd_dkv<<<dim3(N, (S + KT - 1) / KT), THREADS, smem_kv, st>>>(
-      (const float*)q, (const float*)dout, (const float*)p, (const float*)ds, (float*)dk,
-      (float*)dv, S, D);
+  attend_bwd_dkv<T><<<dim3(N, (S + KT - 1) / KT), FMA_THREADS, smem_kv, st>>>(
+      (const T*)q, (const T*)dout, (const T*)p, (const T*)ds, (T*)dk, (T*)dv, S, D);
   return (int)cudaGetLastError();
+}
+
+int attend_bwd_bf16(const void* q, const void* k, const void* v, const float* mask,
+                    const void* dout, void* p, void* ds, float* stats, void* dq, void* dk,
+                    void* dv, int N, int S, int D, cudaStream_t st) {
+  if (D != mma::D || S < 1) return (int)cudaErrorInvalidValue;
+  if (S > 8 * BWD_NT[3])  // past the buckets
+    return attend_bwd_fma<__nv_bfloat16>(q, k, v, mask, dout, p, ds, dq, dk, dv, N, S, D, st);
+  if (stats == nullptr) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  if (S <= 8 * BWD_NT[0])
+    return launch_bwd_tc<BWD_NT[0]>(q, k, v, mask, dout, stats, dq, dk, dv, N, S, st);
+  if (S <= 8 * BWD_NT[1])
+    return launch_bwd_tc<BWD_NT[1]>(q, k, v, mask, dout, stats, dq, dk, dv, N, S, st);
+  if (S <= 8 * BWD_NT[2])
+    return launch_bwd_tc<BWD_NT[2]>(q, k, v, mask, dout, stats, dq, dk, dv, N, S, st);
+  return launch_bwd_tc<BWD_NT[3]>(q, k, v, mask, dout, stats, dq, dk, dv, N, S, st);
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores; p and ds are caller-allocated (N, S, S)
-// fp32 scratch, stats is unused), 1 = bfloat16 (tensor cores, D = 64,
-// S <= 280; stats is caller-allocated (3, N, S) fp32 scratch, p and ds
-// are unused). mask may be null (no mask).
+// dtype: 0 = float32, 1 = bfloat16 (D = 64). The tensor-core route (bf16,
+// S <= 280) takes stats, caller-allocated (3, N, S) fp32 scratch, and
+// leaves p and ds unused; the CUDA-core route (fp32, and bf16 past
+// S = 280) takes p and ds, caller-allocated (N, S, S) scratch in the
+// dtype, and leaves stats unused. mask may be null (no mask).
 extern "C" int mvlpt_attend_bwd(int dtype, const void* q, const void* k, const void* v,
                                 const void* mask, const void* dout, void* p, void* ds,
                                 void* stats, void* dq, void* dk, void* dv, int N, int S, int D,
                                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return attend_bwd_f32(q, k, v, (const float*)mask, dout, p, ds, dq, dk, dv, N, S, D, st);
+    return attend_bwd_fma<float>(q, k, v, (const float*)mask, dout, p, ds, dq, dk, dv, N, S, D,
+                                 st);
   if (dtype == 1)
-    return attend_bwd_bf16(q, k, v, (const float*)mask, dout, (float*)stats, dq, dk, dv, N, S,
-                           D, st);
+    return attend_bwd_bf16(q, k, v, (const float*)mask, dout, p, ds, (float*)stats, dq, dk, dv,
+                           N, S, D, st);
   return (int)cudaErrorInvalidValue;
 }

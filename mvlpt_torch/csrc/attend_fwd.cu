@@ -11,7 +11,7 @@
 // The TPU program holds G (batch*head) rows of q, k, v and their fp32
 // scores in VMEM, with S padded to a multiple of 128 and finfo.min on the
 // padded keys. Padded keys take no probability there, so the real rows
-// equal an unpadded call's. Two routes, by dtype:
+// equal an unpadded call's. Two routes, by dtype and S:
 //
 // bfloat16: tensor cores (attend_fwd_tc). One block of 4 warps per
 //   (batch*head row, share of its query groups) stages that row's K and
@@ -24,12 +24,15 @@
 //   keys get -inf; the row max and sum over the four lanes of a row; p
 //   divided, rounded to bf16 and packed from the accumulator fragments
 //   straight into the A fragments of p v, so p never leaves registers.
-//   D = 64 only; S <= 352.
-// float32: CUDA cores (attend_fwd_kernel), fp32 FMAs; TF32 would not
-//   hold fp32's tolerance. One block per (row, tile of QT queries) holds
-//   the row's K and V in shared memory as fp32 and walks its queries one
-//   warp at a time. Past one block's shared memory (S above 348 at
-//   D = 64) it refuses to launch.
+//   D = 64 only; S <= 352 (the buckets).
+// CUDA cores (fma_attn.cuh's core, fp32 FMAs; TF32 would not hold fp32's
+//   tolerance), templated on T with the rounding points above: every
+//   fp32 call, and a bf16 call past the largest bucket, chosen openly by
+//   shape (ops/attention.route_of). One block per (row, tile of queries)
+//   streams the row's K and V through shared memory in key chunks and
+//   keeps each query's fp32 score row, taking fewer queries a block as S
+//   grows: any S whose one score row fits a block (about 49,700 at
+//   D = 64).
 //
 // Bound: the function reads q, k, v and writes o. At the image eval shape
 // (N = B*H = 1200, S = 201, D = 64, bf16) that is 123.5 MB, 36.9 us at
@@ -37,6 +40,7 @@
 // bound by bytes. The tensor-core route reads each of q, k, v once from
 // device memory; its products are cheap beside that.
 #include "common.cuh"
+#include "fma_attn.cuh"
 #include "mma.cuh"
 
 using namespace mvlpt;
@@ -125,6 +129,15 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, const float* mask
   return (int)cudaGetLastError();
 }
 
+// T on the CUDA cores (fma_attn.cuh), q, k, v, o (N, S, D) contiguous.
+template <typename T>
+int attend_fwd_fma(const void* q, const void* k, const void* v, const float* mask, void* o, int N,
+                   int S, int D, cudaStream_t st) {
+  const fma_core::AttnRows rows{q, k, v, o, 1, (long long)S * D, (long long)S * D, 0, D, 0, D};
+  return fma_core::launch_fma_attn_fwd<T>(rows, N, mask, nullptr, S, D,
+                                          (float)pow((double)D, -0.5), false, st);
+}
+
 int attend_fwd_bf16(const void* q, const void* k, const void* v, const float* mask, void* o,
                     int N, int S, int D, cudaStream_t st) {
   if (D != mma::D || S < 1) return (int)cudaErrorInvalidValue;
@@ -134,95 +147,17 @@ int attend_fwd_bf16(const void* q, const void* k, const void* v, const float* ma
   if (S <= 8 * FWD_NT[2]) return launch_fwd_tc<FWD_NT[2]>(q, k, v, mask, o, N, S, st);
   if (S <= 8 * FWD_NT[3]) return launch_fwd_tc<FWD_NT[3]>(q, k, v, mask, o, N, S, st);
   if (S <= 8 * FWD_NT[4]) return launch_fwd_tc<FWD_NT[4]>(q, k, v, mask, o, N, S, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-// --------------------------------------------------- fp32, CUDA cores
-
-constexpr int QT = 32;        // query rows per block
-constexpr int THREADS = 256;  // 8 warps, one query row per warp at a time
-
-size_t fwd_smem(int S, int D) {
-  return sizeof(float) * ((size_t)S * (D + 1) + (size_t)S * D + (size_t)QT * D + (size_t)QT * S);
-}
-
-// q, k, v, o: (N, S, D) contiguous; mask: (S, S) fp32 or null.
-__global__ void __launch_bounds__(THREADS)
-attend_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ mask,
-                  float* __restrict__ o, int S, int D, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int q0 = blockIdx.y * QT;
-  const size_t base = (size_t)blockIdx.x * S * D;
-  float* Ks = smem;              // S x (D+1), padded against bank conflicts
-  float* Vs = Ks + S * (D + 1);  // S x D
-  float* Qs = Vs + S * D;        // QT x D
-  float* Ps = Qs + QT * D;       // QT x S: scores, then probabilities
-
-  for (int idx = threadIdx.x; idx < S * D; idx += THREADS) {
-    const int j = idx / D, d = idx - j * D;
-    Ks[j * (D + 1) + d] = k[base + idx];
-    Vs[idx] = v[base + idx];
-  }
-  for (int idx = threadIdx.x; idx < QT * D; idx += THREADS)
-    Qs[idx] = q0 + idx / D < S ? q[base + (size_t)q0 * D + idx] : 0.f;
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < QT; r += THREADS / 32) {
-    const int qi = q0 + r;
-    if (qi >= S) break;
-    const float* qrow = Qs + r * D;
-    float* prow = Ps + r * S;
-    float mx = -INFINITY;
-    for (int j = lane; j < S; j += 32) {
-      const float* krow = Ks + j * (D + 1);
-      float s = 0.f;
-      for (int d = 0; d < D; ++d) s = fmaf(qrow[d], krow[d], s);
-      s = __fmul_rn(s, scale);  // scale, then add the mask: no fused multiply-add
-      if (mask != nullptr) s += mask[(size_t)qi * S + j];
-      prow[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < S; j += 32) {
-      const float e = expf(prow[j] - mx);
-      prow[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < S; j += 32) prow[j] = prow[j] / sum;
-    __syncwarp();
-    for (int d = lane; d < D; d += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < S; ++j) acc = fmaf(prow[j], Vs[j * D + d], acc);
-      o[base + (size_t)qi * D + d] = acc;
-    }
-  }
-}
-
-int attend_fwd_f32(const void* q, const void* k, const void* v, const float* mask, void* o,
-                   int N, int S, int D, cudaStream_t st) {
-  const size_t smem = fwd_smem(S, D);
-  if (smem > kMaxDynSmem) return (int)cudaErrorInvalidConfiguration;
-  MVLPT_TRY(cudaFuncSetAttribute(attend_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem));
-  dim3 grid(N, (S + QT - 1) / QT);
-  attend_fwd_kernel<<<grid, THREADS, smem, st>>>((const float*)q, (const float*)k,
-                                                 (const float*)v, mask, (float*)o, S, D,
-                                                 (float)pow((double)D, -0.5));
-  return (int)cudaGetLastError();
+  return attend_fwd_fma<__nv_bfloat16>(q, k, v, mask, o, N, S, D, st);  // past the buckets
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores, D = 64,
-// S <= 352). mask may be null (no mask).
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (D = 64; tensor cores up
+// to S = 352, CUDA cores past it). mask may be null (no mask).
 extern "C" int mvlpt_attend_fwd(int dtype, const void* q, const void* k, const void* v,
                                 const void* mask, void* o, int N, int S, int D, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return attend_fwd_f32(q, k, v, (const float*)mask, o, N, S, D, st);
+  if (dtype == 0) return attend_fwd_fma<float>(q, k, v, (const float*)mask, o, N, S, D, st);
   if (dtype == 1) return attend_fwd_bf16(q, k, v, (const float*)mask, o, N, S, D, st);
   return (int)cudaErrorInvalidValue;
 }

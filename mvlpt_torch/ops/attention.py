@@ -20,15 +20,21 @@ The JAX side pads S to a multiple of 128 with ``finfo.min`` on the
 padded keys. They take no probability there, so the real rows equal an
 unpadded call's, and the port does not pad. Each wrapper runs its CUDA
 kernel (``csrc/attend_{fwd,bwd}.cu``) on a CUDA tensor, or raises; it
-runs the plain twin beside it only on a CPU tensor. The kernels take
-one of two routes by dtype (``ROUTES``):
+runs the plain twin beside it only on a CPU tensor. The kernels take one
+of two routes (``ROUTES``), by dtype and S, chosen openly by shape
+(``route_of``), never as a fallback:
 
-  * bfloat16 on the tensor cores (``mma.sync``, ``csrc/mma.cuh``): D = 64
-    only, S up to 352 forward and 280 backward (``_TC_MAX_S``); the
-    backward keeps only a (3, N, S) fp32 scratch of row statistics;
-  * float32 on the CUDA cores: any D, S up to what one block's shared
-    memory holds (348 forward and 278 backward at D = 64); the backward
-    moves p and ds through two (N, S, S) scratch tensors.
+  * bfloat16 rows up to the tensor-core buckets' largest S (352 forward,
+    280 backward) on the tensor cores (``mma.sync``, ``csrc/mma.cuh``);
+    the backward keeps only a (3, N, S) fp32 scratch of row statistics;
+  * float32 rows, and bfloat16 rows past the buckets, on the CUDA cores,
+    with the same rounding points: K and V (and, backward, q and do)
+    stream through shared memory in chunks, so any S whose fp32 score
+    row fits one block (``_fma_words``: up to 49,728 forward and 24,800
+    backward at D = 64); the backward moves T(p) and ds through two
+    (N, S, S) scratch tensors in the dtype.
+
+The bf16 rows take D = 64 only, on either route.
 """
 
 from __future__ import annotations
@@ -38,36 +44,46 @@ import torch
 from mvlpt_torch.ops import _build
 from mvlpt_torch.ops.block import _DTYPE_CODE, BlockKernels, _ptr, _stream
 
-ROUTES = {torch.bfloat16: "tensor cores (mma.sync, bf16)",
-          torch.float32: "CUDA cores (fp32 FMA)"}
+ROUTES = {"mma": "tensor cores (mma.sync, bf16)",
+          "fma": "CUDA cores (FMA, fp32 accumulation)"}
 
-# The bf16 route: the head width its fragments take, and the largest S of
-# its register buckets (csrc/attend_fwd.cu FWD_NT, attend_bwd.cu BWD_NT).
+# The bf16 rows' head width (the tensor-core fragments'), and the largest
+# S of the tensor-core buckets (csrc/attend_fwd.cu FWD_NT, attend_bwd.cu
+# BWD_NT).
 _TC_D = 64
 _TC_MAX_S = {"attend_fwd": 352, "attend_bwd": 280}
 
-# The fp32 route: shared memory of one block, in fp32 words, as
-# csrc/attend_{fwd,bwd}.cu lay it out (32-row query and key tiles).
-_TILE = 32
+# The CUDA-core route's shared memory of one block, in fp32 words, as
+# csrc/fma_attn.cuh and attend_bwd.cu lay it out with one query row:
+# K and V chunks of 64 keys (K, and backward V, padded a column), the
+# query row's q (and do) and accumulators, and its S-long fp32 score row
+# (backward: p and dp); the backward's dk/dv kernel, q and do chunks of
+# 64 queries beside 32 keys' p, ds and accumulators.
+_CHUNK, _KEYS = 64, 32
 _SMEM_WORDS = 232448 // 4
 
 
-def _smem_words(kind: str, s: int, d: int) -> int:
+def _fma_words(kind: str, s: int, d: int) -> int:
     if kind == "attend_fwd":
-        return s * (d + 1) + s * d + _TILE * d + _TILE * s
-    return max(2 * s * (d + 1) + 2 * _TILE * d + 2 * _TILE * s, 2 * s * d + 2 * _TILE * s)
+        return _CHUNK * (d + 1) + _CHUNK * d + 2 * d + s
+    dq = 2 * _CHUNK * (d + 1) + 3 * d + 2 * s
+    dkv = 2 * _CHUNK * d + 2 * _KEYS * (_CHUNK + 1) + 2 * _KEYS * d
+    return max(dq, dkv)
+
+
+def route_of(name: str, dtype: torch.dtype, s: int) -> str:
+    """The ``ROUTES`` key of kernel ``name`` for rows of ``dtype`` and S."""
+    return "mma" if dtype == torch.bfloat16 and s <= _TC_MAX_S[name] else "fma"
 
 
 def _check_route(name: str, dtype: torch.dtype, s: int, d: int) -> None:
-    """Raise if the route of ``dtype`` does not take an (S, D) row."""
-    if dtype == torch.bfloat16:
-        if d != _TC_D:
-            raise ValueError(f"{name}: the bf16 tensor-core route takes D = {_TC_D}, got D = {d}")
-        if s > _TC_MAX_S[name]:
-            raise ValueError(f"{name}: S={s} is past the bf16 tensor-core route's largest S "
-                             f"({_TC_MAX_S[name]})")
-    elif _smem_words(name, s, d) > _SMEM_WORDS:
-        raise ValueError(f"{name}: S={s}, D={d} needs more shared memory than one block has")
+    """Raise if no route takes an (S, D) row of ``dtype``."""
+    if dtype == torch.bfloat16 and d != _TC_D:
+        raise ValueError(f"{name}: bf16 rows take D = {_TC_D} (the tensor-core route takes "
+                         f"D = {_TC_D}), got D = {d}")
+    if route_of(name, dtype, s) == "fma" and _fma_words(name, s, d) > _SMEM_WORDS:
+        raise ValueError(f"{name}: S={s}, D={d}: one query's score row needs more shared memory "
+                         f"than one block has")
 
 
 # ------------------------------------------------------------ plain twins
@@ -140,11 +156,11 @@ def attend_fwd(q, k, v, mask=None):
 
 def _bwd_scratch(q):
     """The backward's scratch for (N, S, D) rows q, as (p, ds, stats):
-    the bf16 route keeps only the row statistics (max, sum, rowsum(dp p))
-    as one (3, N, S) fp32 tensor; the fp32 route moves p and ds through
-    two (N, S, S) tensors."""
+    the tensor-core route keeps only the row statistics (max, sum,
+    rowsum(dp p)) as one (3, N, S) fp32 tensor; the CUDA-core route moves
+    T(p) and ds through two (N, S, S) tensors in q's dtype."""
     n, s, _ = q.shape
-    if q.dtype == torch.bfloat16:
+    if route_of("attend_bwd", q.dtype, s) == "mma":
         return None, None, torch.empty((3, n, s), dtype=torch.float32, device=q.device)
     p = torch.empty((n, s, s), dtype=q.dtype, device=q.device)
     return p, torch.empty_like(p), None
@@ -190,7 +206,14 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _Attend.apply(q, k, v, mask).view(b, h, s, d)
 
 
-def select_attn_fn(use_pallas: str = "auto", inference: bool = False, mesh=None):
+# ``TPU.USE_PALLAS`` values the reference reads as 'on' and as 'off':
+# yaml.safe_load turns an unquoted on/off into True/False, and 1 == True,
+# 0 == False (mvlpt_tpu/ops/attention.py:select_attn_fn).
+_AS_ON = (True, "1")
+_AS_OFF = (False, "0", None)
+
+
+def select_attn_fn(use_pallas="auto", inference: bool = False, mesh=None):
     """Resolve ``TPU.USE_PALLAS`` for the port, the counterpart of
     ``mvlpt_tpu/ops/attention.py:select_attn_fn``. Returns what
     ``core.layers`` takes as ``kernels``:
@@ -207,6 +230,10 @@ def select_attn_fn(use_pallas: str = "auto", inference: bool = False, mesh=None)
         forward for training and eval);
       * "off": None, the plain layer path (torch autograd).
 
+    As on the JAX side, True, 1 and "1" select "on", and False, 0, "0" and
+    None select "off". Any other value raises, where the JAX side falls
+    back to the plain path: a mistyped selection fails loudly here.
+
     "on" and "off" take a mesh without a model axis only: on the JAX side
     they reach a tensor-parallel mesh through GSPMD's sharding of the
     plain layers, which the port does not have, and the port's sharded
@@ -214,6 +241,10 @@ def select_attn_fn(use_pallas: str = "auto", inference: bool = False, mesh=None)
     on the CPU their plain twins."""
     if use_pallas in ("block", "auto"):
         return BlockKernels(inference=inference, mesh=mesh)
+    if use_pallas in _AS_ON:
+        use_pallas = "on"
+    elif use_pallas in _AS_OFF:
+        use_pallas = "off"
     if use_pallas not in ("on", "off"):
         raise ValueError(f"unknown kernel selection {use_pallas!r}")
     if mesh is not None and mesh.n_model > 1:

@@ -61,7 +61,7 @@ def test_fused_attention_matches_pallas(kind, s):
         np.testing.assert_allclose(got, want, atol=5e-6 * np.abs(want).max(), err_msg=name)
 
 
-@pytest.mark.parametrize("s,kind", [(201, "none"), (126, "packed")])
+@pytest.mark.parametrize("s,kind", [(201, "none"), (126, "packed"), (581, "causal")])
 def test_fused_attention_matches_pallas_at_clip_head_width(s, kind):
     """D = 64, the only head width of CLIP's towers and the one the bf16
     tensor-core route takes: ViT-B/16 with 4 VPT rows, and the packed
@@ -76,6 +76,16 @@ def test_fused_attention_matches_pallas_at_clip_head_width(s, kind):
 def test_fused_attention_bf16_matches_pallas():
     q, k, v, do = _inputs(129, seed=3)
     want, got = _run_both(q, k, v, do, _mask("causal", 129), torch.bfloat16)
+    for name, w, g in zip(("o", "dq", "dk", "dv"), want, got):
+        np.testing.assert_allclose(g, w, atol=5e-3 * np.abs(w).max(), err_msg=name)
+
+
+def test_fused_attention_bf16_matches_pallas_past_the_buckets():
+    """bf16 at the ViT-L/14@336px length, where the card's bf16 rows leave
+    the tensor-core buckets for the CUDA-core route: the twin it is held
+    to, against the Pallas kernels."""
+    q, k, v, do = _inputs(581, seed=4, b=1, h=2, d=64)
+    want, got = _run_both(q, k, v, do, None, torch.bfloat16)
     for name, w, g in zip(("o", "dq", "dk", "dv"), want, got):
         np.testing.assert_allclose(g, w, atol=5e-3 * np.abs(w).max(), err_msg=name)
 
@@ -148,38 +158,42 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
             attention.attend_bwd(r, r, r, None, r)
 
 
-@pytest.mark.parametrize("name,most", [("attend_fwd", {torch.bfloat16: 352, torch.float32: 348}),
-                                       ("attend_bwd", {torch.bfloat16: 280, torch.float32: 278})])
+@pytest.mark.parametrize("name,most", [("attend_fwd", 49728), ("attend_bwd", 24800)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_each_route_takes_clip_rows_and_refuses_past_its_limit(name, most, dtype):
-    """Each route takes CLIP text (77), the packed text rows (126),
-    ViT-B/16 + 4 VPT rows (201), ViT-L/14 + 4 VPT rows (261) and the
-    fp32 kernels' shared-memory maxima (348 forward, 278 backward) at
-    D = 64, and refuses one past its own largest S: the bf16 route's
-    register buckets (csrc/attend_{fwd,bwd}.cu), the fp32 route's one
-    block of shared memory."""
+    """Both dtypes take CLIP text (77), the packed text rows (126),
+    ViT-B/16 + 4 VPT rows (201), ViT-L/14 + 4 VPT rows (261), ViT-L/14@336px
+    + 4 VPT rows (581) and S = 1024 at D = 64, each on the route route_of
+    names: bf16 on the tensor cores up to the buckets' largest S (352
+    forward, 280 backward, csrc/attend_{fwd,bwd}.cu) and on the CUDA cores
+    past it, fp32 on the CUDA cores. The CUDA-core route's one limit is a
+    query's fp32 score row (backward: p and dp) beside the key chunks in
+    one block's shared memory; one row past it is refused."""
     fn = getattr(attention, name)
+    tc_max = {"attend_fwd": 352, "attend_bwd": 280}[name]
 
     def call(s):
         r = _meta(2, s, 64, dtype=dtype)
         return fn(r, r, r) if name == "attend_fwd" else fn(r, r, r, None, r)
 
-    for s in (1, 17, 77, 126, 201, 261, most[torch.float32], most[dtype]):
+    for s in (1, 17, 77, 126, 201, 261, tc_max, tc_max + 1, 581, 1024, most):
         with pytest.raises(ValueError, match="no kernel for device meta"):
             call(s)  # past the route's checks, refused only for the device
-    past = "largest S" if dtype == torch.bfloat16 else "more shared memory"
-    with pytest.raises(ValueError, match=past):
-        call(most[dtype] + 1)
-    if dtype == torch.float32:
-        words, limit = attention._smem_words, attention._SMEM_WORDS
-        assert words(name, most[dtype], 64) <= limit < words(name, most[dtype] + 1, 64)
+        want = "mma" if dtype == torch.bfloat16 and s <= tc_max else "fma"
+        assert attention.route_of(name, dtype, s) == want, s
+    with pytest.raises(ValueError, match="more shared memory"):
+        call(most + 1)
+    words, limit = attention._fma_words, attention._SMEM_WORDS
+    assert words(name, most, 64) <= limit < words(name, most + 1, 64)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_backward_scratch_of_each_route(dtype):
-    """The bf16 backward allocates no (N, S, S) tensor: only the (3, N, S)
-    fp32 row statistics (max, sum, rowsum(dp p)) pass between its two
-    launches. The fp32 route moves p and ds through (N, S, S) tensors."""
+    """The tensor-core route (bf16 up to S = 280) allocates no (N, S, S)
+    tensor: only the (3, N, S) fp32 row statistics (max, sum, rowsum(dp
+    p)) pass between its two launches. The CUDA-core route (fp32; bf16
+    past S = 280) moves T(p) and ds through (N, S, S) tensors in the
+    dtype."""
     n, s = 384, 201  # the image train shape: 32 images x 12 heads
     p, ds, stats = attention._bwd_scratch(_meta(n, s, 64, dtype=dtype))
     if dtype == torch.bfloat16:
@@ -188,6 +202,10 @@ def test_backward_scratch_of_each_route(dtype):
     else:
         assert stats is None
         assert [(tuple(t.shape), t.dtype) for t in (p, ds)] == [((n, s, s), dtype)] * 2
+    n, s = 64, 581  # ViT-L/14@336px: 4 images x 16 heads
+    p, ds, stats = attention._bwd_scratch(_meta(n, s, 64, dtype=dtype))
+    assert stats is None
+    assert [(tuple(t.shape), t.dtype) for t in (p, ds)] == [((n, s, s), dtype)] * 2
 
 
 def test_cpu_calls_launch_no_kernel():

@@ -171,6 +171,22 @@ def test_chip_smoke_spill_check_reads_each_attention_kernel(fwd, bwd, mlp, error
             chip_smoke.check_tc_spills(logs)
 
 
+def test_chip_smoke_fails_a_row_past_its_bound():
+    """Rows hold to TOL x max|ref| (fp32 1e-4, bf16 5e-3): one bf16 ulp in
+    [4, 8) at max|ref| 5.46875 (0.03125 > 0.02734) fails the run."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    assert chip_smoke.TOL == {"float32": 1e-4, "bfloat16": 5e-3}
+    row = dict(name="attn_fwd", mode="no-residual", tower="image_eval", dtype="bfloat16",
+               max_abs_err=0.02734, tol=5e-3 * 5.46875, ok=True)
+    assert chip_smoke._fail_on_disagreement([row]) == [row]
+    with pytest.raises(AssertionError, match="0.03125 > 0.02734375"):
+        chip_smoke._fail_on_disagreement([dict(row, max_abs_err=0.03125, ok=False)])
+
+
 def test_every_header_keys_every_library(tmp_path, monkeypatch):
     """A library's digest covers its source and every header under csrc/,
     a header added later included: a change to any header rebuilds every
