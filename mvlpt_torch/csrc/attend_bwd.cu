@@ -255,7 +255,9 @@ int launch_bwd_tc(const void* q, const void* k, const void* v, const float* mask
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q));
   MVLPT_TRY(cudaFuncSetAttribute(attend_bwd_dkv_tc<NT>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv));
-  const dim3 grid(N, mma::row_shares(N, S, TC_WARPS));
+  int shares = 0;
+  MVLPT_TRY(mma::row_shares(N, S, TC_WARPS, &shares));
+  const dim3 grid(N, shares);
   const float scale = 0.125f;  // 64^-1/2
   attend_bwd_dq_tc<NT><<<grid, TC_THREADS, smem_q, st>>>(
       (const bf*)q, (const bf*)k, (const bf*)v, mask, (const bf*)dout, stats, (bf*)dq, N, S,

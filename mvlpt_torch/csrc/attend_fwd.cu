@@ -123,7 +123,9 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, const float* mask
   constexpr int smem = fwd_smem<NT>();
   MVLPT_TRY(cudaFuncSetAttribute(attend_fwd_tc<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  smem));
-  attend_fwd_tc<NT><<<dim3(N, mma::row_shares(N, S, TC_WARPS)), TC_THREADS, smem, st>>>(
+  int shares = 0;
+  MVLPT_TRY(mma::row_shares(N, S, TC_WARPS, &shares));
+  attend_fwd_tc<NT><<<dim3(N, shares), TC_THREADS, smem, st>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, mask,
       (__nv_bfloat16*)o, S, 0.125f);  // 64^-1/2
   return (int)cudaGetLastError();

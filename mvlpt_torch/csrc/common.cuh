@@ -10,8 +10,9 @@
 // The GEMM is a first, simple version: 64x64 output tiles, K in steps
 // of 16 through shared memory, 4x4 outputs per thread, fp32 FMAs on the
 // CUDA cores, so at the flagship shapes it is bound by operations far
-// below the card's bf16 tensor-core rate. mlp_fwd.cu takes it for fp32
-// only; its bf16 products go to wgmma.cuh's tensor-core GEMM.
+// below the card's bf16 tensor-core rate. mlp_fwd.cu and mlp_bwd.cu take
+// it for fp32 only; their bf16 products go to wgmma.cuh's tensor-core
+// GEMM.
 #pragma once
 
 #include <cuda_bf16.h>

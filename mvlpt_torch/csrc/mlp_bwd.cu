@@ -7,7 +7,7 @@
 //
 // Three launches: the da GEMM whose epilogue applies QuickGELU' from
 // the saved hpre and rounds; the dxh GEMM with an fp32 epilogue; the
-// LayerNorm backward rows.
+// LayerNorm backward rows. dh and dxh go through device memory.
 //
 // The tensor-parallel entry mvlpt_mlp_bwd_part replaces the same body's
 // part=True mode (mvlpt_tpu/ops/block.py:_mlp_tp_bwd): over this rank's
@@ -19,13 +19,32 @@
 // the bytes of x, gy, hpre, the weights and dx (about 79 MB, 23 us at
 // 3.35 TB/s): bound by operations. At the text tower's packed rows
 // (S=126, W=512; see attn_fwd.cu) about 7.6 GFLOP (7.6 us) against
-// 17.8 MB (5.3 us): bound by operations. Products run on the CUDA
-// cores in fp32 here.
+// 17.8 MB (5.3 us): bound by operations. So the products take two routes
+// by dtype (ops/block.MLP_ROUTES), as the forward's do: bf16 on the
+// tensor cores through wgmma.cuh's GEMM with B read K-major (both
+// products read a weight transposed: Wproj (4W, W) as an (N = 4W,
+// K = W) matrix, Wfc (W, 4W) as an (N = W, K = 4W) one; TMA brings their
+// slabs in A's layout and no weight is copied), the QuickGELU' epilogue
+// in the GEMM's; fp32 through common.cuh's GEMM on the CUDA cores.
+#include <type_traits>
+
 #include "common.cuh"
+#include "wgmma.cuh"
 
 using namespace mvlpt;
 
 namespace {
+
+// C = A (M, K) @ B^T for a row-major (N, K) B, on T's route: bf16 on
+// wgmma (B K-major), fp32 on the CUDA cores.
+template <typename T, int EPI>
+cudaError_t gemm_bt(const void* A, const void* B, int M, int N, int K, EpiArgs ep,
+                    cudaStream_t st) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+    return wg::launch_gemm_bf16<EPI, true>(A, B, M, N, K, ep, st);
+  else
+    return launch_gemm<T, true, EPI>(A, B, M, N, K, ep, st);
+}
 
 // part: stop at the fp32 dxh (no LayerNorm backward, x/mu/rstd unused).
 template <typename T>
@@ -33,16 +52,25 @@ int mlp_bwd_impl(const void* x, const float* mu, const float* rstd, const void* 
                  const void* ln_scale, const void* fc_w, const void* proj_w, const void* gy,
                  void* dh, float* dxh, void* dx, int M, int W, int W4, bool part,
                  cudaStream_t st) {
-  // da[m, j] = sum_n gy[m, n] Wproj[j, n]: Wproj is (W4, W), so B^T.
-  MVLPT_TRY((launch_gemm<T, true, EPI_GELU_BWD>(gy, proj_w, M, W4, W,
-                                                EpiArgs{nullptr, nullptr, hpre, dh, nullptr},
-                                                st)));
-  // dxh[m, n] = sum_j dh[m, j] Wfc[n, j]: Wfc is (W, W4), so B^T.
-  MVLPT_TRY((launch_gemm<T, true, EPI_F32>(dh, fc_w, M, W, W4,
-                                           EpiArgs{nullptr, nullptr, nullptr, dxh, nullptr},
-                                           st)));
+  // da[m, j] = sum_n gy[m, n] Wproj[j, n], then dh = T(da QuickGELU'(hpre)).
+  MVLPT_TRY((gemm_bt<T, EPI_GELU_BWD>(gy, proj_w, M, W4, W,
+                                      EpiArgs{nullptr, nullptr, hpre, dh, nullptr}, st)));
+  // dxh[m, n] = sum_j dh[m, j] Wfc[n, j].
+  MVLPT_TRY((gemm_bt<T, EPI_F32>(dh, fc_w, M, W, W4,
+                                 EpiArgs{nullptr, nullptr, nullptr, dxh, nullptr}, st)));
   if (!part) MVLPT_TRY(launch_ln_bwd<T>(x, mu, rstd, ln_scale, dxh, gy, dx, M, W, st));
   return 0;
+}
+
+// The K-major wgmma GEMM alone, in tiles of BN or (BN = 0) as the
+// backward launches it.
+template <int EPI>
+cudaError_t gemm_kmajor(int bn, const void* A, const void* B, int M, int N, int K, EpiArgs ep,
+                        cudaStream_t st) {
+  if (bn == 0) return wg::launch_gemm_bf16<EPI, true>(A, B, M, N, K, ep, st);
+  if (bn == 128) return wg::launch_gemm_bf16_tiles<EPI, 128, true>(A, B, M, N, K, ep, st);
+  if (bn == 256) return wg::launch_gemm_bf16_tiles<EPI, 256, true>(A, B, M, N, K, ep, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -77,5 +105,19 @@ extern "C" int mvlpt_mlp_bwd_part(int dtype, const void* hpre, const void* fc_w,
   if (dtype == 1)
     return mlp_bwd_impl<__nv_bfloat16>(nullptr, nullptr, nullptr, hpre, nullptr, fc_w, proj_w,
                                        gy, dh, (float*)dxh, nullptr, M, W, W4, true, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward's bf16 GEMM on its own, for a check of its K-major layout
+// and a timing of its tiles: out = A (M, K) B^T for a row-major bf16 B
+// (N, K), with epi 1 (EPI_F32: out fp32 (M, N)) or 5 (EPI_GELU_BWD: aux
+// the bf16 hpre (M, N), out bf16 (M, N)); bn = 128 or 256 picks the
+// tile width, 0 the backward's own choice.
+extern "C" int mvlpt_gemm_kmajor(int epi, int bn, const void* A, const void* B, const void* aux,
+                                 void* out, int M, int N, int K, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const EpiArgs ep{nullptr, nullptr, aux, out, nullptr};
+  if (epi == EPI_F32) return (int)gemm_kmajor<EPI_F32>(bn, A, B, M, N, K, ep, st);
+  if (epi == EPI_GELU_BWD) return (int)gemm_kmajor<EPI_GELU_BWD>(bn, A, B, M, N, K, ep, st);
   return (int)cudaErrorInvalidValue;
 }

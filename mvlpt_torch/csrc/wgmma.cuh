@@ -1,17 +1,22 @@
 // bf16 GEMM for Hopper's tensor cores: wgmma fed by TMA through an
 // mbarrier ring, with the fused epilogues of common.cuh.
 //
-//   C[M, N] = A[M, K] @ B[K, N], A and B row-major bf16 (B keeps the JAX
-//   (in, out) schema of the weights, so it is MN-major: wgmma reads it
-//   transposed from shared memory and no copy of it is made), fp32
-//   accumulators, then one of the Epilogue modes on each element.
+//   C[M, N] = A[M, K] @ op(B), A row-major bf16, fp32 accumulators, then
+//   one of the Epilogue modes on each element. B is a row-major bf16
+//   weight in the JAX (in, out) schema, read as it lies, with no copy:
+//   - MN-major (B_KMAJOR false): B is (K, N), op(B) = B, the forward's
+//     products; wgmma reads it transposed from shared memory;
+//   - K-major (B_KMAJOR true): B is (N, K), op(B) = B^T, the backward's
+//     products (gy W_proj^T, dh W_fc^T); its slabs lie in shared memory
+//     as A's do.
 //
 // A block computes a BM x BN tile of C (128 x 128, or 128 x 256 where
 // that still makes three waves of blocks: launch_gemm_bf16) with three
 // warpgroups, one block an SM. Warpgroup 0 is the producer: one of its
 // threads keeps a ring of STAGES = 4 K-slabs in flight with
 // cp.async.bulk.tensor (TMA), 64 values (128 bytes) of K a slab, in the
-// 128-byte swizzle; each stage completes on its `full` mbarrier
+// 128-byte swizzle (B MN-major in boxes of 64 columns, K-major in one
+// box of BN rows); each stage completes on its `full` mbarrier
 // (transaction bytes) and is handed back on its `empty` mbarrier.
 // Warpgroups 1 and 2 are the consumers, 64 rows each: per slab four
 // wgmma.mma_async.m64nBNk16 (A and B from shared memory by descriptor),
@@ -27,7 +32,9 @@
 // Ragged edges: TMA fills rows (and columns) past the tensor with zeros
 // on load, and the epilogue masks rows >= M and columns >= N on store.
 // The operands' bases must be 16-byte aligned and K, N multiples of 8
-// (TMA's row pitch); the wrappers ask for W, 4W multiples of 64.
+// (TMA's row pitch); the wrappers ask for W, 4W multiples of 64. In the
+// EPI_GELU_BWD epilogue, aux (M, N) is read four values at a time under
+// the same mask as the store.
 //
 // The tensor maps are encoded on the host (cuTensorMapEncodeTiled,
 // reached through the runtime's driver entry point, so the library needs
@@ -59,7 +66,7 @@ constexpr int THREADS = 128 * (1 + CONSUMERS);
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 static_assert(128 * PRODUCER_REGS + 128 * CONSUMERS * CONSUMER_REGS <= THREADS * 168,
               "setmaxnreg asks for more registers than the block holds");
-constexpr int BOX_N = 64;                          // B's TMA box: 128 bytes of N
+constexpr int BOX_N = 64;                          // MN-major B's TMA box: 128 bytes of N
 constexpr int A_BYTES = BM * BK * 2;               // 16 KB
 constexpr int B_BOX_BYTES = BK * BOX_N * 2;        // 8 KB
 
@@ -144,6 +151,7 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
 //   B, MN-major (rows of 64 N values, one row a k): LBO = the step from
 //   one 64-column box to the next, SBO = 1024 (from one 8-k group to the
 //   next); a K step of 16 adds 16 rows, 2048 bytes.
+//   B, K-major (rows of 64 K values, one row an n): as A.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
@@ -169,15 +177,13 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d += A B over one k16 step: A 64 x 16 (K-major), B 16 x N (MN-major,
-// imm-trans-b = 1), fp32 accumulators. Accumulator i of thread t holds
-// row 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2), column
+// d += A B over one k16 step: A 64 x 16 (K-major), B 16 x N (MN-major
+// with imm-trans-b TB = 1, K-major with TB = 0), fp32 accumulators; N is
+// the width of d (64 or 128 floats: N = 128 or 256). Accumulator i of
+// thread t holds row 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2), column
 // 8 (i / 4) + 2 (t % 4) + i % 2.
-template <int N>
-__device__ __forceinline__ void wgmma_m64k16(float (&d)[N / 2], uint64_t a, uint64_t b);
-
-template <>
-__device__ __forceinline__ void wgmma_m64k16<128>(float (&d)[64], uint64_t a, uint64_t b) {
+template <int TB>
+__device__ __forceinline__ void wgmma_m64k16(float (&d)[64], uint64_t a, uint64_t b) {
   const int scale_d = 1;
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
@@ -186,7 +192,7 @@ __device__ __forceinline__ void wgmma_m64k16<128>(float (&d)[64], uint64_t a, ui
       "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
       "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
       "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
@@ -198,11 +204,11 @@ __device__ __forceinline__ void wgmma_m64k16<128>(float (&d)[64], uint64_t a, ui
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
 }
 
-template <>
-__device__ __forceinline__ void wgmma_m64k16<256>(float (&d)[128], uint64_t a, uint64_t b) {
+template <int TB>
+__device__ __forceinline__ void wgmma_m64k16(float (&d)[128], uint64_t a, uint64_t b) {
   const int scale_d = 1;
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
@@ -216,7 +222,7 @@ __device__ __forceinline__ void wgmma_m64k16<256>(float (&d)[128], uint64_t a, u
       "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
       "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
       "%124, %125, %126, %127 "
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
@@ -239,7 +245,7 @@ __device__ __forceinline__ void wgmma_m64k16<256>(float (&d)[128], uint64_t a, u
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
         "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
         "+f"(d[127])
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
 }
 
 // --------------------------------------------------------- epilogue
@@ -297,9 +303,26 @@ __device__ __forceinline__ void epi_quad(const EpiArgs& ep, int m, int n, int N,
   }
 }
 
+// EPI_GELU_BWD on columns n..n+3 of a row at offset o, given the four
+// bf16 hpre values there (aux, loaded ahead by the caller): dh =
+// T(da QuickGELU'(h)) at the saved, rounded h, common.cuh's rounding
+// points.
+__device__ __forceinline__ void gelu_bwd_quad(const EpiArgs& ep, size_t o, float4 acc,
+                                              uint2 hq) {
+  const float a[4] = {acc.x, acc.y, acc.z, acc.w};
+  float h[4], out[4];
+  load_bf16x4(h, &hq);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float sg = sigmoid_rn(1.702f * h[i]);
+    out[i] = a[i] * (sg + 1.702f * h[i] * sg * (1.f - sg));
+  }
+  store_bf16x4((__nv_bfloat16*)ep.out + o, out);
+}
+
 // ----------------------------------------------------------- kernel
 
-template <int EPI, int BN>
+template <int EPI, int BN, bool B_KMAJOR>
 __global__ void __launch_bounds__(THREADS, 1)
 wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                   const __grid_constant__ CUtensorMap map_b, int M, int N, int K, EpiArgs ep) {
@@ -334,10 +357,14 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
         const uint32_t full = full0 + 8 * s;
         mbar_expect_tx(full, L::STAGE_BYTES);
         tma_load_2d(smem_u32(s_a + s * A_BYTES), &map_a, full, kt * BK, m0);
+        if constexpr (B_KMAJOR) {
+          tma_load_2d(smem_u32(s_b + s * L::B_BYTES), &map_b, full, kt * BK, n0);
+        } else {
 #pragma unroll
-        for (int h = 0; h < BN / BOX_N; ++h)
-          tma_load_2d(smem_u32(s_b + s * L::B_BYTES + h * B_BOX_BYTES), &map_b, full,
-                      n0 + h * BOX_N, kt * BK);
+          for (int h = 0; h < BN / BOX_N; ++h)
+            tma_load_2d(smem_u32(s_b + s * L::B_BYTES + h * B_BOX_BYTES), &map_b, full,
+                        n0 + h * BOX_N, kt * BK);
+        }
       }
     }
   } else {  // consumers
@@ -353,12 +380,35 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       const uint32_t b0 = smem_u32(s_b + s * L::B_BYTES);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_m64k16<BN>(d, sw128_desc(a0 + 32 * kk, 16, 1024),
-                         sw128_desc(b0 + 2048 * kk, B_BOX_BYTES, 1024));
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t bd = B_KMAJOR ? sw128_desc(b0 + 32 * kk, 16, 1024)
+                                     : sw128_desc(b0 + 2048 * kk, B_BOX_BYTES, 1024);
+        wgmma_m64k16<B_KMAJOR ? 0 : 1>(d, sw128_desc(a0 + 32 * kk, 16, 1024), bd);
+      }
       wgmma_commit();
       wgmma_wait<1>();  // the previous slab's products are done: hand its stage back
       if (kt > 0 && t == 0) mbar_arrive(empty0 + 8 * ((kt - 1) % STAGES));
+    }
+    // The epilogue's quads: iteration it takes quad idx = 128 it + t of
+    // this consumer's 64 x BN tile, row idx / (BN / 4), columns 4 (idx %
+    // (BN / 4)) on.
+    constexpr int ITERS = 64 * (BN / 4) / 128;
+    const int row0 = t / (BN / 4), q0 = t % (BN / 4), rows_per_it = 128 / (BN / 4);
+    // EPI_GELU_BWD reads aux (hpre) as a stream as large as its output:
+    // every load of the tile starts here, before the last products
+    // drain, so the loads' latencies overlap them and the staging (a
+    // load cannot move past a store the compiler cannot tell apart from
+    // it).
+    uint2 hq[EPI == EPI_GELU_BWD ? ITERS : 1];
+    if constexpr (EPI == EPI_GELU_BWD) {
+#pragma unroll
+      for (int it = 0; it < ITERS; ++it) {
+        const int m = m0 + 64 * c + row0 + rows_per_it * it, n = n0 + 4 * q0;
+        hq[it] = m < M && n < N
+                     ? __ldg(reinterpret_cast<const uint2*>((const __nv_bfloat16*)ep.aux +
+                                                           (size_t)m * N + n))
+                     : make_uint2(0u, 0u);
+      }
     }
     wgmma_wait<0>();
     fence_acc(d);
@@ -378,12 +428,24 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
           make_float2(d[4 * j + 2], d[4 * j + 3]);
     }
     asm volatile("bar.sync %0, 128;\n" ::"r"(2 + c) : "memory");  // this warpgroup only
+    if constexpr (EPI == EPI_GELU_BWD) {
+#pragma unroll
+      for (int it = 0; it < ITERS; ++it) {
+        const int row = row0 + rows_per_it * it;
+        const int m = m0 + 64 * c + row, n = n0 + 4 * q0;
+        if (m < M && n < N)
+          gelu_bwd_quad(ep, (size_t)m * N + n,
+                        *reinterpret_cast<const float4*>(so + row * L::OUT_ROW + 4 * q0), hq[it]);
+      }
+    } else {
 #pragma unroll 4
-    for (int it = 0; it < 64 * (BN / 4) / 128; ++it) {
-      const int idx = it * 128 + t, row = idx / (BN / 4), q = idx % (BN / 4);
-      const int m = m0 + 64 * c + row, n = n0 + 4 * q;
-      if (m < M && n < N)
-        epi_quad<EPI>(ep, m, n, N, *reinterpret_cast<const float4*>(so + row * L::OUT_ROW + 4 * q));
+      for (int it = 0; it < ITERS; ++it) {
+        const int idx = it * 128 + t, row = idx / (BN / 4), q = idx % (BN / 4);
+        const int m = m0 + 64 * c + row, n = n0 + 4 * q;
+        if (m < M && n < N)
+          epi_quad<EPI>(ep, m, n, N,
+                        *reinterpret_cast<const float4*>(so + row * L::OUT_ROW + 4 * q));
+      }
     }
   }
 }
@@ -428,36 +490,33 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int rows, int co
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// C = A (M, K) @ B (K, N) through the epilogue EPI, both operands bf16,
-// in tiles of BM x BN.
-template <int EPI, int BN>
+// C = A (M, K) @ op(B) through the epilogue EPI, both operands bf16, in
+// tiles of BM x BN; B is (K, N), or (N, K) with B_KMAJOR.
+template <int EPI, int BN, bool B_KMAJOR = false>
 inline cudaError_t launch_gemm_bf16_tiles(const void* A, const void* B, int M, int N, int K,
                                           EpiArgs ep, cudaStream_t st) {
   static bool smem_set = false;  // the attribute holds for the process
   constexpr int smem = Tile<BN>::SMEM_BYTES;
+  // cuTensorMapEncodeTiled needs the device's context current on this
+  // thread, and a thread's first call here (autograd's backward thread,
+  // say) may come before any runtime call that makes it so:
+  // cudaSetDevice on the current device does (CUDA 12).
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaSetDevice(dev);
   CUtensorMap map_a, map_b;
-  cudaError_t e = make_map(&map_a, A, M, K, BM, BK);
-  if (e == cudaSuccess) e = make_map(&map_b, B, K, N, BK, BOX_N);
+  if (e == cudaSuccess) e = make_map(&map_a, A, M, K, BM, BK);
+  if (e == cudaSuccess)
+    e = B_KMAJOR ? make_map(&map_b, B, N, K, BN, BK) : make_map(&map_b, B, K, N, BK, BOX_N);
   if (e == cudaSuccess && !smem_set) {
-    e = cudaFuncSetAttribute(wgmma_gemm_kernel<EPI, BN>,
+    e = cudaFuncSetAttribute(wgmma_gemm_kernel<EPI, BN, B_KMAJOR>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     smem_set = e == cudaSuccess;
   }
   if (e != cudaSuccess) return e;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  wgmma_gemm_kernel<EPI, BN><<<grid, THREADS, smem, st>>>(map_a, map_b, M, N, K, ep);
+  wgmma_gemm_kernel<EPI, BN, B_KMAJOR><<<grid, THREADS, smem, st>>>(map_a, map_b, M, N, K, ep);
   return cudaGetLastError();
-}
-
-inline int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      sms = 132;
-  }
-  return sms;
 }
 
 // The same, in 128 x 256 tiles where they make three waves of blocks or
@@ -465,12 +524,16 @@ inline int sm_count() {
 // 128 x 128 tiles. Measured on an H100: the wide tile reads less of B a
 // product and wins where the card stays full; where it leaves the last
 // wave mostly empty (the projection at M = 6432, N = 768), it loses.
-template <int EPI>
+template <int EPI, bool B_KMAJOR = false>
 inline cudaError_t launch_gemm_bf16(const void* A, const void* B, int M, int N, int K, EpiArgs ep,
                                     cudaStream_t st) {
+  int sms = 0;
+  const cudaError_t e = mma::sm_count(&sms);
+  if (e != cudaSuccess) return e;
   const long wide_tiles = (long)((M + BM - 1) / BM) * ((N + 255) / 256);
-  return wide_tiles >= 3l * sm_count() ? launch_gemm_bf16_tiles<EPI, 256>(A, B, M, N, K, ep, st)
-                                       : launch_gemm_bf16_tiles<EPI, 128>(A, B, M, N, K, ep, st);
+  return wide_tiles >= 3l * sms
+             ? launch_gemm_bf16_tiles<EPI, 256, B_KMAJOR>(A, B, M, N, K, ep, st)
+             : launch_gemm_bf16_tiles<EPI, 128, B_KMAJOR>(A, B, M, N, K, ep, st);
 }
 
 }  // namespace

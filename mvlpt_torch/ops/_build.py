@@ -38,6 +38,8 @@ _SIGNATURES = {
     "mlp_fwd_part": ("mlp_fwd", "mvlpt_mlp_fwd_part", [_I] + [_P] * 12 + [_I] * 3 + [_F, _P]),
     "mlp_bwd": ("mlp_bwd", "mvlpt_mlp_bwd", [_I] + [_P] * 11 + [_I, _I, _I, _P]),
     "mlp_bwd_part": ("mlp_bwd", "mvlpt_mlp_bwd_part", [_I] + [_P] * 6 + [_I] * 3 + [_P]),
+    # The backward's K-major wgmma GEMM alone (chip_smoke.py's layout check).
+    "gemm_kmajor": ("mlp_bwd", "mvlpt_gemm_kmajor", [_I, _I] + [_P] * 4 + [_I] * 3 + [_P]),
     "attend_fwd": ("attend_fwd", "mvlpt_attend_fwd", [_I] + [_P] * 5 + [_I, _I, _I, _P]),
     "attend_bwd": ("attend_bwd", "mvlpt_attend_bwd", [_I] + [_P] * 11 + [_I, _I, _I, _P]),
 }

@@ -88,29 +88,31 @@ def _check_route(name: str, dtype: torch.dtype, s: int, d: int) -> None:
 
 # ------------------------------------------------------------ plain twins
 
-def _scores(q, k, mask):
-    """fp32 probabilities softmax(q k^T * scale + mask) on (N, S, D)."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+def _scores(q, k, mask, acc=torch.float32):
+    """Probabilities softmax(q k^T * scale + mask) on (N, S, D), in ``acc``."""
+    s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * q.shape[-1] ** -0.5
     if mask is not None:
-        s = s + mask.float()
+        s = s + mask.to(acc)
     return torch.softmax(s, dim=-1)
 
 
-def attend_fwd_plain(q, k, v, mask=None):
-    p = _scores(q, k, mask).to(v.dtype)
-    return torch.matmul(p.float(), v.float()).to(v.dtype)
+def attend_fwd_plain(q, k, v, mask=None, acc=torch.float32):
+    """``acc``: the dtype of the sums and the softmax (``ops.block``'s
+    twins take it alike; float64 is the fp64-summed twin)."""
+    p = _scores(q, k, mask, acc).to(v.dtype)
+    return torch.matmul(p.to(acc), v.to(acc)).to(v.dtype)
 
 
-def attend_bwd_plain(q, k, v, mask, do):
+def attend_bwd_plain(q, k, v, mask, do, acc=torch.float32):
     dtype = q.dtype
     do = do.to(dtype)
-    p = _scores(q, k, mask)
-    dv = torch.matmul(p.to(dtype).float().transpose(-1, -2), do.float()).to(dtype)
-    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    p = _scores(q, k, mask, acc)
+    dv = torch.matmul(p.to(dtype).to(acc).transpose(-1, -2), do.to(acc)).to(dtype)
+    dp = torch.matmul(do.to(acc), v.to(acc).transpose(-1, -2))
     ds = p * (dp - (dp * p).sum(-1, keepdim=True))
-    ds = (ds * q.shape[-1] ** -0.5).to(dtype).float()
-    dq = torch.matmul(ds, k.float()).to(dtype)
-    dk = torch.matmul(ds.transpose(-1, -2), q.float()).to(dtype)
+    ds = (ds * q.shape[-1] ** -0.5).to(dtype).to(acc)
+    dq = torch.matmul(ds, k.to(acc)).to(dtype)
+    dk = torch.matmul(ds.transpose(-1, -2), q.to(acc)).to(dtype)
     return dq, dk, dv
 
 

@@ -45,10 +45,11 @@ from mvlpt_torch.ops import _build
 
 _EPS = 1e-5
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# The routes of the MLP forwards' two products (mlp_fwd, mlp_fwd_part),
-# by dtype: bf16 on the tensor cores (csrc/wgmma.cuh), fp32 on the CUDA
-# cores (csrc/common.cuh). The other half-block kernels keep the CUDA-core
-# GEMM in both dtypes.
+# The routes of the MLP half-blocks' two products (mlp_fwd, mlp_fwd_part;
+# mlp_bwd, mlp_bwd_part, whose products read the weights transposed), by
+# dtype: bf16 on the tensor cores (csrc/wgmma.cuh), fp32 on the CUDA cores
+# (csrc/common.cuh). The attention half-blocks keep the CUDA-core GEMM in
+# both dtypes.
 MLP_ROUTES = {torch.bfloat16: "tensor cores (wgmma + TMA, bf16)",
               torch.float32: "CUDA cores (fp32 FMA)"}
 # The bf16 route's TMA tiles: K and N in slabs of 64 values.
@@ -68,74 +69,105 @@ class BlockKernels:
 
 
 # ------------------------------------------------------------ plain twins
+#
+# Every twin takes ``acc``, the dtype its sums and elementwise math run in
+# (products, LayerNorm mean and variance, softmax, the backward's row
+# sums, QuickGELU and its derivative, the residual adds). The default,
+# fp32, is the twin each kernel is held to. ``acc=torch.float64`` is the
+# fp64-summed twin: the same function at the same rounding points to the
+# compute dtype, with every sum in fp64, so it tells how far the fp32
+# twin's own sums sit from exact ones (chip_smoke.py's bf16 criterion).
+# Its fp32 outputs (mu, rstd, the parts' partials) stay in fp64.
 
-def _ln2d(x32, scale32, bias32, eps):
-    mu = x32.mean(-1, keepdim=True)
-    var = (x32 - mu).square().mean(-1, keepdim=True)
+_F32 = torch.float32
+
+
+def _ln2d(x, scale, bias, eps):
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
     rstd = torch.rsqrt(var + eps)
-    return (x32 - mu) * rstd * scale32 + bias32, mu, rstd
+    return (x - mu) * rstd * scale + bias, mu, rstd
 
 
-def _ln_in_cot(x32, mu, rstd, scale32, dxh32):
-    """LayerNorm input cotangent with frozen scale/bias, fp32."""
-    xn = (x32 - mu) * rstd
-    g = dxh32 * scale32
+def _ln_in_cot(x, mu, rstd, scale, dxh):
+    """LayerNorm input cotangent with frozen scale/bias, in the inputs' dtype."""
+    xn = (x - mu) * rstd
+    g = dxh * scale
     m1 = g.mean(-1, keepdim=True)
     m2 = (g * xn).mean(-1, keepdim=True)
     return rstd * (g - m1 - xn * m2)
 
 
-def _mm(a, b):
-    """fp32-accumulated product of (possibly bf16) operands."""
-    return torch.matmul(a.float(), b.float())
+def _mm(a, b, acc=_F32):
+    """``acc``-accumulated product of (possibly bf16) operands."""
+    return torch.matmul(a.to(acc), b.to(acc))
 
 
-def _attn_core_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, mask, n_heads, eps):
+def _add(x, h, acc=_F32):
+    """T(x + h), the sum in ``acc``: a residual add."""
+    return (x.to(acc) + h.to(acc)).to(x.dtype)
+
+
+def _affine_plain(a, w, bias, acc=_F32):
+    """T(a w + bias) in a's dtype: the qkv, FC and output products."""
+    return (_mm(a, w, acc) + bias.to(acc)).to(a.dtype)
+
+
+def _mha_plain(qkv, mask, n_heads, acc=_F32):
+    """Multi-head attention over qkv (B, S, 3Wl) with ``n_heads`` heads ->
+    (o (B, S, Wl), probs (B, H, S, S)), both in qkv's dtype: q scaled and
+    rounded before the product, p rounded before p v."""
+    b, s, wl3 = qkv.shape
+    wl = wl3 // 3
+    d = wl // n_heads
+    dtype, scale = qkv.dtype, d ** -0.5
+    q, k, v = qkv.view(b, s, 3, n_heads, d).permute(2, 0, 3, 1, 4)
+    qs = (q.to(acc) * scale).to(dtype)
+    logits = _mm(qs, k.transpose(-1, -2), acc)
+    if mask is not None:
+        logits = logits + mask.to(acc)
+    probs = torch.softmax(logits, dim=-1).to(dtype)
+    return _mm(probs, v, acc).to(dtype).transpose(1, 2).reshape(b, s, wl), probs
+
+
+def _attn_core_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, mask, n_heads, eps, acc=_F32):
     """LN -> qkv -> MHA over the heads of ``qkv_w`` (W, 3Wl): -> (o (B, S,
     Wl), qkv, probs, mu, rstd)."""
-    b, s, _ = x.shape
-    wl = qkv_w.shape[-1] // 3
-    d = wl // n_heads
-    dtype, scale = x.dtype, d ** -0.5
-    xh32, mu, rstd = _ln2d(x.float(), ln_scale.float(), ln_bias.float(), eps)
-    qkv = (_mm(xh32.to(dtype), qkv_w) + qkv_b.float()).to(dtype)
-    q, k, v = qkv.view(b, s, 3, n_heads, d).permute(2, 0, 3, 1, 4)
-    qs = (q.float() * scale).to(dtype)
-    logits = _mm(qs, k.transpose(-1, -2))
-    if mask is not None:
-        logits = logits + mask.float()
-    probs = torch.softmax(logits, dim=-1).to(dtype)
-    o = _mm(probs, v).to(dtype).transpose(1, 2).reshape(b, s, wl)
+    xh, mu, rstd = _ln2d(x.to(acc), ln_scale.to(acc), ln_bias.to(acc), eps)
+    qkv = _affine_plain(xh.to(x.dtype), qkv_w, qkv_b, acc)
+    o, probs = _mha_plain(qkv, mask, n_heads, acc)
     return o, qkv, probs, mu[..., 0], rstd[..., 0]
 
 
 def attn_fwd_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b, mask,
-                   n_heads, eps=_EPS, save_residuals=True):
+                   n_heads, eps=_EPS, save_residuals=True, acc=_F32):
     o, qkv, probs, mu, rstd = _attn_core_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, mask,
-                                               n_heads, eps)
-    y = x + (_mm(o, out_w) + out_b.float()).to(x.dtype)
+                                               n_heads, eps, acc)
+    y = _add(x, _affine_plain(o, out_w, out_b, acc), acc)
     if not save_residuals:
         return y, None
     return y, (qkv, probs, mu, rstd)
 
 
-def attn_fwd_part_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, mask, n_heads, eps=_EPS):
+def attn_fwd_part_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, mask, n_heads, eps=_EPS,
+                        acc=_F32):
     """The tensor-parallel part over ``n_heads`` local heads: -> (fp32
     partial out-projection (B, S, W), (qkv, probs, mu, rstd))."""
-    o, *res = _attn_core_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, mask, n_heads, eps)
-    return _mm(o, out_w), tuple(res)
+    o, *res = _attn_core_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, mask, n_heads, eps, acc)
+    return _mm(o, out_w, acc), tuple(res)
 
 
-def _ln_bwd(x, mu, rstd, ln_scale, dxh32, gy):
+def _ln_bwd(x, mu, rstd, ln_scale, dxh32, gy, acc=_F32):
     """LayerNorm input cotangent (frozen scale/bias) of the fp32 ``dxh32``
     plus the residual: gy + T(...). The tail of every half-block
     backward; the tensor-parallel backward runs it after the all-reduce,
     as the JAX package's ``_ln_bwd``."""
-    dx = _ln_in_cot(x.float(), mu[..., None], rstd[..., None], ln_scale.float(), dxh32)
-    return gy + dx.to(x.dtype)
+    dx = _ln_in_cot(x.to(acc), mu[..., None].to(acc), rstd[..., None].to(acc),
+                    ln_scale.to(acc), dxh32.to(acc))
+    return _add(gy, dx.to(x.dtype), acc)
 
 
-def attn_bwd_part_plain(qkv, probs, qkv_w, out_w, gy, n_heads):
+def attn_bwd_part_plain(qkv, probs, qkv_w, out_w, gy, n_heads, acc=_F32):
     """fp32 dxh over the heads of ``qkv`` (B, S, 3Wl), without the
     LayerNorm backward (the tensor-parallel part)."""
     b, s, wl3 = qkv.shape
@@ -143,66 +175,71 @@ def attn_bwd_part_plain(qkv, probs, qkv_w, out_w, gy, n_heads):
     d = wl // n_heads
     dtype, scale = qkv.dtype, d ** -0.5
     gy = gy.to(dtype)
-    do = _mm(gy, out_w.t()).to(dtype).view(b, s, n_heads, d).transpose(1, 2)
+    do = _mm(gy, out_w.t(), acc).to(dtype).view(b, s, n_heads, d).transpose(1, 2)
     q, k, v = qkv.view(b, s, 3, n_heads, d).permute(2, 0, 3, 1, 4)
-    p32 = probs.float()
-    dv = _mm(p32.transpose(-1, -2), do).to(dtype)
-    dp = _mm(do, v.transpose(-1, -2))
-    ds = (p32 * (dp - (dp * p32).sum(-1, keepdim=True)) * scale).to(dtype)
-    dq = _mm(ds, k).to(dtype)
-    dk = _mm(ds.transpose(-1, -2), q).to(dtype)
+    p = probs.to(acc)
+    dv = _mm(p.transpose(-1, -2), do, acc).to(dtype)
+    dp = _mm(do, v.transpose(-1, -2), acc)
+    ds = (p * (dp - (dp * p).sum(-1, keepdim=True)) * scale).to(dtype)
+    dq = _mm(ds, k, acc).to(dtype)
+    dk = _mm(ds.transpose(-1, -2), q, acc).to(dtype)
     dqkv = torch.stack([dq, dk, dv], 0).permute(1, 3, 0, 2, 4).reshape(b, s, wl3)
-    return _mm(dqkv, qkv_w.t())
+    return _mm(dqkv, qkv_w.t(), acc)
 
 
-def attn_bwd_plain(x, mu, rstd, qkv, probs, ln_scale, qkv_w, out_w, gy, n_heads):
+def attn_bwd_plain(x, mu, rstd, qkv, probs, ln_scale, qkv_w, out_w, gy, n_heads, acc=_F32):
     gy = gy.to(x.dtype)
-    return _ln_bwd(x, mu, rstd, ln_scale, attn_bwd_part_plain(qkv, probs, qkv_w, out_w, gy,
-                                                             n_heads), gy)
+    return _ln_bwd(x, mu, rstd, ln_scale,
+                   attn_bwd_part_plain(qkv, probs, qkv_w, out_w, gy, n_heads, acc), gy, acc)
 
 
-def _mlp_hidden_plain(x, ln_scale, ln_bias, fc_w, fc_b, eps):
+def _mlp_hidden_plain(x, ln_scale, ln_bias, fc_w, fc_b, eps, acc=_F32):
     """LN -> FC -> QuickGELU: -> (act, hpre, mu, rstd)."""
     dtype = x.dtype
-    xh32, mu, rstd = _ln2d(x.float(), ln_scale.float(), ln_bias.float(), eps)
-    hpre = (_mm(xh32.to(dtype), fc_w) + fc_b.float()).to(dtype)
+    xh, mu, rstd = _ln2d(x.to(acc), ln_scale.to(acc), ln_bias.to(acc), eps)
+    hpre = _affine_plain(xh.to(dtype), fc_w, fc_b, acc)
     # QuickGELU on the rounded pre-activation, as the backward's
     # derivative is taken at the saved (rounded) hpre.
-    h32 = hpre.float()
-    act = (h32 * torch.sigmoid(1.702 * h32)).to(dtype)
+    h = hpre.to(acc)
+    act = (h * torch.sigmoid(1.702 * h)).to(dtype)
     return act, hpre, mu[..., 0], rstd[..., 0]
 
 
 def mlp_fwd_plain(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b, eps=_EPS,
-                  save_residuals=True):
-    act, *res = _mlp_hidden_plain(x, ln_scale, ln_bias, fc_w, fc_b, eps)
-    y = x + (_mm(act, proj_w) + proj_b.float()).to(x.dtype)
+                  save_residuals=True, acc=_F32):
+    act, *res = _mlp_hidden_plain(x, ln_scale, ln_bias, fc_w, fc_b, eps, acc)
+    y = _add(x, _affine_plain(act, proj_w, proj_b, acc), acc)
     if not save_residuals:
         return y, None
     return y, tuple(res)
 
 
-def mlp_fwd_part_plain(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, eps=_EPS):
+def mlp_fwd_part_plain(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, eps=_EPS, acc=_F32):
     """The tensor-parallel part over the hidden units of ``fc_w``: ->
     (fp32 partial projection (B, S, W), (hpre, mu, rstd))."""
-    act, *res = _mlp_hidden_plain(x, ln_scale, ln_bias, fc_w, fc_b, eps)
-    return _mm(act, proj_w), tuple(res)
+    act, *res = _mlp_hidden_plain(x, ln_scale, ln_bias, fc_w, fc_b, eps, acc)
+    return _mm(act, proj_w, acc), tuple(res)
 
 
-def mlp_bwd_part_plain(hpre, fc_w, proj_w, gy):
+def _gelu_bwd_plain(da, hpre, acc=_F32):
+    """dh = T(da QuickGELU'(hpre)) in hpre's dtype, the derivative at the
+    saved, rounded hpre: the epilogue of the backward's first product."""
+    h = hpre.to(acc)
+    sig = torch.sigmoid(1.702 * h)
+    return (da.to(acc) * (sig + 1.702 * h * sig * (1.0 - sig))).to(hpre.dtype)
+
+
+def mlp_bwd_part_plain(hpre, fc_w, proj_w, gy, acc=_F32):
     """fp32 dxh over the hidden units of ``hpre``, without the LayerNorm
     backward (the tensor-parallel part)."""
-    gy = gy.to(hpre.dtype)
-    h32 = hpre.float()
-    da = _mm(gy, proj_w.t())
-    sig = torch.sigmoid(1.702 * h32)
-    dh = (da * (sig + 1.702 * h32 * sig * (1.0 - sig))).to(hpre.dtype)
-    return _mm(dh, fc_w.t())
+    dh = _gelu_bwd_plain(_mm(gy.to(hpre.dtype), proj_w.t(), acc), hpre, acc)
+    return _mm(dh, fc_w.t(), acc)
 
 
-def mlp_bwd_plain(x, mu, rstd, hpre, ln_scale, fc_w, proj_w, gy):
+def mlp_bwd_plain(x, mu, rstd, hpre, ln_scale, fc_w, proj_w, gy, acc=_F32):
     gy = gy.to(x.dtype)
-    return _ln_bwd(x, mu, rstd, ln_scale, mlp_bwd_part_plain(hpre, fc_w, proj_w, gy), gy)
+    return _ln_bwd(x, mu, rstd, ln_scale, mlp_bwd_part_plain(hpre, fc_w, proj_w, gy, acc), gy,
+                   acc)
 
 
 # --------------------------------------------------------------- wrappers
@@ -342,7 +379,8 @@ def mlp_fwd(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b, eps=_EPS,
 
 
 def mlp_bwd(x, mu, rstd, hpre, ln_scale, fc_w, proj_w, gy):
-    """MLP half-block backward -> dx."""
+    """MLP half-block backward -> dx; its two products route as
+    ``mlp_fwd``'s (``MLP_ROUTES``)."""
     if x.device.type == "cpu":
         return mlp_bwd_plain(x, mu, rstd, hpre, ln_scale, fc_w, proj_w, gy)
     b, s, w = _dims("mlp_bwd", x)
@@ -350,6 +388,7 @@ def mlp_bwd(x, mu, rstd, hpre, ln_scale, fc_w, proj_w, gy):
     gy = gy.to(x.dtype).contiguous()
     _check("mlp_bwd", x, [(hpre, (b, s, w4)), (ln_scale, (w,)), (fc_w, (w, w4)),
                           (proj_w, (w4, w)), (gy, (b, s, w))], stats=(mu, rstd))
+    _check_mlp_route("mlp_bwd", x, w4, (hpre, ln_scale, fc_w, proj_w, gy))
     dx = torch.empty_like(x)
     dh, dxh = _empty((b, s, w4), x), _empty((b, s, w), x, torch.float32)  # scratch
     _build.call("mlp_bwd", _DTYPE_CODE[x.dtype], _ptr(x), _ptr(mu), _ptr(rstd), _ptr(hpre),
@@ -424,13 +463,15 @@ def mlp_fwd_part(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, eps=_EPS):
 
 
 def mlp_bwd_part(hpre, fc_w, proj_w, gy):
-    """Tensor-parallel MLP backward part -> fp32 partial dxh (B, S, W)."""
+    """Tensor-parallel MLP backward part -> fp32 partial dxh (B, S, W);
+    routes as ``mlp_bwd``."""
     if hpre.device.type == "cpu":
         return mlp_bwd_part_plain(hpre, fc_w, proj_w, gy)
     gy = gy.to(hpre.dtype).contiguous()
     b, s, w = _dims("mlp_bwd_part", gy)
     w4 = hpre.shape[-1]
     _check("mlp_bwd_part", gy, [(hpre, (b, s, w4)), (fc_w, (w, w4)), (proj_w, (w4, w))])
+    _check_mlp_route("mlp_bwd_part", gy, w4, (hpre, fc_w, proj_w))
     dxh = _empty((b, s, w), gy, torch.float32)
     dh = _empty((b, s, w4), gy)  # scratch
     _build.call("mlp_bwd_part", _DTYPE_CODE[gy.dtype], _ptr(hpre), _ptr(fc_w), _ptr(proj_w),

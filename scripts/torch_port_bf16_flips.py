@@ -14,11 +14,12 @@ the other side of a rounding from:
     xh, o from its qkv, y from its o): the stage's own share;
   * the same function with fp64 sums ("exact"), for the kernel and the
     twin (qkv, o; and y through the whole chain): how far each one's sums
-    sit from exact (the twin's own fp32 sums are qkv_of(.., f32) and
-    core(.., f32)).
+    sit from exact. Every stage is the twin's own (ops/block.py
+    _affine_plain, _mha_plain, _add), with acc=torch.float32 for the
+    twin and torch.float64 for the fp64-summed twin.
 
 Also y's elements in the top binade of max|ref| that differ (each is
-one bf16 ulp there, which is above chip_smoke's TOL of 5e-3 x max|ref|
+one bf16 ulp there, which is above the old bf16 bound of 5e-3 x max|ref|
 when max|ref| is below 6.25 x its binade's base), each traced to its
 token's o row, its image's qkv and xh and its heads' probability rows;
 and the same counts for the MLP forward (#6). Prints the card
@@ -28,7 +29,8 @@ and the same counts for the MLP forward (#6). Prints the card
 
 runs chip_smoke.py's half-block check rows (#1-#10 at its shapes and
 seeds, both dtypes) untimed and without stopping at a row past its bound,
-and ends with one JSON line of every row's max|err| against its bound.
+and ends with one JSON line of every row's numbers under the bf16 rule
+(chip_smoke.verdict) and the old bound.
 """
 
 from __future__ import annotations
@@ -64,7 +66,6 @@ def main() -> int:
         return check_rows()
     bf = torch.bfloat16
     b, s, w, h = args.batch, 1 + 14 * 14 + 4, 768, 12
-    d = w // h
     gen = torch.Generator().manual_seed(7)  # chip_smoke.check_kernels' seed
     p = layer_params(w, bf, gen)
     x = torch.randn((b, s, w), generator=gen).to("cuda", bf)
@@ -87,20 +88,18 @@ def main() -> int:
     def share(got, ref):
         return (got != ref).float().mean().item()
 
+    # The twin's stages, their sums in dt.
     def core(qkv_in, dt):
-        q, k, v = qkv_in.view(b, s, 3, h, d).permute(2, 0, 3, 1, 4)
-        qs = (q.to(dt) * d ** -0.5).to(bf)
-        probs = torch.softmax(qs.to(dt) @ k.to(dt).transpose(-1, -2), -1).to(bf)
-        return (probs.to(dt) @ v.to(dt)).to(bf).transpose(1, 2).reshape(b, s, w)
+        return block._mha_plain(qkv_in, None, h, dt)[0]
 
     def qkv_of(xh_in, dt):
-        return (xh_in.to(dt) @ at["qkv_w"].to(dt) + at["qkv_b"].to(dt)).to(bf)
+        return block._affine_plain(xh_in, at["qkv_w"], at["qkv_b"], dt)
 
     def hb_of(o_in, dt):
-        return (o_in.to(dt) @ at["out_w"].to(dt) + at["out_b"].to(dt)).to(bf)
+        return block._affine_plain(o_in, at["out_w"], at["out_b"], dt)
 
     def y_of(o_in, dt):
-        return x + hb_of(o_in, dt)
+        return block._add(x, hb_of(o_in, dt), dt)
 
     def top(got, ref):
         """Elements of ref's top binade that differ, and how many it has."""
@@ -159,14 +158,14 @@ def trace_flips(y, y_t, y_x, x, xh, xh_t, qkv, qkv_t, o, probs, core, hb_of, dim
     twin's core on the kernel's own qkv)."""
     import torch
 
+    from mvlpt_torch.ops import block
+
     b, s, w, h = dims
     d = w // h
     f32 = torch.float32
     top = y_t.float().abs() >= 2.0 ** math.floor(math.log2(y_t.float().abs().max().item()))
     o_t, o_kq = core(qkv_t, f32), core(qkv, f32)
-    q, k, v = qkv.view(b, s, 3, h, d).permute(2, 0, 3, 1, 4)
-    qs = (q.float() * d ** -0.5).to(torch.bfloat16)
-    p_kq = torch.softmax(qs.float() @ k.float().transpose(-1, -2), -1).to(torch.bfloat16)
+    p_kq = block._mha_plain(qkv, None, h)[1]  # the twin's probabilities on the kernel's qkv
     hb_t, hb_k = hb_of(o_t, f32), hb_of(o, f32)
     rows = []
     for bi, si, ci in ((y != y_t) & top).nonzero().tolist()[:limit]:
@@ -199,8 +198,9 @@ def check_rows() -> int:
     kernel_shapes, tp_shapes = chip_smoke.half_block_shapes()
     rows = chip_smoke.check_kernels(kernel_shapes) + chip_smoke.check_tp_kernels(tp_shapes)
     print(json.dumps({"rows": [
-        {k: r.get(k) for k in ("name", "mode", "tower", "dtype", "max_abs_err", "tol", "ok",
-                               "differ_share")} for r in rows]}))
+        {k: r.get(k) for k in ("name", "mode", "tower", "dtype", "max_abs_err", "max_abs_err64",
+                               "twin_err64", "tol", "ok", "tol_old", "ok_old", "differ_share",
+                               "differ_share64")} for r in rows]}))
     return 0
 
 

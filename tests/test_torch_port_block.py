@@ -288,3 +288,97 @@ def test_mlp_bf16_route_checks_widths_and_alignment():
     with pytest.raises(ValueError, match="16-byte-aligned"):
         block._check_mlp_route("t", x, 256, (torch.zeros(64 * 256 + 1, dtype=bf)[1:],))
     block._check_mlp_route("t", torch.zeros(2, 3, 96), 384, ())  # fp32: any width
+
+
+# --------------------------------------------------- MLP backward twins
+
+def _jax_mlp_bwd_part(hpre, fc_w, proj_w, gy):
+    """The JAX package's part kernel (_mlp_bwd_kernel, part=True) as
+    _mlp_tp_bwd calls it on one model rank's shard, one image a program:
+    the fp32 partial dxh."""
+    b, s, w = gy.shape
+    w4l = fc_w.shape[1]
+    return pl.pallas_call(
+        functools.partial(jblock._mlp_bwd_kernel, eps=1e-5, g_imgs=1, part=True),
+        grid=(b,),
+        in_specs=[jblock._row3(1, s, w4l), jblock._full(w, w4l), jblock._full(w4l, w),
+                  jblock._row3(1, s, w)],
+        out_specs=jblock._row3(1, s, w),
+        out_shape=jax.ShapeDtypeStruct((b, s, w), jnp.float32),
+        interpret=jblock._interpret(),
+    )(hpre, fc_w, proj_w, gy)
+
+
+def _mlp_bwd_inputs(seed, dtype):
+    """_mlp_bf16_inputs in ``dtype``, a seeded gy, and the JAX forward's
+    residuals (hpre, mu, rstd) on both sides."""
+    jx, jp, tx, tp = _mlp_bf16_inputs(seed)
+    if dtype == torch.float32:
+        jx, tx = jx.astype(jnp.float32), tx.float()
+        jp = jax.tree_util.tree_map(lambda a: a.astype(jnp.float32), jp)
+        tp = jax.tree_util.tree_map(lambda t: t.float(), tp)
+    gy_np = np.random.RandomState(seed + 100).randn(*tx.shape).astype(np.float32)
+    jgy, tgy = jnp.asarray(gy_np, jx.dtype), torch.from_numpy(gy_np).to(dtype)
+    _, (_, _, _, jhpre, jmu, jrstd) = jblock._mlp_fwd(jx, jp["ln_2"], jp["mlp"], 1e-5)
+
+    def torch_of(a):
+        return torch.from_numpy(np.array(a.astype(jnp.float32)))
+
+    res = (torch_of(jhpre).to(dtype), torch_of(jmu)[..., 0], torch_of(jrstd)[..., 0])
+    return (jx, jp, jgy, (jhpre, jmu, jrstd)), (tx, tp, tgy, res)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mlp_bwd_twin_matches_pallas(dtype):
+    """mlp_bwd_plain against _mlp_bwd (dx) on the same residuals of
+    _mlp_fwd, in interpret mode: bf16 at the card's old bound (5e-3 x
+    max|ref|), fp32 at the block tolerance."""
+    (jx, jp, jgy, (jhpre, jmu, jrstd)), (tx, tp, tgy, (hpre, mu, rstd)) = \
+        _mlp_bwd_inputs(11, dtype)
+    jdx = jblock._mlp_bwd(1e-5, (jx, jp["ln_2"], jp["mlp"], jhpre, jmu, jrstd), jgy)[0]
+    dx = block.mlp_bwd_plain(tx, mu, rstd, hpre, tp["ln_2"]["scale"], tp["mlp"]["fc_w"],
+                             tp["mlp"]["proj_w"], tgy)
+    assert dx.dtype == dtype
+    if dtype == torch.bfloat16:
+        _bf16_close(dx, jdx.astype(jnp.float32), "dx")
+    else:
+        np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), atol=5e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mlp_bwd_part_twin_matches_pallas_part_kernel(dtype):
+    """mlp_bwd_part_plain on the second of two hidden-unit shards against
+    the Pallas part kernel (_mlp_bwd_kernel, part=True): the fp32 partial
+    dxh; bf16 at the card's old bound, fp32 at the block tolerance."""
+    (_, jp, jgy, (jhpre, _, _)), (_, tp, tgy, (hpre, _, _)) = _mlp_bwd_inputs(12, dtype)
+    w4l = tp["mlp"]["fc_b"].shape[0] // 2
+    cols = slice(w4l, 2 * w4l)
+    jm, tm = jp["mlp"], tp["mlp"]
+    want = _jax_mlp_bwd_part(jhpre[..., cols], jm["fc_w"][:, cols], jm["proj_w"][cols], jgy)
+    got = block.mlp_bwd_part_plain(hpre[..., cols].contiguous(), tm["fc_w"][:, cols].contiguous(),
+                                   tm["proj_w"][cols].contiguous(), tgy)
+    assert got.dtype == torch.float32
+    if dtype == torch.bfloat16:
+        _bf16_close(got, want, "dxh")
+    else:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6)
+
+
+def test_mlp_bwd_wrappers_check_the_bf16_route(monkeypatch):
+    """mlp_bwd and mlp_bwd_part check the bf16 route (MLP_ROUTES) as the
+    forwards do, before any launch: a bf16 width off the multiple of 64
+    raises, with no fall-back to the CUDA-core GEMM or the twin. (Meta
+    tensors, with the wrappers' device check lifted, reach the check
+    without a card.)"""
+    monkeypatch.setattr(block, "_dims", lambda name, x: x.shape)
+    b, s, w, w4 = 2, 3, 96, 384
+
+    def meta(*shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    x, gy, hpre = meta(b, s, w), meta(b, s, w), meta(b, s, w4)
+    stats = meta(b, s, dtype=torch.float32)
+    with pytest.raises(ValueError, match="mlp_bwd: the bf16 tensor-core route takes W and 4W"):
+        block.mlp_bwd(x, stats, stats, hpre, meta(w), meta(w, w4), meta(w4, w), gy)
+    with pytest.raises(ValueError, match="mlp_bwd_part: the bf16 tensor-core route takes W"):
+        block.mlp_bwd_part(hpre, meta(w, w4), meta(w4, w), gy)

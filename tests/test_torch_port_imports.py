@@ -129,42 +129,52 @@ def test_kernel_build_keeps_each_log_beside_its_library(tmp_path, monkeypatch):
     assert again["built"] == ["attend_bwd"] and again["ptxas"] == first["ptxas"]
 
 
-_WG = "wgmma_gemm_kernelILi{}ELi{}EEEv14CUtensorMap_stS0_iiiN5mvlpt7EpiArgsE"
-_MLP_CLEAN = [(_WG.format(4, 256), 0, 168), (_WG.format(3, 128), 0, 168),
+# wgmma_gemm_kernel<EPI, BN, B_KMAJOR>: MN-major in mlp_fwd, K-major in mlp_bwd.
+_WG = "wgmma_gemm_kernelILi{}ELi{}ELb{}EEEv14CUtensorMap_stS0_iiiN5mvlpt7EpiArgsE"
+_MLP_CLEAN = [(_WG.format(4, 256, 0), 0, 168), (_WG.format(3, 128, 0), 0, 168),
               ("gemm_kernelIfLb0ELi4EEEvPKT_S3_iiiNS_7EpiArgsE", 0, 80)]
+_BWD_CLEAN = [(_WG.format(5, 256, 1), 0, 168), (_WG.format(1, 128, 1), 0, 168),
+              ("gemm_kernelIfLb1ELi5EEEvPKT_S3_iiiNS_7EpiArgsE", 0, 80)]
+_FWD_TC, _BWD_TC = [("attend_fwd_tcILi26EEEv", 0, 230)], [("attend_bwd_dq_tcILi26EEEv", 0, 127)]
 
 
-@pytest.mark.parametrize("fwd, bwd, mlp, error", [
+@pytest.mark.parametrize("fwd, bwd, mlp, mlp_bwd, error", [
     ([("attend_fwd_tcILi26EEEv", 0, 230), ("attend_fwd_kernelEPKf", 0, 32)],
      [("attend_bwd_dq_tcILi26EEEv", 0, 127), ("attend_bwd_dkv_tcILi26EEEv", 0, 168)],
-     _MLP_CLEAN, None),
-    ([("attend_fwd_tcILi26EEEv", 0, 230)],
-     [("attend_bwd_dq_tcILi26EEEv", 40, 255)], _MLP_CLEAN, "spill"),
-    ([("attend_fwd_kernelEPKf", 0, 32)],
-     [("attend_bwd_dq_tcILi26EEEv", 0, 127)], _MLP_CLEAN, "no tensor-core kernel in attend_fwd"),
-    ([("attend_fwd_tcILi26EEEv", 0, 230)], [("attend_bwd_dq_tcILi26EEEv", 0, 127)],
-     [(_WG.format(4, 256), 24, 168), (_WG.format(3, 128), 0, 168)], "spill"),
-    ([("attend_fwd_tcILi26EEEv", 0, 230)], [("attend_bwd_dq_tcILi26EEEv", 0, 127)],
-     _MLP_CLEAN[2:], "no tensor-core kernel in mlp_fwd"),
-    ([("attend_fwd_tcILi26EEEv", 0, 230)], [("attend_bwd_dq_tcILi26EEEv", 0, 127)],
-     [(_WG.format(4, 256), 0, 128)], "below 168 registers"),
-], ids=["clean", "spill", "no-tc-kernel", "wgmma-spill", "no-wgmma-kernel", "wgmma-short"])
-def test_chip_smoke_spill_check_reads_each_attention_kernel(fwd, bwd, mlp, error, capsys):
+     _MLP_CLEAN, _BWD_CLEAN, None),
+    (_FWD_TC, [("attend_bwd_dq_tcILi26EEEv", 40, 255)], _MLP_CLEAN, _BWD_CLEAN, "spill"),
+    ([("attend_fwd_kernelEPKf", 0, 32)], _BWD_TC, _MLP_CLEAN, _BWD_CLEAN,
+     "no tensor-core kernel in attend_fwd"),
+    (_FWD_TC, _BWD_TC, [(_WG.format(4, 256, 0), 24, 168), (_WG.format(3, 128, 0), 0, 168)],
+     _BWD_CLEAN, "spill"),
+    (_FWD_TC, _BWD_TC, _MLP_CLEAN[2:], _BWD_CLEAN, "no tensor-core kernel in mlp_fwd"),
+    (_FWD_TC, _BWD_TC, [(_WG.format(4, 256, 0), 0, 128)], _BWD_CLEAN, "below 168 registers"),
+    (_FWD_TC, _BWD_TC, _MLP_CLEAN, [(_WG.format(5, 256, 1), 16, 168)], "spill"),
+    (_FWD_TC, _BWD_TC, _MLP_CLEAN, _BWD_CLEAN[2:], "no tensor-core kernel in mlp_bwd"),
+], ids=["clean", "spill", "no-tc-kernel", "wgmma-spill", "no-wgmma-kernel", "wgmma-short",
+        "kmajor-spill", "no-kmajor-kernel"])
+def test_chip_smoke_spill_check_reads_each_attention_kernel(fwd, bwd, mlp, mlp_bwd, error,
+                                                            capsys):
     """The spill check reads the tensor-core kernels of each source: the
-    standalone attention's and mlp_fwd's wgmma GEMM, which must also hold
-    the registers setmaxnreg's split needs."""
+    standalone attention's and the wgmma GEMM's of mlp_fwd and mlp_bwd
+    (B read K-major there), which must also hold the registers
+    setmaxnreg's split needs."""
     sys.path.insert(0, str(ROOT))
     try:
         import chip_smoke
     finally:
         sys.path.remove(str(ROOT))
     logs = {"attend_fwd": _ptxas_log(*fwd), "attend_bwd": _ptxas_log(*bwd),
-            "mlp_fwd": _ptxas_log(*mlp)}
+            "mlp_fwd": _ptxas_log(*mlp), "mlp_bwd": _ptxas_log(*mlp_bwd)}
+    assert chip_smoke.HGMMA_SOURCES == ("mlp_fwd", "mlp_bwd")
     if error is None:
         chip_smoke.check_tc_spills(logs)
         out = capsys.readouterr().out
         assert "attend_fwd_tc<NT=26>: 230 registers, 0 bytes of spills" in out
-        assert "wgmma_gemm_kernel<EPI=4,BN=256>: 168 registers, 0 bytes of spills" in out
+        assert ("mlp_fwd wgmma_gemm_kernel<EPI=4,BN=256,KMAJOR=0>: 168 registers, 0 bytes of "
+                "spills") in out
+        assert ("mlp_bwd wgmma_gemm_kernel<EPI=5,BN=256,KMAJOR=1>: 168 registers, 0 bytes of "
+                "spills") in out
         assert "gemm_kernelIf" not in out
     else:
         with pytest.raises(AssertionError, match=error):
@@ -172,19 +182,35 @@ def test_chip_smoke_spill_check_reads_each_attention_kernel(fwd, bwd, mlp, error
 
 
 def test_chip_smoke_fails_a_row_past_its_bound():
-    """Rows hold to TOL x max|ref| (fp32 1e-4, bf16 5e-3): one bf16 ulp in
-    [4, 8) at max|ref| 5.46875 (0.03125 > 0.02734) fails the run."""
+    """Rows hold to the rule at TOL (fp32 1e-4 x max|ref| against the
+    twin; bf16 max|out - ref64| <= max(2 max|ref - ref64|, 5e-3
+    max|ref64|)). One bf16 ulp in [4, 8) at max|ref64| 5.46875 (0.03125 >
+    0.02734) fails the run where the twin agrees with the fp64-summed twin,
+    and passes where the twin sits half an ulp from it; the old bound's
+    verdict (ok_old) stops nothing."""
     sys.path.insert(0, str(ROOT))
     try:
         import chip_smoke
     finally:
         sys.path.remove(str(ROOT))
     assert chip_smoke.TOL == {"float32": 1e-4, "bfloat16": 5e-3}
-    row = dict(name="attn_fwd", mode="no-residual", tower="image_eval", dtype="bfloat16",
-               max_abs_err=0.02734, tol=5e-3 * 5.46875, ok=True)
+    assert chip_smoke.TWIN_FACTOR == 2
+    ref64 = torch.tensor([5.46875, 2.5, -1.0], dtype=torch.bfloat16)
+    flip = torch.tensor([5.5, 2.5, -1.0], dtype=torch.bfloat16)
+    twin_half_ulp = torch.tensor([5.46875, 2.515625, -1.0], dtype=torch.bfloat16)
+    head = dict(name="attn_fwd", mode="no-residual", tower="image_eval", dtype="bfloat16")
+    row = dict(head, **chip_smoke.verdict("bfloat16", flip, twin_half_ulp, ref64))
+    assert row["ok"] and not row["ok_old"] and row["tol"] == 0.03125
     assert chip_smoke._fail_on_disagreement([row]) == [row]
-    with pytest.raises(AssertionError, match="0.03125 > 0.02734375"):
-        chip_smoke._fail_on_disagreement([dict(row, max_abs_err=0.03125, ok=False)])
+    row = dict(head, **chip_smoke.verdict("bfloat16", flip, ref64, ref64))
+    assert not row["ok"] and row["twin_err64"] == 0.0
+    with pytest.raises(AssertionError, match=r"max\|err64\| 0.03125 > 0.02734375"):
+        chip_smoke._fail_on_disagreement([row])
+    ref = torch.tensor([1.0, -2.0])
+    row = dict(head, dtype="float32",
+               **chip_smoke.verdict("float32", ref + torch.tensor([0.0, 2.5e-4]), ref))
+    with pytest.raises(AssertionError, match=r"float32\): max\|err\| .* > 0.0002"):
+        chip_smoke._fail_on_disagreement([row])
 
 
 def test_every_header_keys_every_library(tmp_path, monkeypatch):
