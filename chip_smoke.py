@@ -9,12 +9,15 @@
 2. Holds each kernel against its plain PyTorch twin on the card, in fp32
    and bf16: the tensor-parallel parts at tp = 2 on rank 0's shard of
    the image train and packed text shapes, and the tp shards' partials
-   summed and finished as the single-device kernels' outputs; the
+   summed and finished against the plain twin on the full weights (the
+   single-device kernels' outputs printed beside it); the
    half-block kernels at the flagship shapes (ViT-B/16
    image tower at batch 32, and at the eval batch 100 for the
    no-residual forwards; class-packed text tower with its block-causal
    mask); the attention half-blocks (#1, #2, #5, and #7/#8 at tp = 2) at
    ViT-L/14@336px width and length (W = 1024, H = 16, S = 581, batch 4);
+   the attention half-block forwards (#1, #5) at S = 1024 under a causal
+   mask, past the bf16 core's window of keys;
    and the standalone attention (forward and backward) at the image
    train and eval shapes, the packed text rows, CLIP's full text context,
    the edges of the tensor-core tiling (S = 1, 17, 261, each bf16
@@ -24,22 +27,30 @@
    the image, text and ViT-L/14@336px rows and a ragged edge. fp32 rows
    hold to 1e-4 x max|twin|; bf16 rows to the rule at TOL, against the
    twin and the fp64-summed twin, each printing the old bound's verdict
-   beside it (ok_old). Each row names its route where it has more than
+   beside it (ok_old). The attention forwards in train mode (#1, #7) are
+   held on each output: y (or the fp32 partial), and the residuals qkv,
+   probs, mu and rstd that the backward reads. Each row names its route where it has more than
    one: the standalone attention's by dtype and S (attention.route_of:
    bf16 on the tensor cores up to the buckets, on the CUDA cores past
-   them; fp32 on the CUDA cores), the MLP half-blocks' by dtype (bf16
-   through the wgmma GEMM). In bf16 each standalone-attention wrapper may
-   request nothing beyond its outputs and its route's scratch, mlp_fwd
+   them; fp32 on the CUDA cores), the MLP half-blocks' and the attention
+   half-block forwards' by dtype (MLP_ROUTES, ATTN_FWD_ROUTES: bf16
+   through the wgmma GEMM, the attention forwards' core on mma.sync). In
+   bf16 each standalone-attention wrapper may request nothing beyond its
+   outputs and its route's scratch, attn_fwd (and its part) nothing
+   beyond its outputs and residuals and its xh and o scratch, mlp_fwd
    nothing beyond its outputs and its xh and act scratch, mlp_bwd (and
    its part) nothing beyond its output and its dh and fp32 dxh scratch.
    ptxas must report no spills for any tensor-core kernel (the standalone
-   attention's and the wgmma GEMM's), in this run's build or the cached
-   one's, and the mlp_fwd and mlp_bwd libraries must hold HGMMA in their
-   SASS. Times kernel, twin and a library call computing the same
-   function (scaled_dot_product_attention on the attention core) as the
-   median of REPS event-timed runs each, the kernel's spread [min, max]
-   beside it, and, as a yardstick for the MLP half-blocks' products
-   alone, cuBLAS's two products on the same inputs (gemm_library_ms).
+   attention's, the attention half-block forward's core and the wgmma
+   GEMM's), in this run's build or the cached one's; the attn_fwd,
+   mlp_fwd and mlp_bwd libraries must hold HGMMA in their SASS, and
+   attn_fwd's also HMMA (its mma.sync core). Times kernel, twin and a
+   library call computing the same function (scaled_dot_product_attention
+   on the attention core; for the attention backwards its forward and
+   backward by autograd) as the median of REPS event-timed runs each, the
+   kernel's spread [min, max] beside it, and, as a yardstick for the MLP
+   half-blocks' and the attention half-block forwards' products alone,
+   cuBLAS's two products on the same inputs (gemm_library_ms).
 3. Drives the port's paths, each with the launch counts set to 0 just
    before it and read just after, against the plain path ('off') on the
    same inputs:
@@ -58,8 +69,9 @@
      'block'. Rank 0's first loss and grad norm held to train[auto]'s on
      the same batch (TP_REL), in bf16 and, for one more step, in fp32;
      each rank's layer 0 of both towers (y and dx, through the
-     all-reduce) against #1-#4 on the full weights under the rule at
-     TOL, in bf16 and fp32, and equal across the ranks; the prompt params
+     all-reduce) against the block's plain twin on the full weights under
+     the rule at TOL (#1-#4 printed beside it), in bf16 and fp32, and
+     equal across the ranks; the prompt params
      bit-equal across the ranks afterwards; and on each rank only the four
      tensor-parallel kernels launched, 24 times a step.
      Its step time is that of two processes time-slicing one card with
@@ -246,7 +258,7 @@ def _verdict_one(dtype_name: str, out, ref, ref64) -> dict:
                 differ_share64=(out != ref64.to(out.dtype)).float().mean().item())
 
 
-def verdict(dtype_name: str, outs, refs, refs64=None) -> dict:
+def verdict(dtype_name: str, outs, refs, refs64=None, names=None) -> dict:
     """A check row's numbers and verdict (the rule at TOL): the outputs
     ``outs`` (a tensor or a tuple of them) against the twin's ``refs``
     and, in bf16, the fp64-summed twin's ``refs64``. max_abs_err and
@@ -254,7 +266,9 @@ def verdict(dtype_name: str, outs, refs, refs64=None) -> dict:
     differ_share64 against ref64, twin_err64 = max|ref - ref64|, the
     rule's tol, and the old bound as tol_old and ok_old. With several
     outputs: the numbers of the one furthest past its tol, ``ok`` and
-    ``ok_old`` only if every output's is."""
+    ``ok_old`` only if every output's is; with their ``names`` also each
+    output's error, tol and verdict (by_output) and the name of the one
+    reported (worst_output)."""
     import torch
 
     if isinstance(outs, torch.Tensor):
@@ -267,17 +281,32 @@ def verdict(dtype_name: str, outs, refs, refs64=None) -> dict:
         ratio = r[key] / max(r["tol"], 1e-30)
         return ratio if math.isfinite(ratio) else math.inf
 
-    out = dict(max(rows, key=past), ok=all(r["ok"] for r in rows))
+    worst = max(range(len(rows)), key=lambda i: past(rows[i]))
+    out = dict(rows[worst], ok=all(r["ok"] for r in rows))
     if "ok_old" in out:
         out["ok_old"] = all(r["ok_old"] for r in rows)
+    if names is not None:
+        out["worst_output"] = names[worst]
+        out["by_output"] = {n: {k: r[k] for k in (key, "tol", "ok", "differ_share")}
+                            for n, r in zip(names, rows)}
     return out
+
+
+# The attention forwards' outputs in train mode, each held to the rule:
+# y (or the part's fp32 partial) and the residuals the backward reads.
+ATTN_FWD_OUTPUTS = ("y", "qkv", "probs", "mu", "rstd")
+
+
+def _with_residuals(result):
+    """(y, (qkv, probs, mu, rstd)) -> (y, qkv, probs, mu, rstd)."""
+    y, res = result
+    return (y, *res)
 
 
 def check_kernels(shapes: dict) -> list[dict]:
     """Every half-block kernel and mode against its plain twin (in bf16
     also the fp64-summed twin); returns result rows."""
     import torch
-    import torch.nn.functional as F
 
     from mvlpt_torch.ops import block
 
@@ -295,6 +324,7 @@ def check_kernels(shapes: dict) -> list[dict]:
         gy = torch.randn((b, s, w), generator=gen).to("cuda", dtype)
         esz = torch.finfo(dtype).bits // 8
         m, d, w4 = b * s, w // h, 4 * w
+        do = torch.randn((b, h, s, d), generator=gen).to("cuda", dtype)
         ln1, ln2, at, ml = p["ln_1"], p["ln_2"], p["attn"], p["mlp"]
         attn_args = (x, ln1["scale"], ln1["bias"], at["qkv_w"], at["qkv_b"], at["out_w"],
                      at["out_b"], mask, h)
@@ -305,12 +335,7 @@ def check_kernels(shapes: dict) -> list[dict]:
         attn_bwd_args = (x, mu, rstd, qkv, probs, ln1["scale"], at["qkv_w"], at["out_w"], gy, h)
         mlp_bwd_args = (x, mu2, rstd2, hpre, ln2["scale"], ml["fc_w"], ml["proj_w"], gy)
 
-        q, k, v = qkv.view(b, s, 3, h, d).permute(2, 0, 3, 1, 4)
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        sdpa_mask = mask.to(dtype) if mask is not None else None
-
-        def sdpa():
-            return F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask)
+        sdpa, sdpa_bwd = sdpa_library(qkv, mask, h, do)
 
         # Bytes: each input read once, each output written once. Operations:
         # what this run's data needs; for the packed text rows only the real
@@ -326,8 +351,9 @@ def check_kernels(shapes: dict) -> list[dict]:
         attn_w = (4 * w * w + 6 * w) * esz               # LN, qkv and out weights and biases
         mlp_w = (2 * w * w4 + w4 + 3 * w) * esz          # LN, fc and proj weights and biases
         cases = [
-            ("attn_fwd", "train", lambda: block.attn_fwd(*attn_args)[0],
-             lambda acc=f32: block.attn_fwd_plain(*attn_args, acc=acc)[0], gemm_attn + core,
+            ("attn_fwd", "train", lambda: _with_residuals(block.attn_fwd(*attn_args)),
+             lambda acc=f32: _with_residuals(block.attn_fwd_plain(*attn_args, acc=acc)),
+             gemm_attn + core,
              act + attn_w + mask_b + act + 3 * act + probs_b + stats, sdpa),
             ("attn_fwd", "no-residual",
              lambda: block.attn_fwd(*attn_args, save_residuals=False)[0],
@@ -335,7 +361,7 @@ def check_kernels(shapes: dict) -> list[dict]:
              gemm_attn + core, act + attn_w + mask_b + act, sdpa),
             ("attn_bwd", "train", lambda: block.attn_bwd(*attn_bwd_args),
              lambda acc=f32: block.attn_bwd_plain(*attn_bwd_args, acc=acc), gemm_attn + 2 * core,
-             act + stats + 3 * act + probs_b + (4 * w * w + w) * esz + act + act, None),
+             act + stats + 3 * act + probs_b + (4 * w * w + w) * esz + act + act, sdpa_bwd),
             ("mlp_fwd", "train", lambda: block.mlp_fwd(*mlp_args)[0],
              lambda acc=f32: block.mlp_fwd_plain(*mlp_args, acc=acc)[0], gemm_mlp,
              act + mlp_w + act + m * w4 * esz + stats, None),
@@ -347,27 +373,33 @@ def check_kernels(shapes: dict) -> list[dict]:
              lambda acc=f32: block.mlp_bwd_plain(*mlp_bwd_args, acc=acc), gemm_mlp,
              act + stats + m * w4 * esz + (2 * w * w4 + w) * esz + act + act, None),
         ]
-        gemm_lib = {"mlp_fwd": mlp_gemm_library(*mlp_args[:6]),
+        gemm_lib = {"attn_fwd": attn_gemm_library(*attn_args[:5], at["out_w"], mask, h),
+                    "mlp_fwd": mlp_gemm_library(*mlp_args[:6]),
                     "mlp_bwd": mlp_bwd_gemm_library(hpre, ml["fc_w"], ml["proj_w"], gy)}
         for name, mode, kern, twin, flops, nbytes, lib in (
                 c for c in cases if c[1] in modes or (c[0], c[1]) in modes):
             got, alloc = requested(kern)
             ref64 = twin(torch.float64) if dtype == torch.bfloat16 else None
             bound_ms, bound_by = bound(flops, nbytes, dtype_name)
+            outputs = ATTN_FWD_OUTPUTS if (name, mode) == ("attn_fwd", "train") else None
             row = dict(name=name, mode=mode, tower=tower, dtype=dtype_name,
                        shape=[b, s, w, h], masked=mask is not None,
-                       **verdict(dtype_name, got, twin(), ref64),
+                       **verdict(dtype_name, got, twin(), ref64, outputs),
                        **timed(kern, twin, lib), bound_ms=bound_ms, bound_by=bound_by)
             if name in gemm_lib:
                 # The bf16 route's wrappers request their outputs and scratch,
-                # nothing more: mlp_fwd its xh and act, mlp_bwd its dh and
-                # fp32 dxh.
-                if name == "mlp_fwd":
-                    train = mode == "train"
+                # nothing more: attn_fwd y, qkv (a residual, or scratch
+                # without residuals), probs, mu and rstd, and its xh and o;
+                # mlp_fwd its xh and act, mlp_bwd its dh and fp32 dxh.
+                train = mode == "train"
+                if name == "attn_fwd":
+                    want = act + m * 3 * w * esz + (probs_b + stats if train else 0) + 2 * act
+                elif name == "mlp_fwd":
                     want = act + (m * w4 * esz + stats if train else 0) + act + m * w4 * esz
                 else:
                     want = act + m * w4 * esz + m * w * 4
-                row.update(route=block.MLP_ROUTES[dtype], gemm_library_ms=cuda_ms(gemm_lib[name]),
+                routes = block.ATTN_FWD_ROUTES if name == "attn_fwd" else block.MLP_ROUTES
+                row.update(route=routes[dtype], gemm_library_ms=cuda_ms(gemm_lib[name]),
                            requested_bytes=alloc, want_bytes=want)
                 if dtype == torch.bfloat16 and alloc != want:
                     raise AssertionError(f"{name} ({mode}, {tower}, bf16): requested {alloc} "
@@ -389,6 +421,46 @@ def requested(fn):
     got = fn()
     torch.cuda.synchronize()
     return got, torch.cuda.memory_stats()["requested_bytes.all.peak"] - before
+
+
+def sdpa_library(qkv, mask, n_heads, do):
+    """The attention core's library calls on the twin's qkv (B, S, 3Wl)
+    over ``n_heads`` heads: scaled_dot_product_attention forward, and its
+    forward and backward by autograd against ``do`` (B, H, S, D). The
+    yardsticks of the attention half-blocks' cores (library_ms), which the
+    port never calls."""
+    import torch
+    import torch.nn.functional as F
+
+    b, s, wl3 = qkv.shape
+    q, k, v = qkv.view(b, s, 3, n_heads, wl3 // 3 // n_heads).permute(2, 0, 3, 1, 4)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    sdpa_mask = mask.to(qkv.dtype) if mask is not None else None
+
+    def fwd():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask)
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=sdpa_mask)
+        return torch.autograd.grad(o, (qg, kg, vg), do)
+
+    return fwd, fwd_bwd
+
+
+def attn_gemm_library(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, mask, n_heads):
+    """A yardstick for the attention half-block forwards' two products
+    alone, as mlp_gemm_library is the MLP's: cuBLAS (torch.matmul) in x's
+    dtype, xh W_qkv and o W_out on the twin's xh and o (over qkv_w's
+    heads), with no LayerNorm, core or epilogue."""
+    import torch
+
+    from mvlpt_torch.ops import block
+
+    xh = block._ln2d(x.float(), ln_scale.float(), ln_bias.float(), 1e-5)[0].to(x.dtype)
+    o = block._attn_core_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, mask, n_heads, 1e-5)[0]
+    w, wl = x.shape[-1], out_w.shape[0]
+    return lambda: (torch.matmul(xh.view(-1, w), qkv_w), torch.matmul(o.view(-1, wl), out_w))
 
 
 def mlp_gemm_library(x, ln_scale, ln_bias, fc_w, fc_b, proj_w):
@@ -420,6 +492,14 @@ def mlp_bwd_gemm_library(hpre, fc_w, proj_w, gy):
     return lambda: (torch.matmul(gy2, proj_w.t()), torch.matmul(dh, fc_w.t()))
 
 
+def _compared(dtype_name: str, out, ref, ref64) -> dict:
+    """out against ``ref`` (#1-#4, say) under the rule, as numbers to
+    print: the row's verdict is taken against the plain twin."""
+    r = verdict(dtype_name, out, ref, ref64)
+    return {k: r[k] for k in ("max_abs_err", "max_abs_err64", "twin_err64", "tol", "ok",
+                              "differ_share") if k in r}
+
+
 def _fail_on_disagreement(rows: list[dict]) -> list[dict]:
     """Raise if any row fails the rule (``ok``; ``ok_old`` stops nothing)."""
     bad = [f"{r['name']} ({r['mode']}, {r['tower']}, {r['dtype']}): max|err"
@@ -434,8 +514,9 @@ def check_tp_kernels(shapes: dict) -> list[dict]:
     """The tensor-parallel parts (#7-#10) against their plain twins on
     rank 0's shard at tp = TP; then the TP shards' partials summed in fp32
     and finished (bias, rounding, residual; or the LayerNorm backward)
-    against the single-device kernels #1-#4 (ref; in bf16 ref64 is the
-    fp64-summed twin on the full weights). Returns result rows."""
+    against the plain twin on the full weights (ref; in bf16 ref64 is the
+    fp64-summed twin), with the single-device kernels #1-#4 beside it as a
+    printed second comparison (vs_kernels). Returns result rows."""
     import torch
 
     from mvlpt_torch.ops import block
@@ -453,6 +534,7 @@ def check_tp_kernels(shapes: dict) -> list[dict]:
         gy = torch.randn((b, s, w), generator=gen).to("cuda", dtype)
         esz = torch.finfo(dtype).bits // 8
         m, d, hl, wl, w4l = b * s, w // h, h // TP, w // TP, 4 * w // TP
+        do = torch.randn((b, hl, s, d), generator=gen).to("cuda", dtype)
         ln1, ln2 = p["ln_1"], p["ln_2"]
         shards = [shard_blocks(p, h, TP, r) for r in range(TP)]
 
@@ -486,29 +568,44 @@ def check_tp_kernels(shapes: dict) -> list[dict]:
         mask_b = 0 if mask is None else s * s * 4
         attn_w, mlp_w = 4 * w * wl * esz, 2 * w * w4l * esz
         f32, bf16 = torch.float32, dtype == torch.bfloat16
+        # SDPA on rank 0's local heads: the cores' library calls.
+        sdpa, sdpa_bwd = sdpa_library(fwd_res[0][0], mask, hl, do)
         cases = [
-            ("attn_fwd_tp", lambda: block.attn_fwd_part(*attn_args(0))[0],
-             lambda acc=f32: block.attn_fwd_part_plain(*attn_args(0), acc=acc)[0],
+            ("attn_fwd_tp", lambda: _with_residuals(block.attn_fwd_part(*attn_args(0))),
+             lambda acc=f32: _with_residuals(block.attn_fwd_part_plain(*attn_args(0), acc=acc)),
              gemm_attn + core,
-             act + attn_w + (3 * wl + 2 * w) * esz + mask_b + part + qkv_b + probs_b + stats),
+             act + attn_w + (3 * wl + 2 * w) * esz + mask_b + part + qkv_b + probs_b + stats,
+             sdpa),
             ("attn_bwd_tp", lambda: block.attn_bwd_part(*attn_bwd_args(0)),
              lambda acc=f32: block.attn_bwd_part_plain(*attn_bwd_args(0), acc=acc),
-             gemm_attn + 2 * core, qkv_b + probs_b + attn_w + act + part),
+             gemm_attn + 2 * core, qkv_b + probs_b + attn_w + act + part, sdpa_bwd),
             ("mlp_fwd_tp", lambda: block.mlp_fwd_part(*mlp_args(0))[0],
              lambda acc=f32: block.mlp_fwd_part_plain(*mlp_args(0), acc=acc)[0], gemm_mlp,
-             act + mlp_w + (w4l + 2 * w) * esz + part + m * w4l * esz + stats),
+             act + mlp_w + (w4l + 2 * w) * esz + part + m * w4l * esz + stats, None),
             ("mlp_bwd_tp", lambda: block.mlp_bwd_part(*mlp_bwd_args(0)),
              lambda acc=f32: block.mlp_bwd_part_plain(*mlp_bwd_args(0), acc=acc), gemm_mlp,
-             m * w4l * esz + mlp_w + act + part),
+             m * w4l * esz + mlp_w + act + part, None),
         ]
-        for name, kern, twin, flops, nbytes in (c for c in cases if c[0] in names):
+        for name, kern, twin, flops, nbytes, lib in (c for c in cases if c[0] in names):
             got, alloc = requested(kern)
             bound_ms, bound_by = bound(flops, nbytes, dtype_name)
             row = dict(name=name, mode="part", tower=tower, dtype=dtype_name,
                        shape=[b, s, w, hl if "attn" in name else w4l], tp=TP,
                        masked=mask is not None,
-                       **verdict(dtype_name, got, twin(), twin(torch.float64) if bf16 else None),
-                       **timed(kern, twin), bound_ms=bound_ms, bound_by=bound_by)
+                       **verdict(dtype_name, got, twin(), twin(torch.float64) if bf16 else None,
+                                 ATTN_FWD_OUTPUTS if name == "attn_fwd_tp" else None),
+                       **timed(kern, twin, lib), bound_ms=bound_ms, bound_by=bound_by)
+            if name == "attn_fwd_tp":
+                # The bf16 route requests the fp32 partial, the residuals
+                # (qkv, probs, mu, rstd) and the xh and o scratch.
+                want = part + qkv_b + probs_b + stats + act + m * wl * esz
+                row.update(route=block.ATTN_FWD_ROUTES[dtype],
+                           gemm_library_ms=cuda_ms(attn_gemm_library(
+                               *attn_args(0)[:5], shards[0]["attn"]["out_w"], mask, hl)),
+                           requested_bytes=alloc, want_bytes=want)
+                if bf16 and alloc != want:
+                    raise AssertionError(f"attn_fwd_tp ({tower}, bf16): requested {alloc} bytes, "
+                                         f"not those of its outputs and scratch ({want})")
             if name == "mlp_fwd_tp":
                 row.update(route=block.MLP_ROUTES[dtype],
                            gemm_library_ms=cuda_ms(mlp_gemm_library(*mlp_args(0))))
@@ -524,9 +621,10 @@ def check_tp_kernels(shapes: dict) -> list[dict]:
             rows.append(row)
             print("kernel-check " + json.dumps(row), flush=True)
 
-        # The TP shards' kernels, summed and finished, against #1-#4 (ref)
-        # and, in bf16, the fp64-summed twin on the full weights and #1-#4's
-        # inputs (ref64).
+        # The TP shards' kernels, summed and finished, against the twin on
+        # the full weights (ref) and, in bf16, the fp64-summed twin (ref64);
+        # the backwards' twins take #1's and #3's residuals. #1-#4 on the
+        # full weights are printed beside them and decide nothing.
         at, ml = p["attn"], p["mlp"]
         full_attn = (x, ln1["scale"], ln1["bias"], at["qkv_w"], at["qkv_b"], at["out_w"],
                      at["out_b"], mask, h)
@@ -540,7 +638,7 @@ def check_tp_kernels(shapes: dict) -> list[dict]:
             parts = [res for _, res in fa]
             pairs.append(("attn_fwd_tp",
                           x + (sum(y for y, _ in fa) + at["out_b"].float()).to(dtype), y_attn,
-                          lambda: block.attn_fwd_plain(*full_attn, acc=f64)[0]))
+                          lambda acc: block.attn_fwd_plain(*full_attn, acc=acc)[0]))
         if "attn_bwd_tp" in names:
             dxa = sum(block.attn_bwd_part(parts[r][0], parts[r][1], shards[r]["attn"]["qkv_w"],
                                           shards[r]["attn"]["out_w"], gy, hl) for r in range(TP))
@@ -549,14 +647,14 @@ def check_tp_kernels(shapes: dict) -> list[dict]:
             pairs.append(("attn_bwd_tp",
                           block._ln_bwd(x, parts[0][2], parts[0][3], ln1["scale"], dxa, gy),
                           block.attn_bwd(*attn_bwd_full),
-                          lambda: block.attn_bwd_plain(*attn_bwd_full, acc=f64)))
+                          lambda acc: block.attn_bwd_plain(*attn_bwd_full, acc=acc)))
         if "mlp_fwd_tp" in names:
             y_mlp, (hpre, mu2, rstd2) = block.mlp_fwd(*full_mlp)
             fm = [block.mlp_fwd_part(*mlp_args(r)) for r in range(TP)]
             mparts = [res for _, res in fm]
             pairs.append(("mlp_fwd_tp",
                           x + (sum(y for y, _ in fm) + ml["proj_b"].float()).to(dtype), y_mlp,
-                          lambda: block.mlp_fwd_plain(*full_mlp, acc=f64)[0]))
+                          lambda acc: block.mlp_fwd_plain(*full_mlp, acc=acc)[0]))
         if "mlp_bwd_tp" in names:
             dxm = sum(block.mlp_bwd_part(mparts[r][0], shards[r]["mlp"]["fc_w"],
                                          shards[r]["mlp"]["proj_w"], gy) for r in range(TP))
@@ -564,11 +662,13 @@ def check_tp_kernels(shapes: dict) -> list[dict]:
             pairs.append(("mlp_bwd_tp",
                           block._ln_bwd(x, mparts[0][1], mparts[0][2], ln2["scale"], dxm, gy),
                           block.mlp_bwd(*mlp_bwd_full),
-                          lambda: block.mlp_bwd_plain(*mlp_bwd_full, acc=f64)))
-        for name, got, ref, twin64 in pairs:
+                          lambda acc: block.mlp_bwd_plain(*mlp_bwd_full, acc=acc)))
+        for name, got, kernels, twin in pairs:
+            ref64 = twin(f64) if bf16 else None
             row = dict(name=name, mode="reassembled", tower=tower, dtype=dtype_name, tp=TP,
-                       ref="#1-#4 on the full weights",
-                       **verdict(dtype_name, got, ref, twin64() if bf16 else None))
+                       ref="the plain twin on the full weights",
+                       **verdict(dtype_name, got, twin(f32), ref64),
+                       vs_kernels=_compared(dtype_name, got, kernels, ref64))
             joined.append(row)
             print("tp-reassembly " + json.dumps(row), flush=True)
     _fail_on_disagreement(joined)
@@ -730,16 +830,21 @@ def check_gemm_kmajor(shapes: dict) -> list[dict]:
 
 # The tensor-core kernels of each source, by their mangled names: the
 # bf16 route of attend_fwd.cu / attend_bwd.cu (one kernel a register
-# bucket NT) and the wgmma GEMM in mlp_fwd.cu and mlp_bwd.cu (one an
-# epilogue EPI, tile width BN and B layout, KMAJOR 1 for a B read
-# transposed).
-TC_KERNELS = {"attend_fwd": r"attend_fwd_tc", "attend_bwd": r"attend_bwd_(?:dq|dkv)_tc",
-              "mlp_fwd": r"wgmma_gemm_kernel", "mlp_bwd": r"wgmma_gemm_kernel"}
+# bucket NT), the wgmma GEMM in attn_fwd.cu, mlp_fwd.cu and mlp_bwd.cu (one
+# an epilogue EPI, tile width BN and B layout, KMAJOR 1 for a B read
+# transposed) and attn_fwd.cu's mma.sync core (PROBS 1 where it writes the
+# probabilities). Each pattern of a source must name at least one kernel.
+TC_KERNELS = {"attend_fwd": (r"attend_fwd_tc",), "attend_bwd": (r"attend_bwd_(?:dq|dkv)_tc",),
+              "attn_fwd": (r"attn_core_tc", r"wgmma_gemm_kernel"),
+              "mlp_fwd": (r"wgmma_gemm_kernel",), "mlp_bwd": (r"wgmma_gemm_kernel",)}
 # The template arguments of each tensor-core kernel, in order.
 TC_TEMPLATE_ARGS = {"attend_fwd_tc": ("NT",), "attend_bwd_dq_tc": ("NT",),
-                    "attend_bwd_dkv_tc": ("NT",), "wgmma_gemm_kernel": ("EPI", "BN", "KMAJOR")}
-# Sources whose bf16 products must reach wgmma (HGMMA in their SASS).
-HGMMA_SOURCES = ("mlp_fwd", "mlp_bwd")
+                    "attend_bwd_dkv_tc": ("NT",), "attn_core_tc": ("PROBS",),
+                    "wgmma_gemm_kernel": ("EPI", "BN", "KMAJOR")}
+# Sources whose bf16 products must reach wgmma (HGMMA in their SASS), and
+# whose bf16 attention core must reach mma.sync (HMMA).
+HGMMA_SOURCES = ("attn_fwd", "mlp_fwd", "mlp_bwd")
+HMMA_SOURCES = ("attn_fwd",)
 # setmaxnreg's split in csrc/wgmma.cuh needs the 168 registers a thread
 # that a block of 384 threads holds at entry; with fewer, the consumers'
 # request could never be met.
@@ -770,14 +875,16 @@ def check_tc_spills(logs: dict) -> None:
     """ptxas's registers and spills of each tensor-core kernel
     (TC_KERNELS), printed; any spill fails the run, and so does a source
     whose build log (``_build.build_kernels``: this run's or the cached
-    library's) names no such kernel, or a wgmma GEMM kernel holding fewer
-    than WGMMA_ENTRY_REGS registers."""
+    library's) names no kernel of one of its patterns, or a wgmma GEMM
+    kernel holding fewer than WGMMA_ENTRY_REGS registers."""
     rows = []
-    for src, pattern in TC_KERNELS.items():
-        found = tc_ptxas(logs[src], pattern)
-        if not found:
-            raise AssertionError(f"ptxas: no tensor-core kernel in {src}.cu's build log")
-        rows += [(f"{src} {label}", regs, spill) for label, regs, spill in found]
+    for src, patterns in TC_KERNELS.items():
+        for pattern in patterns:
+            found = tc_ptxas(logs[src], pattern)
+            if not found:
+                raise AssertionError(f"ptxas: no tensor-core kernel in {src}.cu's build log "
+                                     f"matches {pattern}")
+            rows += [(f"{src} {label}", regs, spill) for label, regs, spill in found]
     for label, regs, spill in rows:
         print(f"ptxas {label}: {regs} registers, {spill} bytes of spills", flush=True)
     spilled = [label for label, _, spill in rows if spill]
@@ -792,19 +899,24 @@ def check_tc_spills(logs: dict) -> None:
 
 def check_hgmma() -> None:
     """The SASS (the toolkit's cuobjdump) of each library in HGMMA_SOURCES
-    must hold HGMMA, the instruction wgmma compiles to: their bf16 routes
-    really reach the tensor cores through wgmma."""
+    must hold HGMMA, the instruction wgmma compiles to, and of each in
+    HMMA_SOURCES HMMA, mma.sync's: their bf16 routes really reach the
+    tensor cores through them."""
     from mvlpt_torch.ops import _build
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    for src in HGMMA_SOURCES:
+    for src in dict.fromkeys(HGMMA_SOURCES + HMMA_SOURCES):
         sass = subprocess.run([str(cuobjdump), "--dump-sass", str(_build._lib_path(src))],
                               capture_output=True, text=True, check=True, timeout=300).stdout
-        count = len(re.findall(r"\bHGMMA\.", sass))
-        print(f"sass {src}: {count} HGMMA instructions", flush=True)
-        if not count:
-            raise AssertionError(f"sass: no HGMMA in {src}'s library: its bf16 route misses "
-                                 f"wgmma")
+        for op, sources, what in (("HGMMA", HGMMA_SOURCES, "wgmma"),
+                                  ("HMMA", HMMA_SOURCES, "mma.sync")):
+            if src not in sources:
+                continue
+            count = len(re.findall(rf"\b{op}\.", sass))
+            print(f"sass {src}: {count} {op} instructions", flush=True)
+            if not count:
+                raise AssertionError(f"sass: no {op} in {src}'s library: its bf16 route misses "
+                                     f"{what}")
 
 
 def _launches(path: str, kernels: tuple, per: int) -> dict:
@@ -1065,10 +1177,11 @@ def residual_block_twin(x, p, n_heads, mask, gy, acc):
 
 def _tp_block_check(path: str, backbones: dict, clip_cfg, inputs: dict, got: list) -> dict:
     """Each rank's sharded layer 0 of each tower (y and dx, through the
-    all-reduce) against kernels #1-#4 on the full weights of
-    ``backbones[dtype]`` (ref; in bf16 ref64 is the fp64-summed twin of
-    the block on those weights), under the rule at TOL; and bit-equal
-    across the ranks."""
+    all-reduce) against the block's plain twin on the full weights of
+    ``backbones[dtype]`` (ref; in bf16 ref64 is its fp64-summed twin),
+    under the rule at TOL, with kernels #1-#4 on the same weights beside
+    it as a printed second comparison (vs_kernels); and bit-equal across
+    the ranks."""
     import torch
 
     from mvlpt_torch.core.layers import layer_params as take
@@ -1082,17 +1195,21 @@ def _tp_block_check(path: str, backbones: dict, clip_cfg, inputs: dict, got: lis
             p = take(backbone[tower]["blocks"], 0)
             mask = None if mask is None else mask.cuda()
             xr = x.to("cuda", getattr(torch, dt)).requires_grad_(True)
+            gyr = gy.to("cuda", xr.dtype)
             y = fused_residual_block(xr, p, heads, mask)
-            (dx,) = torch.autograd.grad(y, xr, gy.to("cuda", xr.dtype))
+            (dx,) = torch.autograd.grad(y, xr, gyr)
+            kernels = (y.detach().cpu(), dx.cpu())
+            refs = tuple(t.cpu() for t in residual_block_twin(xr.detach(), p, heads, mask, gyr,
+                                                              torch.float32))
             refs64 = (None, None)
             if dt == "bfloat16":
                 refs64 = tuple(t.cpu() for t in residual_block_twin(
-                    xr.detach(), p, heads, mask, gy.to("cuda", xr.dtype), torch.float64))
-            for (name, ref, k), ref64 in zip((("y", y.detach().cpu(), 0), ("dx", dx.cpu(), 1)),
-                                             refs64):
+                    xr.detach(), p, heads, mask, gyr, torch.float64))
+            for k, name in enumerate(("y", "dx")):
                 mine = got[0][key][k]
                 row = dict(name=f"{path} layer 0 {name}", mode="rank 0", tower=tower, dtype=dt,
-                           **verdict(dt, mine, ref, ref64))
+                           **verdict(dt, mine, refs[k], refs64[k]),
+                           vs_kernels=_compared(dt, mine, kernels[k], refs64[k]))
                 out[f"{key}/{name}"] = row
                 rows.append(row)
                 if not all(torch.equal(mine, g[key][k]) for g in got[1:]):
@@ -1107,8 +1224,8 @@ def drive_tp_train(batches: list, blocks: dict, backbones: dict, clip_cfg, auto:
     already, so the ranks only load them; the batches and the block
     inputs go to them in one file under build/. Rank 0's first loss and
     grad norm are held to train[auto]'s on the same batch (``auto32``:
-    its first step in fp32), the blocks to #1-#4 on the full weights
-    ``backbones[dtype]``."""
+    its first step in fp32), the blocks to the plain twin on the full
+    weights ``backbones[dtype]``."""
     import shutil
 
     import torch
@@ -1325,15 +1442,21 @@ def text_and_image_shapes():
 
 def half_block_shapes() -> tuple[dict, dict]:
     """The shapes of check_kernels' and check_tp_kernels' rows."""
+    from mvlpt_torch.core.layers import causal_mask
+
     s, g, rows, s_img, s_l336, packed_mask = text_and_image_shapes()
     every, no_residual = ("train", "no-residual"), ("no-residual",)
-    attn_only = (("attn_fwd", "train"), ("attn_fwd", "no-residual"), ("attn_bwd", "train"))
+    attn_fwd_only = (("attn_fwd", "train"), ("attn_fwd", "no-residual"))
+    attn_only = attn_fwd_only + (("attn_bwd", "train"),)
     kernel_shapes = {
         "image": (32, s_img, 768, 12, None, s_img, 32, every),
         "image_eval": (EVAL_BATCH, s_img, 768, 12, None, s_img, EVAL_BATCH, no_residual),
         "text": (rows, g * s, 512, 8, packed_mask, s, 100, every),
         # ViT-L/14@336px's attention half-blocks at batch 4.
-        "vitl336": (4, s_l336, 1024, 16, None, s_l336, 4, attn_only)}
+        "vitl336": (4, s_l336, 1024, 16, None, s_l336, 4, attn_only),
+        # The attention forwards at S = 1024 (causal), four windows of the
+        # bf16 core's keys.
+        "s1024": (2, 1024, 768, 12, causal_mask(1024, device="cuda"), 1024, 2, attn_fwd_only)}
     tp_shapes = {
         "image": (32, s_img, 768, 12, None, s_img, 32, TP_KERNELS),
         "text": (rows, g * s, 512, 8, packed_mask, s, 100, TP_KERNELS),

@@ -26,25 +26,12 @@
 // K = W) matrix, Wfc (W, 4W) as an (N = W, K = 4W) one; TMA brings their
 // slabs in A's layout and no weight is copied), the QuickGELU' epilogue
 // in the GEMM's; fp32 through common.cuh's GEMM on the CUDA cores.
-#include <type_traits>
-
 #include "common.cuh"
 #include "wgmma.cuh"
 
 using namespace mvlpt;
 
 namespace {
-
-// C = A (M, K) @ B^T for a row-major (N, K) B, on T's route: bf16 on
-// wgmma (B K-major), fp32 on the CUDA cores.
-template <typename T, int EPI>
-cudaError_t gemm_bt(const void* A, const void* B, int M, int N, int K, EpiArgs ep,
-                    cudaStream_t st) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>)
-    return wg::launch_gemm_bf16<EPI, true>(A, B, M, N, K, ep, st);
-  else
-    return launch_gemm<T, true, EPI>(A, B, M, N, K, ep, st);
-}
 
 // part: stop at the fp32 dxh (no LayerNorm backward, x/mu/rstd unused).
 template <typename T>
@@ -53,11 +40,11 @@ int mlp_bwd_impl(const void* x, const float* mu, const float* rstd, const void* 
                  void* dh, float* dxh, void* dx, int M, int W, int W4, bool part,
                  cudaStream_t st) {
   // da[m, j] = sum_n gy[m, n] Wproj[j, n], then dh = T(da QuickGELU'(hpre)).
-  MVLPT_TRY((gemm_bt<T, EPI_GELU_BWD>(gy, proj_w, M, W4, W,
-                                      EpiArgs{nullptr, nullptr, hpre, dh, nullptr}, st)));
+  MVLPT_TRY((wg::gemm<T, EPI_GELU_BWD, true>(gy, proj_w, M, W4, W,
+                                             EpiArgs{nullptr, nullptr, hpre, dh, nullptr}, st)));
   // dxh[m, n] = sum_j dh[m, j] Wfc[n, j].
-  MVLPT_TRY((gemm_bt<T, EPI_F32>(dh, fc_w, M, W, W4,
-                                 EpiArgs{nullptr, nullptr, nullptr, dxh, nullptr}, st)));
+  MVLPT_TRY((wg::gemm<T, EPI_F32, true>(dh, fc_w, M, W, W4,
+                                        EpiArgs{nullptr, nullptr, nullptr, dxh, nullptr}, st)));
   if (!part) MVLPT_TRY(launch_ln_bwd<T>(x, mu, rstd, ln_scale, dxh, gy, dx, M, W, st));
   return 0;
 }

@@ -25,23 +25,12 @@
 // (ops/block.MLP_ROUTES): bf16 on the tensor cores through wgmma.cuh's
 // GEMM (wgmma fed by TMA), fp32 through common.cuh's GEMM on the CUDA
 // cores.
-#include <type_traits>
-
 #include "common.cuh"
 #include "wgmma.cuh"
 
 using namespace mvlpt;
 
 namespace {
-
-// The route of T's products: bf16 on wgmma, fp32 on the CUDA cores.
-template <typename T, int EPI>
-cudaError_t gemm(const void* A, const void* B, int M, int N, int K, EpiArgs ep, cudaStream_t st) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>)
-    return wg::launch_gemm_bf16<EPI>(A, B, M, N, K, ep, st);
-  else
-    return launch_gemm<T, false, EPI>(A, B, M, N, K, ep, st);
-}
 
 // part: fp32 partial projection into y, without proj_b or the residual.
 template <typename T>
@@ -50,14 +39,14 @@ int mlp_fwd_impl(const void* x, const void* ln_scale, const void* ln_bias, const
                  void* act, float* mu, float* rstd, void* y, int M, int W, int W4, float eps,
                  bool part, cudaStream_t st) {
   MVLPT_TRY(launch_ln_fwd<T>(x, ln_scale, ln_bias, xh, mu, rstd, M, W, eps, st));
-  MVLPT_TRY((gemm<T, EPI_BIAS_GELU>(xh, fc_w, M, W4, W, EpiArgs{fc_b, nullptr, nullptr, act, hpre},
-                                    st)));
+  MVLPT_TRY((wg::gemm<T, EPI_BIAS_GELU>(xh, fc_w, M, W4, W,
+                                        EpiArgs{fc_b, nullptr, nullptr, act, hpre}, st)));
   if (part)
-    MVLPT_TRY((gemm<T, EPI_F32>(act, proj_w, M, W, W4,
-                                EpiArgs{nullptr, nullptr, nullptr, y, nullptr}, st)));
+    MVLPT_TRY((wg::gemm<T, EPI_F32>(act, proj_w, M, W, W4,
+                                    EpiArgs{nullptr, nullptr, nullptr, y, nullptr}, st)));
   else
-    MVLPT_TRY((gemm<T, EPI_BIAS_RESID>(act, proj_w, M, W, W4,
-                                       EpiArgs{proj_b, x, nullptr, y, nullptr}, st)));
+    MVLPT_TRY((wg::gemm<T, EPI_BIAS_RESID>(act, proj_w, M, W, W4,
+                                           EpiArgs{proj_b, x, nullptr, y, nullptr}, st)));
   return 0;
 }
 

@@ -25,6 +25,10 @@
 // the drained ring, so every thread then applies the epilogue to four
 // neighbouring columns and each warp stores whole rows.
 //
+// Its callers: the MLP half-blocks' products (mlp_fwd.cu, mlp_bwd.cu)
+// and the attention half-block forward's qkv product (EPI_BIAS) and
+// out-projection (attn_fwd.cu), all in bf16.
+//
 // Bound by operations at the MLP's shapes; what keeps it from the
 // tensor cores' rate is that a block's ring fill and epilogue do not
 // overlap another tile's products (one tile a block, one block an SM).
@@ -47,6 +51,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -280,12 +286,15 @@ __device__ __forceinline__ void epi_quad(const EpiArgs& ep, int m, int n, int N,
   if constexpr (EPI == EPI_F32) {
     *reinterpret_cast<float4*>((float*)ep.out + o) = acc;
   } else {
-    static_assert(EPI == EPI_BIAS_RESID || EPI == EPI_BIAS_GELU,
+    static_assert(EPI == EPI_BIAS || EPI == EPI_BIAS_RESID || EPI == EPI_BIAS_GELU,
                   "wgmma GEMM: epilogue not instantiated for the bf16 route");
     const float a[4] = {acc.x, acc.y, acc.z, acc.w};
     float b[4], out[4];
     load_bf16x4(b, (const __nv_bfloat16*)ep.bias + n);
-    if constexpr (EPI == EPI_BIAS_RESID) {
+    if constexpr (EPI == EPI_BIAS) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) out[i] = a[i] + b[i];
+    } else if constexpr (EPI == EPI_BIAS_RESID) {
       float r[4];
       load_bf16x4(r, (const __nv_bfloat16*)ep.resid + o);
 #pragma unroll
@@ -534,6 +543,18 @@ inline cudaError_t launch_gemm_bf16(const void* A, const void* B, int M, int N, 
   return wide_tiles >= 3l * sms
              ? launch_gemm_bf16_tiles<EPI, 256, B_KMAJOR>(A, B, M, N, K, ep, st)
              : launch_gemm_bf16_tiles<EPI, 128, B_KMAJOR>(A, B, M, N, K, ep, st);
+}
+
+// C = A (M, K) @ op(B) on T's route, the half-blocks' products: bf16 on
+// this GEMM, fp32 on common.cuh's CUDA-core GEMM (TF32 would not hold
+// fp32's tolerance). B is (K, N), or (N, K) with B_KMAJOR.
+template <typename T, int EPI, bool B_KMAJOR = false>
+inline cudaError_t gemm(const void* A, const void* B, int M, int N, int K, EpiArgs ep,
+                        cudaStream_t st) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+    return launch_gemm_bf16<EPI, B_KMAJOR>(A, B, M, N, K, ep, st);
+  else
+    return launch_gemm<T, B_KMAJOR, EPI>(A, B, M, N, K, ep, st);
 }
 
 }  // namespace

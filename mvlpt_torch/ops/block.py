@@ -48,12 +48,20 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # The routes of the MLP half-blocks' two products (mlp_fwd, mlp_fwd_part;
 # mlp_bwd, mlp_bwd_part, whose products read the weights transposed), by
 # dtype: bf16 on the tensor cores (csrc/wgmma.cuh), fp32 on the CUDA cores
-# (csrc/common.cuh). The attention half-blocks keep the CUDA-core GEMM in
-# both dtypes.
+# (csrc/common.cuh).
 MLP_ROUTES = {torch.bfloat16: "tensor cores (wgmma + TMA, bf16)",
               torch.float32: "CUDA cores (fp32 FMA)"}
+# The routes of the attention half-block forwards (attn_fwd, its no-grad
+# form, attn_fwd_part), by dtype: in bf16 the qkv and out-projection
+# products on csrc/wgmma.cuh's GEMM and the attention core on mma.sync
+# (csrc/attn_fwd.cu, attn_core_tc); in fp32 csrc/common.cuh's GEMM and
+# csrc/fma_attn.cuh's core. The backwards keep the CUDA cores in both.
+ATTN_FWD_ROUTES = {torch.bfloat16: "tensor cores (wgmma + TMA products, mma.sync core, bf16)",
+                   torch.float32: "CUDA cores (fp32 FMA)"}
 # The bf16 route's TMA tiles: K and N in slabs of 64 values.
 _WG_MULTIPLE = 64
+# The head width of the bf16 attention core's fragments.
+_TC_HEAD = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -293,6 +301,24 @@ def _check_mlp_route(name, x, w4, operands):
         raise ValueError(f"{name}: the bf16 tensor-core route needs 16-byte-aligned tensors")
 
 
+def _check_attn_route(name, x, wl, n_heads, operands):
+    """The bf16 route (ATTN_FWD_ROUTES) reads its products' operands by TMA
+    and q, k, v in 16-byte pieces, with the core's fragments D = 64 wide:
+    the head width must be 64, W and Wl multiples of 64 and every base
+    16-byte aligned. It raises rather than take another route."""
+    if x.dtype != torch.bfloat16:
+        return
+    w = x.shape[-1]
+    if w % _WG_MULTIPLE or wl % _WG_MULTIPLE:
+        raise ValueError(f"{name}: the bf16 tensor-core route takes W and Wl in multiples of "
+                         f"{_WG_MULTIPLE}, got W = {w}, Wl = {wl}")
+    if wl != _TC_HEAD * n_heads:
+        raise ValueError(f"{name}: the bf16 tensor-core route takes a head width of "
+                         f"{_TC_HEAD}, got D = {wl / n_heads:g}")
+    if any(t.data_ptr() % 16 for t in (x, *operands)):
+        raise ValueError(f"{name}: the bf16 tensor-core route needs 16-byte-aligned tensors")
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -307,7 +333,9 @@ def _empty(shape, like, dtype=None):
 
 def attn_fwd(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b, mask, n_heads,
              eps=_EPS, save_residuals=True):
-    """Attention half-block forward -> (y, (qkv, probs, mu, rstd) or None)."""
+    """Attention half-block forward -> (y, (qkv, probs, mu, rstd) or None).
+    On the card it takes the dtype's route in ``ATTN_FWD_ROUTES``: bf16 on
+    the tensor cores (D = 64), fp32 on the CUDA cores."""
     if x.device.type == "cpu":
         return attn_fwd_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b,
                               mask, n_heads, eps, save_residuals)
@@ -316,6 +344,7 @@ def attn_fwd(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b, mask, n_heads,
         raise ValueError(f"attn_fwd: width {w} does not split into {n_heads} heads")
     _check("attn_fwd", x, [(ln_scale, (w,)), (ln_bias, (w,)), (qkv_w, (w, 3 * w)),
                            (qkv_b, (3 * w,)), (out_w, (w, w)), (out_b, (w,))], mask=mask)
+    _check_attn_route("attn_fwd", x, w, n_heads, (ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b))
     f32 = torch.float32
     qkv = _empty((b, s, 3 * w), x)
     probs = _empty((b, n_heads, s, s), x) if save_residuals else None
@@ -401,13 +430,14 @@ def mlp_bwd(x, mu, rstd, hpre, ln_scale, fc_w, proj_w, gy):
 def attn_fwd_part(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, mask, n_heads, eps=_EPS):
     """Tensor-parallel attention part over ``n_heads`` local heads (qkv_w
     (W, 3Wl), qkv_b (3Wl), out_w (Wl, W)) -> (fp32 partial (B, S, W),
-    (qkv, probs, mu, rstd))."""
+    (qkv, probs, mu, rstd)); routes as ``attn_fwd``."""
     if x.device.type == "cpu":
         return attn_fwd_part_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, mask, n_heads, eps)
     b, s, w = _dims("attn_fwd_part", x)
     wl = _local_width("attn_fwd_part", qkv_w.shape[-1], n_heads)
     _check("attn_fwd_part", x, [(ln_scale, (w,)), (ln_bias, (w,)), (qkv_w, (w, 3 * wl)),
                                 (qkv_b, (3 * wl,)), (out_w, (wl, w))], mask=mask)
+    _check_attn_route("attn_fwd_part", x, wl, n_heads, (ln_scale, ln_bias, qkv_w, qkv_b, out_w))
     f32 = torch.float32
     ypart = _empty((b, s, w), x, f32)
     qkv, probs = _empty((b, s, 3 * wl), x), _empty((b, n_heads, s, s), x)

@@ -5,7 +5,11 @@ tensor-parallel part also in fp32 at the block tolerance. CLIP's head
 width (D = 64) at a ragged length (S = 17) and at the ViT-L/14@336px
 image tower's length with 4 VPT rows (S = 581), with and without a
 causal mask. Also ``select_attn_fn``'s reading of ``TPU.USE_PALLAS``
-against the reference's, value by value."""
+against the reference's, value by value; the bf16 route's checks
+(``ATTN_FWD_ROUTES``, ``_check_attn_route``); and, at D = 64, the
+identity the bf16 core relies on: the half-block twin's scores T(q D^-1/2)
+k^T + mask equal the standalone convention's fl(q k^T D^-1/2) + mask bit
+for bit."""
 
 import functools
 
@@ -21,7 +25,7 @@ from mvlpt_tpu.ops import attention as jattention
 from mvlpt_tpu.ops import block as jblock
 from tests.torch_port_util import block_params_np
 
-from mvlpt_torch.core import layers
+from mvlpt_torch.core import layers, text
 from mvlpt_torch.ops import attention, block
 from mvlpt_torch.parallel import shard_blocks
 
@@ -174,3 +178,79 @@ def test_select_attn_fn_refuses_an_unknown_selection():
     assert jattention.select_attn_fn("fast") is None
     with pytest.raises(ValueError, match="unknown kernel selection"):
         attention.select_attn_fn("fast")
+
+
+def test_attn_bf16_route_checks_head_width_widths_and_alignment():
+    """The bf16 route (ATTN_FWD_ROUTES) takes D = 64, W and Wl in
+    multiples of 64 and 16-byte-aligned tensors, and raises on anything
+    else; fp32 keeps the CUDA cores and takes any width."""
+    assert set(block.ATTN_FWD_ROUTES) == {torch.bfloat16, torch.float32}
+    assert "mma.sync" in block.ATTN_FWD_ROUTES[torch.bfloat16]
+    bf = torch.bfloat16
+    x, qkv_w = torch.zeros(2, 3, 64, dtype=bf), torch.zeros(64, 192, dtype=bf)
+    block._check_attn_route("t", x, 64, 1, (qkv_w,))
+    with pytest.raises(ValueError, match="head width of 64"):
+        block._check_attn_route("t", torch.zeros(2, 3, 128, dtype=bf), 128, 4, ())  # D = 32
+    with pytest.raises(ValueError, match="head width of 64"):
+        block._check_attn_route("t", torch.zeros(2, 3, 128, dtype=bf), 128, 1, ())  # D = 128
+    with pytest.raises(ValueError, match="multiples of 64"):
+        block._check_attn_route("t", torch.zeros(2, 3, 96, dtype=bf), 64, 1, ())  # W = 96
+    with pytest.raises(ValueError, match="multiples of 64"):
+        block._check_attn_route("t", x, 96, 1, ())  # Wl = 96
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        block._check_attn_route("t", x, 64, 1, (torch.zeros(64 * 192 + 1, dtype=bf)[1:],))
+    block._check_attn_route("t", torch.zeros(2, 3, 96), 96, 3, ())  # fp32: D = 32, any width
+
+
+@pytest.mark.parametrize("entry", ["attn_fwd", "attn_fwd_part"])
+def test_attn_fwd_wrappers_raise_off_the_bf16_route(entry, monkeypatch):
+    """attn_fwd and attn_fwd_part run the route check before any launch:
+    bf16 at D = 32 raises, with nothing launched (tensors on the meta
+    device, the device check of _dims passed over)."""
+    monkeypatch.setattr(block, "_dims", lambda name, x: x.shape)
+
+    def no_launch(*args):
+        raise AssertionError("launched a kernel off the bf16 route")
+
+    monkeypatch.setattr(block._build, "call", no_launch)
+    w, h = 128, 4  # D = 32
+    bf, meta = torch.bfloat16, "meta"
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=bf, device=meta)
+
+    x = z(2, 3, w)
+    with pytest.raises(ValueError, match="head width of 64"):
+        if entry == "attn_fwd":
+            block.attn_fwd(x, z(w), z(w), z(w, 3 * w), z(3 * w), z(w, w), z(w), None, h)
+        else:
+            block.attn_fwd_part(x, z(w), z(w), z(w, 3 * w // 2), z(3 * w // 2), z(w // 2, w),
+                                None, h // 2)
+
+
+@pytest.mark.parametrize("kind", ["none", "packed"])
+def test_half_block_scores_equal_the_standalone_convention_at_d64(kind):
+    """At D = 64 the scale 1/8 is a power of two, so the half-block twin's
+    scores T(q / 8) k^T + mask (ops/block._mha_plain) equal the standalone
+    convention's fl(q k^T / 8) + mask (ops/attention._scores, the bf16
+    core's mma.cuh convention) bit for bit, on seeded bf16 qkv with and
+    without the text tower's packed block-causal mask; so do the
+    probabilities."""
+    b, h, d = 2, 3, 64
+    g, seg = 7, 18  # the synthetic vocab's packing: 7 classes of 18 tokens a row
+    s = g * seg
+    rng = np.random.RandomState(21)
+    qkv = torch.from_numpy(rng.randn(b, s, 3 * h * d).astype(np.float32)).to(torch.bfloat16)
+    mask = text.block_causal_mask(g, seg) if kind == "packed" else None
+    q, k, _ = qkv.view(b, s, 3, h, d).permute(2, 0, 3, 1, 4)
+    scale = d ** -0.5
+    assert scale == 0.125
+    qs = (q.float() * scale).to(torch.bfloat16)
+    assert torch.equal(qs.float(), q.float() * scale)  # T(q / 8) is exact
+    half_block = block._mm(qs, k.transpose(-1, -2))
+    standalone = block._mm(q, k.transpose(-1, -2)) * scale
+    if mask is not None:
+        half_block, standalone = half_block + mask, standalone + mask
+    assert torch.equal(half_block, standalone)
+    _, probs = block._mha_plain(qkv, mask, h)
+    assert torch.equal(probs, attention._scores(q, k, mask).to(torch.bfloat16))

@@ -136,41 +136,67 @@ _MLP_CLEAN = [(_WG.format(4, 256, 0), 0, 168), (_WG.format(3, 128, 0), 0, 168),
 _BWD_CLEAN = [(_WG.format(5, 256, 1), 0, 168), (_WG.format(1, 128, 1), 0, 168),
               ("gemm_kernelIfLb1ELi5EEEvPKT_S3_iiiNS_7EpiArgsE", 0, 80)]
 _FWD_TC, _BWD_TC = [("attend_fwd_tcILi26EEEv", 0, 230)], [("attend_bwd_dq_tcILi26EEEv", 0, 127)]
+# attn_fwd.cu: the mma.sync core attn_core_tc<PROBS> and the wgmma GEMM of
+# its two products (EPI_BIAS, EPI_BIAS_RESID), beside the fp32 route.
+_CORE = "4core12attn_core_tcILb{}EEEvPK13__nv_bfloat16PKfPS2_S7_iiii"
+_ATTN_CLEAN = [(_CORE.format(0), 0, 125), (_CORE.format(1), 0, 128),
+               (_WG.format(2, 256, 0), 0, 168), (_WG.format(3, 128, 0), 0, 168),
+               ("gemm_kernelIfLb0ELi2EEEvPKT_S3_iiiNS_7EpiArgsE", 0, 80)]
 
 
-@pytest.mark.parametrize("fwd, bwd, mlp, mlp_bwd, error", [
+@pytest.mark.parametrize("fwd, bwd, mlp, mlp_bwd, attn, error", [
     ([("attend_fwd_tcILi26EEEv", 0, 230), ("attend_fwd_kernelEPKf", 0, 32)],
      [("attend_bwd_dq_tcILi26EEEv", 0, 127), ("attend_bwd_dkv_tcILi26EEEv", 0, 168)],
-     _MLP_CLEAN, _BWD_CLEAN, None),
-    (_FWD_TC, [("attend_bwd_dq_tcILi26EEEv", 40, 255)], _MLP_CLEAN, _BWD_CLEAN, "spill"),
-    ([("attend_fwd_kernelEPKf", 0, 32)], _BWD_TC, _MLP_CLEAN, _BWD_CLEAN,
+     _MLP_CLEAN, _BWD_CLEAN, _ATTN_CLEAN, None),
+    (_FWD_TC, [("attend_bwd_dq_tcILi26EEEv", 40, 255)], _MLP_CLEAN, _BWD_CLEAN, _ATTN_CLEAN,
+     "spill"),
+    ([("attend_fwd_kernelEPKf", 0, 32)], _BWD_TC, _MLP_CLEAN, _BWD_CLEAN, _ATTN_CLEAN,
      "no tensor-core kernel in attend_fwd"),
     (_FWD_TC, _BWD_TC, [(_WG.format(4, 256, 0), 24, 168), (_WG.format(3, 128, 0), 0, 168)],
-     _BWD_CLEAN, "spill"),
-    (_FWD_TC, _BWD_TC, _MLP_CLEAN[2:], _BWD_CLEAN, "no tensor-core kernel in mlp_fwd"),
-    (_FWD_TC, _BWD_TC, [(_WG.format(4, 256, 0), 0, 128)], _BWD_CLEAN, "below 168 registers"),
-    (_FWD_TC, _BWD_TC, _MLP_CLEAN, [(_WG.format(5, 256, 1), 16, 168)], "spill"),
-    (_FWD_TC, _BWD_TC, _MLP_CLEAN, _BWD_CLEAN[2:], "no tensor-core kernel in mlp_bwd"),
+     _BWD_CLEAN, _ATTN_CLEAN, "spill"),
+    (_FWD_TC, _BWD_TC, _MLP_CLEAN[2:], _BWD_CLEAN, _ATTN_CLEAN,
+     "no tensor-core kernel in mlp_fwd"),
+    (_FWD_TC, _BWD_TC, [(_WG.format(4, 256, 0), 0, 128)], _BWD_CLEAN, _ATTN_CLEAN,
+     "below 168 registers"),
+    (_FWD_TC, _BWD_TC, _MLP_CLEAN, [(_WG.format(5, 256, 1), 16, 168)], _ATTN_CLEAN, "spill"),
+    (_FWD_TC, _BWD_TC, _MLP_CLEAN, _BWD_CLEAN[2:], _ATTN_CLEAN,
+     "no tensor-core kernel in mlp_bwd"),
+    (_FWD_TC, _BWD_TC, _MLP_CLEAN, _BWD_CLEAN,
+     [(_CORE.format(1), 8, 128)] + _ATTN_CLEAN[2:], "spill"),
+    (_FWD_TC, _BWD_TC, _MLP_CLEAN, _BWD_CLEAN, _ATTN_CLEAN[2:],
+     "no tensor-core kernel in attn_fwd.cu's build log matches attn_core_tc"),
+    (_FWD_TC, _BWD_TC, _MLP_CLEAN, _BWD_CLEAN, _ATTN_CLEAN[:2] + _ATTN_CLEAN[4:],
+     "no tensor-core kernel in attn_fwd.cu's build log matches wgmma_gemm_kernel"),
+    (_FWD_TC, _BWD_TC, _MLP_CLEAN, _BWD_CLEAN,
+     _ATTN_CLEAN[:2] + [(_WG.format(2, 256, 0), 0, 160)], "below 168 registers"),
 ], ids=["clean", "spill", "no-tc-kernel", "wgmma-spill", "no-wgmma-kernel", "wgmma-short",
-        "kmajor-spill", "no-kmajor-kernel"])
-def test_chip_smoke_spill_check_reads_each_attention_kernel(fwd, bwd, mlp, mlp_bwd, error,
+        "kmajor-spill", "no-kmajor-kernel", "attn-core-spill", "no-attn-core",
+        "no-attn-wgmma", "attn-wgmma-short"])
+def test_chip_smoke_spill_check_reads_each_attention_kernel(fwd, bwd, mlp, mlp_bwd, attn, error,
                                                             capsys):
     """The spill check reads the tensor-core kernels of each source: the
-    standalone attention's and the wgmma GEMM's of mlp_fwd and mlp_bwd
-    (B read K-major there), which must also hold the registers
-    setmaxnreg's split needs."""
+    standalone attention's, the attention half-block forward's mma.sync
+    core and wgmma GEMM, and the wgmma GEMM's of mlp_fwd and mlp_bwd (B
+    read K-major there); each wgmma GEMM must also hold the registers
+    setmaxnreg's split needs, and a source must name a kernel of each of
+    its patterns."""
     sys.path.insert(0, str(ROOT))
     try:
         import chip_smoke
     finally:
         sys.path.remove(str(ROOT))
     logs = {"attend_fwd": _ptxas_log(*fwd), "attend_bwd": _ptxas_log(*bwd),
-            "mlp_fwd": _ptxas_log(*mlp), "mlp_bwd": _ptxas_log(*mlp_bwd)}
-    assert chip_smoke.HGMMA_SOURCES == ("mlp_fwd", "mlp_bwd")
+            "mlp_fwd": _ptxas_log(*mlp), "mlp_bwd": _ptxas_log(*mlp_bwd),
+            "attn_fwd": _ptxas_log(*attn)}
+    assert chip_smoke.HGMMA_SOURCES == ("attn_fwd", "mlp_fwd", "mlp_bwd")
+    assert chip_smoke.HMMA_SOURCES == ("attn_fwd",)
     if error is None:
         chip_smoke.check_tc_spills(logs)
         out = capsys.readouterr().out
         assert "attend_fwd_tc<NT=26>: 230 registers, 0 bytes of spills" in out
+        assert "attn_fwd attn_core_tc<PROBS=1>: 128 registers, 0 bytes of spills" in out
+        assert ("attn_fwd wgmma_gemm_kernel<EPI=2,BN=256,KMAJOR=0>: 168 registers, 0 bytes of "
+                "spills") in out
         assert ("mlp_fwd wgmma_gemm_kernel<EPI=4,BN=256,KMAJOR=0>: 168 registers, 0 bytes of "
                 "spills") in out
         assert ("mlp_bwd wgmma_gemm_kernel<EPI=5,BN=256,KMAJOR=1>: 168 registers, 0 bytes of "

@@ -194,3 +194,19 @@ def test_rule_over_several_outputs_and_in_fp32():
     assert not chip_smoke.verdict("float32", ref + float("nan"), ref)["ok"]
     assert not chip_smoke.verdict("bfloat16", _bf(float("nan"), 0, 0, 0), _bf(*REF64),
                                   _bf(*REF64))["ok"]
+
+
+def test_rule_names_each_output_and_compares_beside_it():
+    """With the outputs' names a row reports each one's error, tol and
+    verdict and which output it takes its numbers from; _compared gives
+    another reference's numbers to print and decides nothing."""
+    chip_smoke = _smoke()
+    good, off = _bf(*REF64), _bf(5.5, 2.5, -1.0, 3.0)
+    row = chip_smoke.verdict("bfloat16", (good, off), (good, good), (good, good),
+                             ("y", "probs"))
+    assert not row["ok"] and row["worst_output"] == "probs"
+    assert row["by_output"]["y"]["ok"] and not row["by_output"]["probs"]["ok"]
+    assert row["by_output"]["probs"]["max_abs_err64"] == ULP
+    assert "by_output" not in chip_smoke.verdict("bfloat16", good, good, good)
+    beside = chip_smoke._compared("bfloat16", off, good, good)
+    assert beside == {k: row[k] for k in beside} and not beside["ok"]
