@@ -16,15 +16,16 @@
    no-residual forwards; class-packed text tower with its block-causal
    mask); the attention half-blocks (#1, #2, #5, and #7/#8 at tp = 2) at
    ViT-L/14@336px width and length (W = 1024, H = 16, S = 581, batch 4);
-   the attention half-block forwards (#1, #5) at S = 1024 under a causal
-   mask, past the bf16 core's window of keys;
+   the attention half-blocks (#1, #2, #5, and #7/#8 at tp = 2) at
+   S = 1024 under a causal mask, past the bf16 cores' windows of keys;
    and the standalone attention (forward and backward) at the image
    train and eval shapes, the packed text rows, CLIP's full text context,
    the edges of the tensor-core tiling (S = 1, 17, 261, each bf16
    bucket's largest S and one past it, the fp32 kernels' largest S before
-   they streamed their rows) and S = 581 and 1024; and the MLP backward's
-   K-major wgmma GEMM alone (both of its epilogues, both tile widths) at
-   the image, text and ViT-L/14@336px rows and a ragged edge. fp32 rows
+   they streamed their rows) and S = 581 and 1024; and the backwards'
+   K-major wgmma GEMM alone (the MLP backward's two epilogues and the
+   attention backward's rounding one, both tile widths) at the image, text
+   and ViT-L/14@336px rows and a ragged edge. fp32 rows
    hold to 1e-4 x max|twin|; bf16 rows to the rule at TOL, against the
    twin and the fp64-summed twin, each printing the old bound's verdict
    beside it (ok_old). The attention forwards in train mode (#1, #7) are
@@ -32,25 +33,27 @@
    probs, mu and rstd that the backward reads. Each row names its route where it has more than
    one: the standalone attention's by dtype and S (attention.route_of:
    bf16 on the tensor cores up to the buckets, on the CUDA cores past
-   them; fp32 on the CUDA cores), the MLP half-blocks' and the attention
-   half-block forwards' by dtype (MLP_ROUTES, ATTN_FWD_ROUTES: bf16
-   through the wgmma GEMM, the attention forwards' core on mma.sync). In
-   bf16 each standalone-attention wrapper may request nothing beyond its
-   outputs and its route's scratch, attn_fwd (and its part) nothing
-   beyond its outputs and residuals and its xh and o scratch, mlp_fwd
-   nothing beyond its outputs and its xh and act scratch, mlp_bwd (and
-   its part) nothing beyond its output and its dh and fp32 dxh scratch.
-   ptxas must report no spills for any tensor-core kernel (the standalone
-   attention's, the attention half-block forward's core and the wgmma
-   GEMM's), in this run's build or the cached one's; the attn_fwd,
-   mlp_fwd and mlp_bwd libraries must hold HGMMA in their SASS, and
-   attn_fwd's also HMMA (its mma.sync core). Times kernel, twin and a
+   them; fp32 on the CUDA cores), the MLP and attention half-blocks' by
+   dtype (MLP_ROUTES, ATTN_FWD_ROUTES, ATTN_BWD_ROUTES: bf16 through the
+   wgmma GEMM, the attention cores on mma.sync). In bf16 each
+   standalone-attention wrapper may request nothing beyond its outputs
+   and its route's scratch, attn_fwd (and its part) nothing beyond its
+   outputs and residuals and its xh and o scratch, attn_bwd (and its
+   part) nothing beyond its output and its do, dqkv, fp32 dxh and (B, H,
+   S) fp32 t scratch, mlp_fwd nothing beyond its outputs and its xh and
+   act scratch, mlp_bwd (and its part) nothing beyond its output and its
+   dh and fp32 dxh scratch. ptxas must report no spills for any
+   tensor-core kernel (the standalone attention's, the attention
+   half-blocks' cores and the wgmma GEMM's), in this run's build or the
+   cached one's; the attn_fwd, attn_bwd, mlp_fwd and mlp_bwd libraries
+   must hold HGMMA in their SASS, and attn_fwd's and attn_bwd's also HMMA
+   (their mma.sync cores). Times kernel, twin and a
    library call computing the same function (scaled_dot_product_attention
    on the attention core; for the attention backwards its forward and
    backward by autograd) as the median of REPS event-timed runs each, the
    kernel's spread [min, max] beside it, and, as a yardstick for the MLP
-   half-blocks' and the attention half-block forwards' products alone,
-   cuBLAS's two products on the same inputs (gemm_library_ms).
+   and attention half-blocks' products alone, cuBLAS's two products on
+   the same inputs (gemm_library_ms).
 3. Drives the port's paths, each with the launch counts set to 0 just
    before it and read just after, against the plain path ('off') on the
    same inputs:
@@ -374,6 +377,8 @@ def check_kernels(shapes: dict) -> list[dict]:
              act + stats + m * w4 * esz + (2 * w * w4 + w) * esz + act + act, None),
         ]
         gemm_lib = {"attn_fwd": attn_gemm_library(*attn_args[:5], at["out_w"], mask, h),
+                    "attn_bwd": attn_bwd_gemm_library(qkv, probs, at["qkv_w"], at["out_w"], gy,
+                                                      h),
                     "mlp_fwd": mlp_gemm_library(*mlp_args[:6]),
                     "mlp_bwd": mlp_bwd_gemm_library(hpre, ml["fc_w"], ml["proj_w"], gy)}
         for name, mode, kern, twin, flops, nbytes, lib in (
@@ -390,15 +395,20 @@ def check_kernels(shapes: dict) -> list[dict]:
                 # The bf16 route's wrappers request their outputs and scratch,
                 # nothing more: attn_fwd y, qkv (a residual, or scratch
                 # without residuals), probs, mu and rstd, and its xh and o;
-                # mlp_fwd its xh and act, mlp_bwd its dh and fp32 dxh.
+                # attn_bwd dx, its do and dqkv, the fp32 dxh and the core's
+                # (B, H, S) fp32 t, no (B, H, S, S) tensor; mlp_fwd its xh
+                # and act, mlp_bwd its dh and fp32 dxh.
                 train = mode == "train"
                 if name == "attn_fwd":
                     want = act + m * 3 * w * esz + (probs_b + stats if train else 0) + 2 * act
+                elif name == "attn_bwd":
+                    want = act + act + m * 3 * w * esz + m * w * 4 + b * h * s * 4
                 elif name == "mlp_fwd":
                     want = act + (m * w4 * esz + stats if train else 0) + act + m * w4 * esz
                 else:
                     want = act + m * w4 * esz + m * w * 4
-                routes = block.ATTN_FWD_ROUTES if name == "attn_fwd" else block.MLP_ROUTES
+                routes = {"attn_fwd": block.ATTN_FWD_ROUTES,
+                          "attn_bwd": block.ATTN_BWD_ROUTES}.get(name, block.MLP_ROUTES)
                 row.update(route=routes[dtype], gemm_library_ms=cuda_ms(gemm_lib[name]),
                            requested_bytes=alloc, want_bytes=want)
                 if dtype == torch.bfloat16 and alloc != want:
@@ -461,6 +471,20 @@ def attn_gemm_library(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, mask, n_heads):
     o = block._attn_core_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, mask, n_heads, 1e-5)[0]
     w, wl = x.shape[-1], out_w.shape[0]
     return lambda: (torch.matmul(xh.view(-1, w), qkv_w), torch.matmul(o.view(-1, wl), out_w))
+
+
+def attn_bwd_gemm_library(qkv, probs, qkv_w, out_w, gy, n_heads):
+    """The attention backwards' yardstick for their two products alone, as
+    mlp_bwd_gemm_library is the MLP's: cuBLAS (torch.matmul) in gy's
+    dtype, gy W_out^T and dqkv W_qkv^T on the twin's dqkv (over qkv's
+    ``n_heads`` heads), with no attention core or LayerNorm backward."""
+    import torch
+
+    from mvlpt_torch.ops import block
+
+    dqkv = block._attn_dqkv_plain(qkv, probs, out_w, gy, n_heads)
+    gy2, dqkv2 = gy.reshape(-1, gy.shape[-1]), dqkv.reshape(-1, dqkv.shape[-1])
+    return lambda: (torch.matmul(gy2, out_w.t()), torch.matmul(dqkv2, qkv_w.t()))
 
 
 def mlp_gemm_library(x, ln_scale, ln_bias, fc_w, fc_b, proj_w):
@@ -606,6 +630,18 @@ def check_tp_kernels(shapes: dict) -> list[dict]:
                 if bf16 and alloc != want:
                     raise AssertionError(f"attn_fwd_tp ({tower}, bf16): requested {alloc} bytes, "
                                          f"not those of its outputs and scratch ({want})")
+            if name == "attn_bwd_tp":
+                # The bf16 route requests the fp32 partial, the do and dqkv
+                # scratch and the core's (B, H, S) fp32 t.
+                want = part + m * wl * esz + qkv_b + b * hl * s * 4
+                row.update(route=block.ATTN_BWD_ROUTES[dtype],
+                           gemm_library_ms=cuda_ms(attn_bwd_gemm_library(
+                               *attn_bwd_args(0)[:2], shards[0]["attn"]["qkv_w"],
+                               shards[0]["attn"]["out_w"], gy, hl)),
+                           requested_bytes=alloc, want_bytes=want)
+                if bf16 and alloc != want:
+                    raise AssertionError(f"attn_bwd_tp ({tower}, bf16): requested {alloc} bytes, "
+                                         f"not those of its output and scratch ({want})")
             if name == "mlp_fwd_tp":
                 row.update(route=block.MLP_ROUTES[dtype],
                            gemm_library_ms=cuda_ms(mlp_gemm_library(*mlp_args(0))))
@@ -744,17 +780,20 @@ def check_attend(shapes: dict) -> list[dict]:
     return _fail_on_disagreement(rows)
 
 
-# The epilogues of the MLP backward's K-major GEMM (csrc/common.cuh
-# Epilogue): the QuickGELU' one of da, the fp32 one of dxh.
-EPI_F32, EPI_GELU_BWD = 1, 5
+# The epilogues of the backwards' K-major GEMM (csrc/common.cuh
+# Epilogue): the rounding one of the attention backward's do, the fp32 one
+# of dxh, the QuickGELU' one of the MLP backward's da.
+EPI_ROUND, EPI_F32, EPI_GELU_BWD = 0, 1, 5
 
 
 def check_gemm_kmajor(shapes: dict) -> list[dict]:
-    """The MLP backward's bf16 GEMM on its own (wgmma.cuh with B read
-    K-major, through csrc/mlp_bwd.cu's mvlpt_gemm_kmajor), at #4's two
-    products: da = gy W_proj^T through the QuickGELU' epilogue into dh
-    (bf16), and dxh = dh W_fc^T through the fp32 one. Each against the
-    twin's product (ops/block._mm, _gelu_bwd_plain) under the bf16 rule,
+    """The backwards' bf16 GEMM on its own (wgmma.cuh with B read K-major,
+    through csrc/mlp_bwd.cu's mvlpt_gemm_kmajor), at #4's two products:
+    da = gy W_proj^T through the QuickGELU' epilogue into dh (bf16), and
+    dxh = dh W_fc^T through the fp32 one; and at #2's do = gy W_out^T
+    through the rounding one (bf16; W_out (W, W) read K-major). Each
+    against the twin's product (ops/block._mm, _gelu_bwd_plain) under the
+    bf16 rule,
     in both tile widths and as the backward picks one, so the K-major
     layout is guarded apart from the half-block around it; timed beside
     torch.matmul (cuBLAS) of the same product, each tile width apart
@@ -777,6 +816,7 @@ def check_gemm_kmajor(shapes: dict) -> list[dict]:
         hpre = torch.randn((m, w4), generator=gen).to("cuda", bf)
         proj_w = (0.02 * torch.randn((w4, w), generator=gen)).to("cuda", bf)
         fc_w = (0.02 * torch.randn((w, w4), generator=gen)).to("cuda", bf)
+        out_w = (0.02 * torch.randn((w, w), generator=gen)).to("cuda", bf)
         dh_in = block._gelu_bwd_plain(block._mm(gy, proj_w.t()), hpre)
         products = [
             ("da", EPI_GELU_BWD, gy, proj_w, hpre, bf, w4, w,
@@ -784,7 +824,10 @@ def check_gemm_kmajor(shapes: dict) -> list[dict]:
              lambda: torch.matmul(gy, proj_w.t())),
             ("dxh", EPI_F32, dh_in, fc_w, None, f32, w, w4,
              lambda acc=f32: block._mm(dh_in, fc_w.t(), acc),
-             lambda: torch.matmul(dh_in, fc_w.t()))]
+             lambda: torch.matmul(dh_in, fc_w.t())),
+            ("do", EPI_ROUND, gy, out_w, None, bf, w, w,
+             lambda acc=f32: block._mm(gy, out_w.t(), acc).to(bf),
+             lambda: torch.matmul(gy, out_w.t()))]
         for name, epi, a, b_t, aux, out_dtype, n, k, twin, lib in products:
             out = torch.empty((m, n), dtype=out_dtype, device="cuda")
 
@@ -830,21 +873,25 @@ def check_gemm_kmajor(shapes: dict) -> list[dict]:
 
 # The tensor-core kernels of each source, by their mangled names: the
 # bf16 route of attend_fwd.cu / attend_bwd.cu (one kernel a register
-# bucket NT), the wgmma GEMM in attn_fwd.cu, mlp_fwd.cu and mlp_bwd.cu (one
-# an epilogue EPI, tile width BN and B layout, KMAJOR 1 for a B read
-# transposed) and attn_fwd.cu's mma.sync core (PROBS 1 where it writes the
-# probabilities). Each pattern of a source must name at least one kernel.
+# bucket NT), the wgmma GEMM in attn_fwd.cu, attn_bwd.cu, mlp_fwd.cu and
+# mlp_bwd.cu (one an epilogue EPI, tile width BN and B layout, KMAJOR 1 for
+# a B read transposed), attn_fwd.cu's mma.sync core (PROBS 1 where it
+# writes the probabilities) and attn_bwd.cu's two mma.sync core launches.
+# Each pattern of a source must name at least one kernel.
 TC_KERNELS = {"attend_fwd": (r"attend_fwd_tc",), "attend_bwd": (r"attend_bwd_(?:dq|dkv)_tc",),
               "attn_fwd": (r"attn_core_tc", r"wgmma_gemm_kernel"),
+              "attn_bwd": (r"attn_bwd_(?:dq|dkv)_tc", r"wgmma_gemm_kernel"),
               "mlp_fwd": (r"wgmma_gemm_kernel",), "mlp_bwd": (r"wgmma_gemm_kernel",)}
-# The template arguments of each tensor-core kernel, in order.
+# The template arguments of each tensor-core kernel, in order (none for a
+# plain function).
 TC_TEMPLATE_ARGS = {"attend_fwd_tc": ("NT",), "attend_bwd_dq_tc": ("NT",),
                     "attend_bwd_dkv_tc": ("NT",), "attn_core_tc": ("PROBS",),
+                    "attn_bwd_dq_tc": (), "attn_bwd_dkv_tc": (),
                     "wgmma_gemm_kernel": ("EPI", "BN", "KMAJOR")}
 # Sources whose bf16 products must reach wgmma (HGMMA in their SASS), and
 # whose bf16 attention core must reach mma.sync (HMMA).
-HGMMA_SOURCES = ("attn_fwd", "mlp_fwd", "mlp_bwd")
-HMMA_SOURCES = ("attn_fwd",)
+HGMMA_SOURCES = ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd")
+HMMA_SOURCES = ("attn_fwd", "attn_bwd")
 # setmaxnreg's split in csrc/wgmma.cuh needs the 168 registers a thread
 # that a block of 384 threads holds at entry; with fewer, the consumers'
 # request could never be met.
@@ -866,7 +913,8 @@ def tc_ptxas(log: str, pattern: str) -> list[tuple[str, int, int]]:
         names = TC_TEMPLATE_ARGS[kernel.group(0)]
         label = ",".join(f"{n}={v}" for n, v in zip(names, values)) or "?"
         regs = re.search(r"Used (\d+) registers", chunk)
-        rows.append((f"{kernel.group(0)}<{label}>", int(regs.group(1)) if regs else -1,
+        rows.append((f"{kernel.group(0)}<{label}>" if names else kernel.group(0),
+                     int(regs.group(1)) if regs else -1,
                      sum(int(b) for b in re.findall(r"(\d+) bytes spill", chunk))))
     return rows
 
@@ -1419,8 +1467,8 @@ def kernel_entries(results: list[dict], paths: dict) -> list[dict]:
                     "plain_ms": r["plain_ms"],
                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"],
-                    # The row's route by dtype (MLP_ROUTES, attention.ROUTES) and
-                    # the MLP products' cuBLAS yardstick, where the row has them.
+                    # The row's route by dtype (block's *_ROUTES, attention.ROUTES)
+                    # and its products' cuBLAS yardstick, where the row has them.
                     **({"dtype_route": r["route"]} if "route" in r else {}),
                     **({"gemm_library_ms": r["gemm_library_ms"]} if "gemm_library_ms" in r
                        else {})})
@@ -1446,21 +1494,22 @@ def half_block_shapes() -> tuple[dict, dict]:
 
     s, g, rows, s_img, s_l336, packed_mask = text_and_image_shapes()
     every, no_residual = ("train", "no-residual"), ("no-residual",)
-    attn_fwd_only = (("attn_fwd", "train"), ("attn_fwd", "no-residual"))
-    attn_only = attn_fwd_only + (("attn_bwd", "train"),)
+    attn_only = (("attn_fwd", "train"), ("attn_fwd", "no-residual"), ("attn_bwd", "train"))
     kernel_shapes = {
         "image": (32, s_img, 768, 12, None, s_img, 32, every),
         "image_eval": (EVAL_BATCH, s_img, 768, 12, None, s_img, EVAL_BATCH, no_residual),
         "text": (rows, g * s, 512, 8, packed_mask, s, 100, every),
         # ViT-L/14@336px's attention half-blocks at batch 4.
         "vitl336": (4, s_l336, 1024, 16, None, s_l336, 4, attn_only),
-        # The attention forwards at S = 1024 (causal), four windows of the
-        # bf16 core's keys.
-        "s1024": (2, 1024, 768, 12, causal_mask(1024, device="cuda"), 1024, 2, attn_fwd_only)}
+        # The attention half-blocks at S = 1024 (causal), four windows of
+        # the bf16 cores' keys (or queries).
+        "s1024": (2, 1024, 768, 12, causal_mask(1024, device="cuda"), 1024, 2, attn_only)}
     tp_shapes = {
         "image": (32, s_img, 768, 12, None, s_img, 32, TP_KERNELS),
         "text": (rows, g * s, 512, 8, packed_mask, s, 100, TP_KERNELS),
-        "vitl336": (4, s_l336, 1024, 16, None, s_l336, 4, ("attn_fwd_tp", "attn_bwd_tp"))}
+        "vitl336": (4, s_l336, 1024, 16, None, s_l336, 4, ("attn_fwd_tp", "attn_bwd_tp")),
+        "s1024": (2, 1024, 768, 12, causal_mask(1024, device="cuda"), 1024, 2,
+                  ("attn_fwd_tp", "attn_bwd_tp"))}
     return kernel_shapes, tp_shapes
 
 

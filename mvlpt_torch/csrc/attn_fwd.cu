@@ -84,15 +84,9 @@ namespace core {
 using bf16 = __nv_bfloat16;
 constexpr int WARPS = 4, THREADS = 32 * WARPS;
 constexpr int KC = 32;          // keys a chunk: four score tiles, two k steps of p v
-constexpr int KW_MAX = 256;     // keys a window of K and V in shared memory
+using mma::KW_MAX;              // keys a window of K and V in shared memory (mma::window)
 constexpr int PROW = KC + 8;    // a warp's probs staging row, in bf16 (80 bytes: no bank conflict)
 constexpr float SCALE = 0.125f;  // 64^-1/2
-
-// Keys a window: S rounded up to a chunk, at most KW_MAX.
-inline int window(int S) {
-  const int w = (S + KC - 1) / KC * KC;
-  return w < KW_MAX ? w : KW_MAX;
-}
 
 // K and V windows, and the warps' probs staging where probs are written.
 inline size_t smem_bytes(int kw, bool probs) {
@@ -272,7 +266,7 @@ int launch(const void* qkv, const float* mask, void* o, void* probs, int B, int 
     smem_set = true;
   }
   if (sms == 0) MVLPT_TRY(mma::sm_count(&sms));
-  const int kw = window(S);
+  const int kw = mma::window(S);
   attn_core_tc<PROBS><<<dim3(B * H, mma::row_shares(B * H, S, WARPS, sms)), THREADS,
                         smem_bytes(kw, PROBS), st>>>((const bf16*)qkv, mask, (bf16*)o,
                                                      (bf16*)probs, S, H, Wl, kw);

@@ -95,15 +95,17 @@ extern "C" int mvlpt_mlp_bwd_part(int dtype, const void* hpre, const void* fc_w,
   return (int)cudaErrorInvalidValue;
 }
 
-// The backward's bf16 GEMM on its own, for a check of its K-major layout
+// The backwards' bf16 GEMM on its own, for a check of its K-major layout
 // and a timing of its tiles: out = A (M, K) B^T for a row-major bf16 B
-// (N, K), with epi 1 (EPI_F32: out fp32 (M, N)) or 5 (EPI_GELU_BWD: aux
-// the bf16 hpre (M, N), out bf16 (M, N)); bn = 128 or 256 picks the
-// tile width, 0 the backward's own choice.
+// (N, K), with epi 0 (EPI_ROUND, the attention backward's do: out bf16
+// (M, N)), 1 (EPI_F32: out fp32 (M, N)) or 5 (EPI_GELU_BWD: aux the bf16
+// hpre (M, N), out bf16 (M, N)); bn = 128 or 256 picks the tile width, 0
+// the backwards' own choice.
 extern "C" int mvlpt_gemm_kmajor(int epi, int bn, const void* A, const void* B, const void* aux,
                                  void* out, int M, int N, int K, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const EpiArgs ep{nullptr, nullptr, aux, out, nullptr};
+  if (epi == EPI_ROUND) return (int)gemm_kmajor<EPI_ROUND>(bn, A, B, M, N, K, ep, st);
   if (epi == EPI_F32) return (int)gemm_kmajor<EPI_F32>(bn, A, B, M, N, K, ep, st);
   if (epi == EPI_GELU_BWD) return (int)gemm_kmajor<EPI_GELU_BWD>(bn, A, B, M, N, K, ep, st);
   return (int)cudaErrorInvalidValue;

@@ -25,9 +25,17 @@
 // the drained ring, so every thread then applies the epilogue to four
 // neighbouring columns and each warp stores whole rows.
 //
-// Its callers: the MLP half-blocks' products (mlp_fwd.cu, mlp_bwd.cu)
-// and the attention half-block forward's qkv product (EPI_BIAS) and
-// out-projection (attn_fwd.cu), all in bf16.
+// Its callers, all in bf16, by epilogue (common.cuh's Epilogue):
+//   EPI_BIAS       the attention forward's qkv product (attn_fwd.cu);
+//   EPI_BIAS_RESID the out-projection (attn_fwd.cu) and the MLP's
+//                  projection (mlp_fwd.cu);
+//   EPI_BIAS_GELU  the MLP's FC product (mlp_fwd.cu);
+//   EPI_F32        the tensor-parallel parts' partial products, and every
+//                  backward's dxh product (mlp_bwd.cu, attn_bwd.cu; B
+//                  K-major);
+//   EPI_GELU_BWD   the MLP backward's da product (mlp_bwd.cu, K-major);
+//   EPI_ROUND      the attention backward's do = T(gy W_out^T)
+//                  (attn_bwd.cu, K-major).
 //
 // Bound by operations at the MLP's shapes; what keeps it from the
 // tensor cores' rate is that a block's ring fill and epilogue do not
@@ -283,12 +291,14 @@ __device__ __forceinline__ float sigmoid_rn(float z) {
 template <int EPI>
 __device__ __forceinline__ void epi_quad(const EpiArgs& ep, int m, int n, int N, float4 acc) {
   const size_t o = (size_t)m * N + n;
+  const float a[4] = {acc.x, acc.y, acc.z, acc.w};
   if constexpr (EPI == EPI_F32) {
     *reinterpret_cast<float4*>((float*)ep.out + o) = acc;
+  } else if constexpr (EPI == EPI_ROUND) {
+    store_bf16x4((__nv_bfloat16*)ep.out + o, a);
   } else {
     static_assert(EPI == EPI_BIAS || EPI == EPI_BIAS_RESID || EPI == EPI_BIAS_GELU,
                   "wgmma GEMM: epilogue not instantiated for the bf16 route");
-    const float a[4] = {acc.x, acc.y, acc.z, acc.w};
     float b[4], out[4];
     load_bf16x4(b, (const __nv_bfloat16*)ep.bias + n);
     if constexpr (EPI == EPI_BIAS) {

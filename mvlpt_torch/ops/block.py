@@ -55,8 +55,17 @@ MLP_ROUTES = {torch.bfloat16: "tensor cores (wgmma + TMA, bf16)",
 # form, attn_fwd_part), by dtype: in bf16 the qkv and out-projection
 # products on csrc/wgmma.cuh's GEMM and the attention core on mma.sync
 # (csrc/attn_fwd.cu, attn_core_tc); in fp32 csrc/common.cuh's GEMM and
-# csrc/fma_attn.cuh's core. The backwards keep the CUDA cores in both.
+# csrc/fma_attn.cuh's core.
 ATTN_FWD_ROUTES = {torch.bfloat16: "tensor cores (wgmma + TMA products, mma.sync core, bf16)",
+                   torch.float32: "CUDA cores (fp32 FMA)"}
+# The routes of the attention half-block backwards (attn_bwd,
+# attn_bwd_part), by dtype: in bf16 the do and dxh products on
+# csrc/wgmma.cuh's GEMM (the weights read K-major) and the core on
+# mma.sync, reading the forward's probabilities, with a (B, H, S) fp32
+# scratch (csrc/attn_bwd.cu, attn_bwd_dq_tc / attn_bwd_dkv_tc); in fp32
+# csrc/common.cuh's GEMM and a CUDA-core core with a (B, H, S, S) scratch.
+ATTN_BWD_ROUTES = {torch.bfloat16: "tensor cores (wgmma + TMA products, mma.sync core reading "
+                                   "the probabilities, bf16)",
                    torch.float32: "CUDA cores (fp32 FMA)"}
 # The bf16 route's TMA tiles: K and N in slabs of 64 values.
 _WG_MULTIPLE = 64
@@ -175,9 +184,9 @@ def _ln_bwd(x, mu, rstd, ln_scale, dxh32, gy, acc=_F32):
     return _add(gy, dx.to(x.dtype), acc)
 
 
-def attn_bwd_part_plain(qkv, probs, qkv_w, out_w, gy, n_heads, acc=_F32):
-    """fp32 dxh over the heads of ``qkv`` (B, S, 3Wl), without the
-    LayerNorm backward (the tensor-parallel part)."""
+def _attn_dqkv_plain(qkv, probs, out_w, gy, n_heads, acc=_F32):
+    """[dq | dk | dv] (B, S, 3Wl) in qkv's dtype over the heads of ``qkv``:
+    the attention backward up to its dxh product."""
     b, s, wl3 = qkv.shape
     wl = wl3 // 3
     d = wl // n_heads
@@ -191,8 +200,13 @@ def attn_bwd_part_plain(qkv, probs, qkv_w, out_w, gy, n_heads, acc=_F32):
     ds = (p * (dp - (dp * p).sum(-1, keepdim=True)) * scale).to(dtype)
     dq = _mm(ds, k, acc).to(dtype)
     dk = _mm(ds.transpose(-1, -2), q, acc).to(dtype)
-    dqkv = torch.stack([dq, dk, dv], 0).permute(1, 3, 0, 2, 4).reshape(b, s, wl3)
-    return _mm(dqkv, qkv_w.t(), acc)
+    return torch.stack([dq, dk, dv], 0).permute(1, 3, 0, 2, 4).reshape(b, s, wl3)
+
+
+def attn_bwd_part_plain(qkv, probs, qkv_w, out_w, gy, n_heads, acc=_F32):
+    """fp32 dxh over the heads of ``qkv`` (B, S, 3Wl), without the
+    LayerNorm backward (the tensor-parallel part)."""
+    return _mm(_attn_dqkv_plain(qkv, probs, out_w, gy, n_heads, acc), qkv_w.t(), acc)
 
 
 def attn_bwd_plain(x, mu, rstd, qkv, probs, ln_scale, qkv_w, out_w, gy, n_heads, acc=_F32):
@@ -302,8 +316,9 @@ def _check_mlp_route(name, x, w4, operands):
 
 
 def _check_attn_route(name, x, wl, n_heads, operands):
-    """The bf16 route (ATTN_FWD_ROUTES) reads its products' operands by TMA
-    and q, k, v in 16-byte pieces, with the core's fragments D = 64 wide:
+    """The bf16 route (ATTN_FWD_ROUTES, ATTN_BWD_ROUTES) reads its
+    products' operands by TMA and the core's rows in 16-byte pieces, with
+    the core's fragments D = 64 wide:
     the head width must be 64, W and Wl multiples of 64 and every base
     16-byte aligned. It raises rather than take another route."""
     if x.dtype != torch.bfloat16:
@@ -329,6 +344,15 @@ def _stream():
 
 def _empty(shape, like, dtype=None):
     return torch.empty(shape, dtype=dtype or like.dtype, device=like.device)
+
+
+def _attn_bwd_scratch(like, b, n_heads, s):
+    """The attention backward core's scratch on ``like``'s route
+    (ATTN_BWD_ROUTES): t = rowsum(dp p), (B, H, S) fp32, in bf16; ds,
+    (B, H, S, S), in fp32."""
+    if like.dtype == torch.bfloat16:
+        return _empty((b, n_heads, s), like, torch.float32)
+    return _empty((b, n_heads, s, s), like)
 
 
 def attn_fwd(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b, mask, n_heads,
@@ -361,7 +385,9 @@ def attn_fwd(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b, mask, n_heads,
 
 
 def attn_bwd(x, mu, rstd, qkv, probs, ln_scale, qkv_w, out_w, gy, n_heads):
-    """Attention half-block backward -> dx."""
+    """Attention half-block backward -> dx. On the card it takes the
+    dtype's route in ``ATTN_BWD_ROUTES``: bf16 on the tensor cores
+    (D = 64), fp32 on the CUDA cores."""
     if x.device.type == "cpu":
         return attn_bwd_plain(x, mu, rstd, qkv, probs, ln_scale, qkv_w, out_w, gy, n_heads)
     b, s, w = _dims("attn_bwd", x)
@@ -369,13 +395,14 @@ def attn_bwd(x, mu, rstd, qkv, probs, ln_scale, qkv_w, out_w, gy, n_heads):
     _check("attn_bwd", x, [(qkv, (b, s, 3 * w)), (probs, (b, n_heads, s, s)),
                            (ln_scale, (w,)), (qkv_w, (w, 3 * w)), (out_w, (w, w)),
                            (gy, (b, s, w))], stats=(mu, rstd))
+    _check_attn_route("attn_bwd", x, w, n_heads, (qkv, probs, ln_scale, qkv_w, out_w, gy))
     dx = torch.empty_like(x)
-    # scratch: do, ds, dqkv, fp32 dxh
-    dout, ds = _empty((b, s, w), x), _empty((b, n_heads, s, s), x)
-    dqkv, dxh = _empty((b, s, 3 * w), x), _empty((b, s, w), x, torch.float32)
+    # scratch: do, dqkv, fp32 dxh, the core's
+    dout, dqkv = _empty((b, s, w), x), _empty((b, s, 3 * w), x)
+    dxh, core = _empty((b, s, w), x, torch.float32), _attn_bwd_scratch(x, b, n_heads, s)
     _build.call("attn_bwd", _DTYPE_CODE[x.dtype], _ptr(x), _ptr(mu), _ptr(rstd), _ptr(qkv),
                 _ptr(probs), _ptr(ln_scale), _ptr(qkv_w), _ptr(out_w), _ptr(gy),
-                _ptr(dout), _ptr(ds), _ptr(dqkv), _ptr(dxh), _ptr(dx), b, s, w, n_heads,
+                _ptr(dout), _ptr(core), _ptr(dqkv), _ptr(dxh), _ptr(dx), b, s, w, n_heads,
                 _stream())
     _build.LAUNCHES["attn_bwd"] += 1
     return dx
@@ -452,7 +479,8 @@ def attn_fwd_part(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, mask, n_heads, eps=
 
 
 def attn_bwd_part(qkv, probs, qkv_w, out_w, gy, n_heads):
-    """Tensor-parallel attention backward part -> fp32 partial dxh (B, S, W)."""
+    """Tensor-parallel attention backward part -> fp32 partial dxh (B, S,
+    W); routes as ``attn_bwd``."""
     if qkv.device.type == "cpu":
         return attn_bwd_part_plain(qkv, probs, qkv_w, out_w, gy, n_heads)
     gy = gy.to(qkv.dtype).contiguous()
@@ -460,12 +488,13 @@ def attn_bwd_part(qkv, probs, qkv_w, out_w, gy, n_heads):
     wl = _local_width("attn_bwd_part", qkv.shape[-1], n_heads)
     _check("attn_bwd_part", gy, [(qkv, (b, s, 3 * wl)), (probs, (b, n_heads, s, s)),
                                  (qkv_w, (w, 3 * wl)), (out_w, (wl, w))])
+    _check_attn_route("attn_bwd_part", gy, wl, n_heads, (qkv, probs, qkv_w, out_w))
     dxh = _empty((b, s, w), gy, torch.float32)
-    # scratch: do, ds, dqkv
-    dout, ds = _empty((b, s, wl), gy), _empty((b, n_heads, s, s), gy)
-    dqkv = _empty((b, s, 3 * wl), gy)
+    # scratch: do, dqkv, the core's
+    dout, dqkv = _empty((b, s, wl), gy), _empty((b, s, 3 * wl), gy)
+    core = _attn_bwd_scratch(gy, b, n_heads, s)
     _build.call("attn_bwd_part", _DTYPE_CODE[gy.dtype], _ptr(qkv), _ptr(probs), _ptr(qkv_w),
-                _ptr(out_w), _ptr(gy), _ptr(dout), _ptr(ds), _ptr(dqkv), _ptr(dxh), b, s, w,
+                _ptr(out_w), _ptr(gy), _ptr(dout), _ptr(core), _ptr(dqkv), _ptr(dxh), b, s, w,
                 n_heads, wl // n_heads, _stream())
     _build.LAUNCHES["attn_bwd_tp"] += 1
     return dxh

@@ -142,44 +142,60 @@ _CORE = "4core12attn_core_tcILb{}EEEvPK13__nv_bfloat16PKfPS2_S7_iiii"
 _ATTN_CLEAN = [(_CORE.format(0), 0, 125), (_CORE.format(1), 0, 128),
                (_WG.format(2, 256, 0), 0, 168), (_WG.format(3, 128, 0), 0, 168),
                ("gemm_kernelIfLb0ELi2EEEvPKT_S3_iiiNS_7EpiArgsE", 0, 80)]
+# attn_bwd.cu: the two mma.sync core launches and the wgmma GEMM of its two
+# products (EPI_ROUND, EPI_F32; B K-major), beside the fp32 route's core.
+_DQ = "2tc14attn_bwd_dq_tcEPK13__nv_bfloat16S3_S3_PfPS1_iiii"
+_DKV = "2tc15attn_bwd_dkv_tcEPK13__nv_bfloat16S3_S3_PKfPS1_iiii"
+_ATTNB_CLEAN = [(_DQ, 0, 136), (_DKV, 0, 157), (_WG.format(0, 128, 1), 0, 168),
+                (_WG.format(1, 256, 1), 0, 168),
+                ("10cuda_cores11attn_bwd_dqEPKfS2_S2_PfS3_iiifi", 0, 64)]
 
 
-@pytest.mark.parametrize("fwd, bwd, mlp, mlp_bwd, attn, error", [
+@pytest.mark.parametrize("fwd, bwd, mlp, mlp_bwd, attn, error, attn_bwd", [
     ([("attend_fwd_tcILi26EEEv", 0, 230), ("attend_fwd_kernelEPKf", 0, 32)],
      [("attend_bwd_dq_tcILi26EEEv", 0, 127), ("attend_bwd_dkv_tcILi26EEEv", 0, 168)],
-     _MLP_CLEAN, _BWD_CLEAN, _ATTN_CLEAN, None),
+     _MLP_CLEAN, _BWD_CLEAN, _ATTN_CLEAN, None, _ATTNB_CLEAN),
     (_FWD_TC, [("attend_bwd_dq_tcILi26EEEv", 40, 255)], _MLP_CLEAN, _BWD_CLEAN, _ATTN_CLEAN,
-     "spill"),
+     "spill", _ATTNB_CLEAN),
     ([("attend_fwd_kernelEPKf", 0, 32)], _BWD_TC, _MLP_CLEAN, _BWD_CLEAN, _ATTN_CLEAN,
-     "no tensor-core kernel in attend_fwd"),
+     "no tensor-core kernel in attend_fwd", _ATTNB_CLEAN),
     (_FWD_TC, _BWD_TC, [(_WG.format(4, 256, 0), 24, 168), (_WG.format(3, 128, 0), 0, 168)],
-     _BWD_CLEAN, _ATTN_CLEAN, "spill"),
+     _BWD_CLEAN, _ATTN_CLEAN, "spill", _ATTNB_CLEAN),
     (_FWD_TC, _BWD_TC, _MLP_CLEAN[2:], _BWD_CLEAN, _ATTN_CLEAN,
-     "no tensor-core kernel in mlp_fwd"),
+     "no tensor-core kernel in mlp_fwd", _ATTNB_CLEAN),
     (_FWD_TC, _BWD_TC, [(_WG.format(4, 256, 0), 0, 128)], _BWD_CLEAN, _ATTN_CLEAN,
-     "below 168 registers"),
-    (_FWD_TC, _BWD_TC, _MLP_CLEAN, [(_WG.format(5, 256, 1), 16, 168)], _ATTN_CLEAN, "spill"),
+     "below 168 registers", _ATTNB_CLEAN),
+    (_FWD_TC, _BWD_TC, _MLP_CLEAN, [(_WG.format(5, 256, 1), 16, 168)], _ATTN_CLEAN, "spill",
+     _ATTNB_CLEAN),
     (_FWD_TC, _BWD_TC, _MLP_CLEAN, _BWD_CLEAN[2:], _ATTN_CLEAN,
-     "no tensor-core kernel in mlp_bwd"),
+     "no tensor-core kernel in mlp_bwd", _ATTNB_CLEAN),
     (_FWD_TC, _BWD_TC, _MLP_CLEAN, _BWD_CLEAN,
-     [(_CORE.format(1), 8, 128)] + _ATTN_CLEAN[2:], "spill"),
+     [(_CORE.format(1), 8, 128)] + _ATTN_CLEAN[2:], "spill", _ATTNB_CLEAN),
     (_FWD_TC, _BWD_TC, _MLP_CLEAN, _BWD_CLEAN, _ATTN_CLEAN[2:],
-     "no tensor-core kernel in attn_fwd.cu's build log matches attn_core_tc"),
+     "no tensor-core kernel in attn_fwd.cu's build log matches attn_core_tc", _ATTNB_CLEAN),
     (_FWD_TC, _BWD_TC, _MLP_CLEAN, _BWD_CLEAN, _ATTN_CLEAN[:2] + _ATTN_CLEAN[4:],
-     "no tensor-core kernel in attn_fwd.cu's build log matches wgmma_gemm_kernel"),
+     "no tensor-core kernel in attn_fwd.cu's build log matches wgmma_gemm_kernel", _ATTNB_CLEAN),
     (_FWD_TC, _BWD_TC, _MLP_CLEAN, _BWD_CLEAN,
-     _ATTN_CLEAN[:2] + [(_WG.format(2, 256, 0), 0, 160)], "below 168 registers"),
+     _ATTN_CLEAN[:2] + [(_WG.format(2, 256, 0), 0, 160)], "below 168 registers", _ATTNB_CLEAN),
+    (_FWD_TC, _BWD_TC, _MLP_CLEAN, _BWD_CLEAN, _ATTN_CLEAN, "spill",
+     [(_DQ, 0, 136), (_DKV, 24, 168)] + _ATTNB_CLEAN[2:]),
+    (_FWD_TC, _BWD_TC, _MLP_CLEAN, _BWD_CLEAN, _ATTN_CLEAN,
+     "no tensor-core kernel in attn_bwd.cu's build log matches attn_bwd_", _ATTNB_CLEAN[2:]),
+    (_FWD_TC, _BWD_TC, _MLP_CLEAN, _BWD_CLEAN, _ATTN_CLEAN,
+     "no tensor-core kernel in attn_bwd.cu's build log matches wgmma_gemm_kernel",
+     _ATTNB_CLEAN[:2] + _ATTNB_CLEAN[4:]),
 ], ids=["clean", "spill", "no-tc-kernel", "wgmma-spill", "no-wgmma-kernel", "wgmma-short",
         "kmajor-spill", "no-kmajor-kernel", "attn-core-spill", "no-attn-core",
-        "no-attn-wgmma", "attn-wgmma-short"])
+        "no-attn-wgmma", "attn-wgmma-short", "attn-bwd-core-spill", "no-attn-bwd-core",
+        "no-attn-bwd-wgmma"])
 def test_chip_smoke_spill_check_reads_each_attention_kernel(fwd, bwd, mlp, mlp_bwd, attn, error,
-                                                            capsys):
+                                                            attn_bwd, capsys):
     """The spill check reads the tensor-core kernels of each source: the
-    standalone attention's, the attention half-block forward's mma.sync
-    core and wgmma GEMM, and the wgmma GEMM's of mlp_fwd and mlp_bwd (B
-    read K-major there); each wgmma GEMM must also hold the registers
-    setmaxnreg's split needs, and a source must name a kernel of each of
-    its patterns."""
+    standalone attention's, the attention half-blocks' mma.sync cores and
+    wgmma GEMMs (forward and backward), and the wgmma GEMM's of mlp_fwd and
+    mlp_bwd (B read K-major in the backwards); each wgmma GEMM must also
+    hold the registers setmaxnreg's split needs, and a source must name a
+    kernel of each of its patterns."""
     sys.path.insert(0, str(ROOT))
     try:
         import chip_smoke
@@ -187,9 +203,9 @@ def test_chip_smoke_spill_check_reads_each_attention_kernel(fwd, bwd, mlp, mlp_b
         sys.path.remove(str(ROOT))
     logs = {"attend_fwd": _ptxas_log(*fwd), "attend_bwd": _ptxas_log(*bwd),
             "mlp_fwd": _ptxas_log(*mlp), "mlp_bwd": _ptxas_log(*mlp_bwd),
-            "attn_fwd": _ptxas_log(*attn)}
-    assert chip_smoke.HGMMA_SOURCES == ("attn_fwd", "mlp_fwd", "mlp_bwd")
-    assert chip_smoke.HMMA_SOURCES == ("attn_fwd",)
+            "attn_fwd": _ptxas_log(*attn), "attn_bwd": _ptxas_log(*attn_bwd)}
+    assert chip_smoke.HGMMA_SOURCES == ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd")
+    assert chip_smoke.HMMA_SOURCES == ("attn_fwd", "attn_bwd")
     if error is None:
         chip_smoke.check_tc_spills(logs)
         out = capsys.readouterr().out
@@ -201,7 +217,10 @@ def test_chip_smoke_spill_check_reads_each_attention_kernel(fwd, bwd, mlp, mlp_b
                 "spills") in out
         assert ("mlp_bwd wgmma_gemm_kernel<EPI=5,BN=256,KMAJOR=1>: 168 registers, 0 bytes of "
                 "spills") in out
-        assert "gemm_kernelIf" not in out
+        assert "attn_bwd attn_bwd_dkv_tc: 157 registers, 0 bytes of spills" in out
+        assert ("attn_bwd wgmma_gemm_kernel<EPI=0,BN=128,KMAJOR=1>: 168 registers, 0 bytes of "
+                "spills") in out
+        assert "gemm_kernelIf" not in out and "cuda_cores" not in out
     else:
         with pytest.raises(AssertionError, match=error):
             chip_smoke.check_tc_spills(logs)
