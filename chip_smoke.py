@@ -81,9 +81,28 @@
      all-reduces through the host: it is not a tensor-parallel speed;
    - ViT-L/14@336px (S = 581 on the image tower) at batch 8: one train
      step under 'auto' and 'on', first loss within 1e-2 of 'off''s, and
-     one cached-text eval batch under each, held as eval is.
-4. Prints a summary line (img/s, ms/step, peak memory), one JSON line of
-   kernel numbers, then, as the last line, {"ok": true, "device": {...}}.
+     one cached-text eval batch under each, held as eval is;
+   - the windowed train step (make_train_step_multi, pre_embed, uint8
+     images with normalize) under 'auto' and 'on' (train_window[sel]):
+     two windows of 8 steps three ways from the same prompt, one step a
+     call, the window run eagerly (capture=False) and the window replayed
+     from its CUDA graph; the replay equal to the eager window bit for
+     bit; the eager window's losses, grad norms and prompt displacement
+     within WINDOW_REL of the per-step path's, and two broken windows
+     (a batch index shifted by one, a frozen lr) outside those limits.
+     A replay calls no kernel wrapper: the replayed window's launches
+     are counted in a torch.profiler trace by kernel name (TRACE_MARKS),
+     and it must run the repo's kernels as often as the eager window.
+     Then under 'auto' the shipped window of 120 steps
+     (train_window_k120[auto]): a warm-up window with the capture, then
+     two timed, with ms/step on the host clock and CUDA events, img/s,
+     MFU (utils/flops.py at the run's text shape over the dense bf16
+     rate) and peak memory, the card's name and power limit on each line;
+     then its graph replays 8 of those batches under a trace, which
+     counts its launches.
+4. Prints a summary line (img/s, ms/step, MFU, peak memory), one JSON
+   line of kernel numbers, then, as the last line, {"ok": true,
+   "device": {...}}.
 
 Any failure raises and exits non-zero without the last line. Without a
 card, or outside a checkout, it exits non-zero at once.
@@ -163,7 +182,49 @@ TP_KERNELS = ("attn_fwd_tp", "attn_bwd_tp", "mlp_fwd_tp", "mlp_bwd_tp")
 # The long-sequence phase: ViT-L/14@336px, whose image tower runs S = 1 +
 # 24 x 24 + 4 VPT rows = 581.
 VITL336 = dict(backbone_name="ViT-L/14@336px", batch=8)
-
+# The windowed train step (train.make_train_step_multi, pre_embed, uint8
+# images with normalize). Its checks run WINDOW_CHECK_WINDOWS windows of
+# WINDOW_CHECK_K steps (the first captures the step, the second only
+# replays it) under OPTIM's cosine cut to WINDOW_CHECK_EPOCHS epochs of
+# WINDOW_CHECK_SPE steps, so the lr falls at every fourth step inside the
+# windows; the timing runs the shipped window of WINDOW_K steps
+# (configs/trainers/MVLPT/vit_b16_tpu_fast.yaml:34), one warm-up window
+# with the capture, then WINDOW_TIMED timed. At WINDOW_SPE steps an epoch
+# a window of WINDOW_K crosses an epoch boundary of the lr table.
+WINDOW_CHECK_K, WINDOW_CHECK_WINDOWS = 8, 2
+WINDOW_CHECK_SPE, WINDOW_CHECK_EPOCHS = 4, 4
+WINDOW_K, WINDOW_TIMED = 120, 2
+WINDOW_SPE = 100
+# The eager window against one make_train_step call a batch, from the same
+# prompt (``_window_gaps``): the largest relative gap over the steps of
+# the loss and of the grad norm, and the largest gap of the prompt
+# leaves' displacement (leaf less its initial value) relative to the
+# per-step path's largest displacement. Each limit lies between the sound
+# runs' gaps and those of two broken windows the check also runs
+# (WINDOW_CONTROLS): step k reading batch k + 1, and the lr frozen at
+# its first value. On an H100 the sound windows lie at most 1.04e-3,
+# 1.45e-2 and 7.44e-2 from the per-step path ('on'; 'auto' less), the
+# shifted ones at least 1.67e-2, 1.555 and 0.490, the frozen lr's
+# displacement at least 0.829 (PERF.md).
+WINDOW_REL = {"loss": 3e-3, "grad_norm": 5e-2, "displacement": 0.2}
+# Which gaps each broken window must exceed: a frozen lr leaves the first
+# epoch's steps as they were, so only the displacement is sure to show it.
+WINDOW_CONTROLS = {"batch k+1 at step k": tuple(WINDOW_REL),
+                   "lr frozen at its first value": ("displacement",)}
+# The kernel that each wrapper of the windowed paths launches exactly
+# once a call on its bf16 route, by its name in a device trace:
+# attn_fwd.cu's core that writes the probabilities, attn_bwd.cu's dq pass,
+# the wgmma products with the EPI_BIAS_GELU (4) and EPI_GELU_BWD (5)
+# epilogues, which only mlp_fwd.cu and mlp_bwd.cu instantiate, and the
+# standalone attention's tensor-core forward and dq pass. A graph replay
+# calls no wrapper, so ops._build.LAUNCHES cannot count its launches: the
+# replayed window's trace counts them by these names.
+TRACE_MARKS = {"attn_fwd": r"[\s:]attn_core_tc<true>\(",
+               "attn_bwd": r"[\s:]attn_bwd_dq_tc\(",
+               "mlp_fwd": r"[\s:]wgmma_gemm_kernel<4,",
+               "mlp_bwd": r"[\s:]wgmma_gemm_kernel<5,",
+               "attend_fwd": r"[\s:]attend_fwd_tc[<(]",
+               "attend_bwd": r"[\s:]attend_bwd_dq_tc[<(]"}
 
 def card_line() -> str:
     out = subprocess.run(
@@ -1340,11 +1401,290 @@ def drive_tp_train(batches: list, blocks: dict, backbones: dict, clip_cfg, auto:
     return out
 
 
-def drive_paths(tp_blocks: dict) -> dict:
+def _window_batches(k: int, seed: int, res: int) -> dict:
+    """A staged window of k flagship batches made on the card: uint8
+    (k, 32, res, res, 3) images and (k, 32) labels of 100 classes."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {"image": torch.randint(0, 256, (k, 32, res, res, 3), dtype=torch.uint8,
+                                   device="cuda", generator=gen),
+            "label": torch.randint(0, 100, (k, 32), device="cuda", generator=gen)}
+
+
+def _traced(fn) -> tuple:
+    """fn()'s result and the device kernels it ran, counted by their names
+    in a torch.profiler trace (CUPTI records each kernel of a graph
+    replay too)."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    counts = collections.Counter()
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            counts[ev.key] += ev.count
+    return out, counts
+
+
+def _repo_kernels(counts: dict) -> dict:
+    """The counts of a trace's kernels that this repo's sources define (the
+    __global__ functions under mvlpt_torch/csrc)."""
+    names = set()
+    for src in (ROOT / "mvlpt_torch" / "csrc").glob("*.cu*"):
+        names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+                                src.read_text()))
+    ours = re.compile(r"[\s:](?:%s)[<(]" % "|".join(sorted(names)))
+    return {key: n for key, n in counts.items() if ours.search(key)}
+
+
+def _marked(counts: dict) -> dict:
+    """Each TRACE_MARKS wrapper's launches in a trace's counts."""
+    return {name: sum(n for key, n in counts.items() if re.search(mark, key))
+            for name, mark in TRACE_MARKS.items()}
+
+
+def _replayed_launches(path: str, counts: dict, kernels: tuple, per: int) -> dict:
+    """The launches of a window replayed from its graph, counted in its
+    trace by TRACE_MARKS: each of ``kernels`` ``per`` times, every other
+    marked kernel never. The replay must have called no wrapper, else a
+    step ran eagerly."""
+    from mvlpt_torch.ops import _build
+
+    called = {name: n for name, n in _build.LAUNCHES.items() if n}
+    if called:
+        raise AssertionError(f"{path}: the replayed window called the kernel wrappers {called}")
+    return _launches_of(path, _marked(counts), kernels, per)
+
+
+def _window_gaps(per_step: dict, metrics: list, init: list, leaves: list) -> dict:
+    """The gaps of a window run from one make_train_step call a batch
+    (``per_step``: its losses, grad norms and final prompt leaves), as
+    WINDOW_REL reads them; ``init`` are the prompt leaves both started
+    from."""
+    import torch
+
+    out = {}
+    for name in ("loss", "grad_norm"):
+        got = torch.cat([m[name] for m in metrics]).double().cpu()
+        want = torch.tensor(per_step[name], dtype=torch.float64)
+        out[name] = ((got - want).abs() / want.abs()).max().item()
+    moved = [(p - p0).double() for p, p0 in zip(per_step["leaves"], init)]
+    gap = max(((q - q0).double() - d).abs().max().item()
+              for q, q0, d in zip(leaves, init, moved))
+    out["displacement"] = gap / max(d.abs().max().item() for d in moved)
+    return out
+
+
+def _timed_window(step, state, backbone, consts, window) -> tuple[float, float, dict]:
+    """(host ms, device ms, metrics) of one window: the host clock around
+    the call, ending in torch.cuda.synchronize(); the card's time between
+    two CUDA events around it."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    _, metrics = step(state, backbone, consts, window)
+    end.record()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0), start.elapsed_time(end), metrics
+
+
+def drive_window(selection: str, ocfg, norm, text_shape: tuple[int, int]) -> dict:
+    """The windowed train step under ``selection`` on the flagship (ViT-B/16,
+    batch 32, 100 classes, bf16, uint8 images, normalize, pre_embed).
+
+    Check (train_window[sel]): WINDOW_CHECK_WINDOWS windows of
+    WINDOW_CHECK_K steps from the same initial prompt three ways: (a) one
+    make_train_step call a batch, (b) make_train_step_multi with
+    capture=False, (c) make_train_step_multi replayed from its CUDA graph.
+    (c) must equal (b) bit for bit (every loss, accuracy and grad norm,
+    every prompt leaf after the windows), (b) lie within WINDOW_REL of
+    (a), every value be finite, and each broken window of WINDOW_CONTROLS,
+    run as (b) is, lie outside the limits it names. The last window of
+    (b) and of (c) runs under a device trace: (c)'s launches are counted
+    there by TRACE_MARKS, with no wrapper called, and (c) must run the
+    same kernels of the repo, each as many times, as (b), whose wrappers
+    count its launches. One more replayed window, untraced, is timed.
+
+    Timing (train_window_k120[auto], 'auto' only): one warm-up window of
+    WINDOW_K steps, the capture included, then WINDOW_TIMED timed windows:
+    ms/step on the host clock and on CUDA events, img/s, peak memory, and
+    MFU as utils.flops.flagship_step_flops at this run's text shape (s, G)
+    over ms/step, against the dense bf16 rate (PEAK_FLOPS); then the
+    graph replays a window of its first WINDOW_CHECK_K batches under a
+    device trace, which counts the path's launches."""
+    import torch
+
+    from mvlpt_torch.config import OptimConfig
+    from mvlpt_torch.flagship import flagship
+    from mvlpt_torch.ops import _build
+    from mvlpt_torch.train import (
+        init_train_state, init_window_state, make_train_step, make_train_step_multi)
+    from mvlpt_torch.train.train_step import WINDOW_METRICS
+    from mvlpt_torch.utils import flops
+    from mvlpt_torch.utils.tree import tree_leaves
+
+    path, card = f"train_window[{selection}]", card_line()
+    model, backbone, pp, consts, _, clip_cfg = flagship(device="cuda", kernels=selection)
+    res, k = clip_cfg.image_resolution, WINDOW_CHECK_K
+    layers = clip_cfg.vision_layers + clip_cfg.transformer_layers
+    per_window = layers * k
+    check_cfg = OptimConfig(**dict(OPTIM, MAX_EPOCH=WINDOW_CHECK_EPOCHS))
+    windows = [_window_batches(k, 40 + i, res) for i in range(WINDOW_CHECK_WINDOWS)]
+    init = [t.detach().clone() for t in tree_leaves(pp)]
+
+    state = init_train_state(pp, check_cfg, WINDOW_CHECK_SPE)
+    step_a = make_train_step(model, normalize=norm)
+    per_step = {"loss": [], "grad_norm": []}
+    for w in windows:
+        for i in range(k):
+            state, m = step_a(state, backbone, consts, {name: t[i] for name, t in w.items()})
+            for name, values in per_step.items():
+                values.append(m[name].item())
+    per_step["leaves"] = [t.detach() for t in tree_leaves(state.prompt_params)]
+
+    eager = make_train_step_multi(model, pre_embed=True, normalize=norm, capture=False)
+    eager_state = init_window_state(pp, check_cfg, WINDOW_CHECK_SPE)
+    eager_m = [eager(eager_state, backbone, consts, w)[1] for w in windows[:-1]]
+    _build.reset_launch_counts()
+    (_, m), eager_trace = _traced(lambda: eager(eager_state, backbone, consts, windows[-1]))
+    eager_m.append(m)
+    eager_calls = _launches(f"{path} eager", TRAIN_KERNELS[selection], per_window)
+    marked = _marked(eager_trace)
+    if any(marked[name] != eager_calls[name] for name in marked):
+        raise AssertionError(f"{path}: the eager window's trace marks {marked}, its wrappers "
+                             f"count {eager_calls}")
+    controls = {}
+    for name in WINDOW_CONTROLS:
+        st = init_window_state(pp, check_cfg, WINDOW_CHECK_SPE)
+        ws = windows
+        if name.startswith("batch"):
+            ws = [{n: t.roll(-1, 0) for n, t in w.items()} for w in windows]
+        else:
+            st.sgd.lr_table.fill_(float(st.sgd.lr_table[0]))
+        ms = [eager(st, backbone, consts, w)[1] for w in ws]
+        controls[name] = _window_gaps(per_step, ms, init, tree_leaves(st.prompt_params))
+
+    graph_state = init_window_state(pp, check_cfg, WINDOW_CHECK_SPE)
+    replayed = make_train_step_multi(model, pre_embed=True, normalize=norm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = [_timed_window(replayed, graph_state, backbone, consts, w) for w in windows[:-1]]
+    graph_m = [t[2] for t in timed]
+    _build.reset_launch_counts()
+    (_, m), trace = _traced(lambda: replayed(graph_state, backbone, consts, windows[-1]))
+    graph_m.append(m)
+    launches = _replayed_launches(path, trace, TRAIN_KERNELS[selection], per_window)
+    if replayed.captures != 1:
+        raise AssertionError(f"{path}: {replayed.captures} captures, want 1")
+    ours, ours_eager = _repo_kernels(trace), _repo_kernels(eager_trace)
+    if ours != ours_eager:
+        diff = {key: (ours.get(key, 0), ours_eager.get(key, 0))
+                for key in set(ours) | set(ours_eager) if ours.get(key) != ours_eager.get(key)}
+        raise AssertionError(f"{path}: the replayed window ran the repo's kernels other times "
+                             f"than the eager window (replayed, eager): {diff}")
+    for i, (mb, mc) in enumerate(zip(eager_m, graph_m)):
+        for name in WINDOW_METRICS:
+            if not torch.equal(mb[name], mc[name]):
+                raise AssertionError(f"{path}: window {i}: the replayed {name} "
+                                     f"{mc[name].tolist()} differs from the eager window's "
+                                     f"{mb[name].tolist()}")
+    for j, (pb, pc) in enumerate(zip(tree_leaves(eager_state.prompt_params),
+                                     tree_leaves(graph_state.prompt_params))):
+        if not torch.equal(pb, pc):
+            raise AssertionError(f"{path}: prompt leaf {j} after the windows differs from the "
+                                 f"eager window's by {(pb - pc).abs().max().item()}")
+    values = torch.cat([m[name] for m in eager_m for name in WINDOW_METRICS])
+    if not bool(torch.isfinite(values).all()):
+        raise AssertionError(f"{path}: non-finite metrics {values.tolist()}")
+    gaps = _window_gaps(per_step, eager_m, init, tree_leaves(eager_state.prompt_params))
+    for what, limit in WINDOW_REL.items():
+        if not gaps[what] <= limit:
+            raise AssertionError(f"{path}: the eager window's {what} lies {gaps[what]} from one "
+                                 f"step a call's, over {limit} relative")
+    for name, caught_by in WINDOW_CONTROLS.items():
+        passed = [what for what in caught_by if not controls[name][what] > WINDOW_REL[what]]
+        if passed:
+            raise AssertionError(f"{path}: a window with the {name} passes the {passed} limits "
+                                 f"{controls[name]}: they cannot tell it from a sound one")
+    peak = _peak_gib()
+    host_ms, device_ms, _ = _timed_window(replayed, graph_state, backbone, consts, windows[0])
+    out = {path: dict(
+        path=path, card=card, k=k, windows=len(windows), steps_per_epoch=WINDOW_CHECK_SPE,
+        captures=replayed.captures, replays=replayed.replays, launches=launches,
+        launches_counted="the last check window, replayed, in its device trace",
+        eager_wrapper_launches={n: c for n, c in eager_calls.items() if c},
+        repo_kernels_per_step={key[:80]: n // k for key, n in sorted(ours.items())},
+        losses_per_step=per_step["loss"], losses_eager_window=torch.cat(
+            [m["loss"] for m in eager_m]).tolist(),
+        grad_norms_per_step=per_step["grad_norm"], grad_norms_eager_window=torch.cat(
+            [m["grad_norm"] for m in eager_m]).tolist(),
+        acc_eager_window=torch.cat([m["acc"] for m in eager_m]).tolist(),
+        gaps=gaps, limits=WINDOW_REL, control_gaps=controls, replay_equals_eager=True,
+        capture_window_host_ms=timed[0][0], window_host_ms=host_ms, window_device_ms=device_ms,
+        ms_per_step=host_ms / k, device_ms_per_step=device_ms / k,
+        img_per_s=32 * k * 1e3 / host_ms, peak_mem_gib=peak)}
+    print("main-path " + json.dumps(out[path]), flush=True)
+    if selection != "auto":
+        return out
+
+    path = f"train_window_k{WINDOW_K}[{selection}]"
+    window = _window_batches(WINDOW_K, 50, res)
+    state = init_window_state(pp, ocfg, WINDOW_SPE)
+    step = make_train_step_multi(model, pre_embed=True, normalize=norm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = [_timed_window(step, state, backbone, consts, window)
+             for _ in range(1 + WINDOW_TIMED)]
+    peak = _peak_gib()
+    # A trace of a whole window of WINDOW_K steps (about 130,000 kernels)
+    # loses records: the graph replays the first WINDOW_CHECK_K batches
+    # under the trace instead.
+    _build.reset_launch_counts()
+    (_, m), trace = _traced(lambda: step(state, backbone, consts,
+                                         {name: t[:k] for name, t in window.items()}))
+    launches = _replayed_launches(path, trace, TRAIN_KERNELS[selection], per_window)
+    values = torch.cat([x[name] for x in [t[2] for t in timed] + [m] for name in WINDOW_METRICS])
+    if not bool(torch.isfinite(values).all()):
+        raise AssertionError(f"{path}: non-finite metrics")
+    s, g = text_shape
+    step_flops = flops.flagship_step_flops(batch=32, n_cls=100, text_tokens_per_cls=s,
+                                           text_pack_classes=g)
+    host_ms = sum(t[0] for t in timed[1:]) / (WINDOW_TIMED * WINDOW_K)
+    device_ms = sum(t[1] for t in timed[1:]) / (WINDOW_TIMED * WINDOW_K)
+    peak_flops = PEAK_FLOPS["bfloat16"]
+    out[path] = dict(
+        path=path, card=card, k=WINDOW_K, steps_per_epoch=WINDOW_SPE, text_s=s, text_g=g,
+        captures=step.captures, replays=step.replays, launches=launches,
+        launches_counted=f"a window of its first {k} batches replayed through its graph, in "
+                         "its device trace",
+        warmup_window_host_ms=timed[0][0], window_host_ms=[t[0] for t in timed[1:]],
+        window_device_ms=[t[1] for t in timed[1:]], ms_per_step=host_ms,
+        device_ms_per_step=device_ms, img_per_s=32 * 1e3 / host_ms,
+        flops_per_step=step_flops, peak_tflops=peak_flops / 1e12,
+        mfu_host=step_flops / (host_ms * 1e-3) / peak_flops,
+        mfu_device=step_flops / (device_ms * 1e-3) / peak_flops,
+        first_losses=timed[0][2]["loss"][:4].tolist(), peak_mem_gib=peak)
+    print("main-path " + json.dumps(out[path]), flush=True)
+    return out
+
+
+def drive_paths(tp_blocks: dict, text_shape: tuple[int, int]) -> dict:
     """Every path of the port under 'auto' and 'on', each against the
-    plain path ('off') on the same seeded inputs; then the tensor-parallel
-    train step against 'auto'. ``tp_blocks[tower] = (B, S, mask)`` are
-    the shapes of train[tp2]'s layer-0 checks."""
+    plain path ('off') on the same seeded inputs, and the windowed train
+    step under each against its eager self and the per-step path; then the
+    tensor-parallel train step against 'auto'. ``tp_blocks[tower] = (B, S,
+    mask)`` are the shapes of train[tp2]'s layer-0 checks; ``text_shape``
+    is (s, G), the packed text tower's."""
     import numpy as np
     import torch
 
@@ -1387,6 +1727,7 @@ def drive_paths(tp_blocks: dict) -> dict:
     out = {}
     for sel in ("auto", "on"):
         out[f"train[{sel}]"] = drive_train(sel, train_batches, loss_plain, ocfg, norm)
+        out.update(drive_window(sel, ocfg, norm, text_shape))
         model = MVLPTModel(clip_cfg, plain.spec, kernels=select_attn_fn(sel),
                            compute_dtype=plain.compute_dtype)
         out[f"eval[{sel}]"] = drive_eval(sel, model, backbone, pp, consts, eval_batches,
@@ -1455,7 +1796,8 @@ def kernel_entries(results: list[dict], paths: dict) -> list[dict]:
     for name, (source, replaces, (kname, mode, shape)) in KERNELS.items():
         r = next(x for x in results if (x["name"], x["mode"], x["tower"], x["dtype"])
                  == (kname, mode, shape, "bfloat16"))
-        by_path = {path: p["launches"][name] for path, p in paths.items() if p["launches"][name]}
+        by_path = {path: p["launches"].get(name, 0) for path, p in paths.items()
+                   if p["launches"].get(name, 0)}
         out.append({"name": name, "route": "cuda", "source": f"mvlpt_torch/csrc/{source}.cu",
                     "replaces": replaces, "launches": sum(by_path.values()),
                     "launches_by_path": by_path, "shape": r["shape"],
@@ -1581,11 +1923,13 @@ def main() -> int:
         "vitl336_s581": (4 * 16, s_l336, 64, None, both, fb),
         "s1024": (64, 1024, 64, causal_mask(1024, device="cuda"), both, fb)})
     print(f"text tower: s={s}, G={g}, {rows} packed rows of {g * s} tokens", flush=True)
-    paths = drive_paths({"visual": (32, s_img, None), "text": (rows, g * s, packed_mask)})
+    paths = drive_paths({"visual": (32, s_img, None), "text": (rows, g * s, packed_mask)},
+                        (s, g))
 
     summary = {"card": card_line()}
     for path, out in paths.items():
-        summary[path] = {k: out[k] for k in ("ms_per_step", "img_per_s", "peak_mem_gib")
+        summary[path] = {k: out[k] for k in ("ms_per_step", "device_ms_per_step", "img_per_s",
+                                             "mfu_host", "mfu_device", "peak_mem_gib")
                          if k in out}
     print("summary " + json.dumps(summary), flush=True)
 

@@ -29,6 +29,9 @@ class TaskClassRanges:
     start: torch.Tensor  # (n_tasks,)
     end: torch.Tensor    # (n_tasks,)
 
+    def to(self, device) -> "TaskClassRanges":
+        return TaskClassRanges(self.start.to(device), self.end.to(device))
+
 
 class MVLPTModel(nn.Module):
     """Architecture + prompt spec + kernel selection (what
@@ -104,11 +107,13 @@ class MVLPTModel(nn.Module):
 
 
 def _apply_task_mask(logits, tasks, task_ranges):
-    """Zero logits outside each row's task class range (a multiply)."""
+    """Zero logits outside each row's task class range (a multiply). The
+    ranges must lie on the logits' device: the step builders put them
+    there once (``train.train_step``), so no step copies them."""
     if tasks is None or task_ranges is None:
         return logits
     cls_idx = torch.arange(logits.shape[-1], device=logits.device)[None, :]
-    lo = task_ranges.start.to(logits.device)[tasks][:, None]
-    hi = task_ranges.end.to(logits.device)[tasks][:, None]
+    lo = task_ranges.start[tasks][:, None]
+    hi = task_ranges.end[tasks][:, None]
     select = ((cls_idx >= lo) & (cls_idx < hi)).to(logits.dtype)
     return logits * select

@@ -64,6 +64,13 @@ class PromptSpec:
         return self.has_coop and self.has_vpt and self.project_method != "identity"
 
     @property
+    def text_is_static(self) -> bool:
+        """True when the text tower's output depends on no trained
+        parameter (pure VPT: no CoOp context, no CoCoOp, no coupler), so
+        a caller may compute the text features once for many steps."""
+        return not (self.has_coop or self.has_cocoop or self.has_coupler)
+
+    @property
     def vpt_dim(self) -> int:
         return self.vpt_proj_dim if self.vpt_proj_dim > -1 else self.vision_width
 

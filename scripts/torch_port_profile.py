@@ -2,14 +2,18 @@
 """Where the time of the port's flagship train step, or of its eval, goes,
 on one card.
 
-    python3 scripts/torch_port_profile.py [--path train|eval] [--steps 3] [--out DIR]
+    python3 scripts/torch_port_profile.py [--path train|eval|window] [--steps 3] [--k 120]
+                                          [--out DIR]
 
 Runs the flagship MVLPT UPT train step (ViT-B/16, batch 32, 100
 classes, bf16, fused half-block kernels on both towers), or with
 ``--path eval`` the cached-text eval's image tower at batch 100 (the
-no-grad half-block kernels; the text features computed once before),
-for two warm-up steps, then traces ``--steps`` steps with
-torch.profiler. Prints the
+no-grad half-block kernels; the text features computed once before), or
+with ``--path window`` windows of ``--k`` train steps replayed from the
+windowed step's CUDA graph (``make_train_step_multi``, pre_embed, uint8
+images with normalize; a step here is a train step, ``--steps`` counts
+windows), for two warm-up steps (windows), then traces ``--steps`` steps
+(windows) with torch.profiler. Prints the
 card (nvidia-smi name and power limit), ms/step on the host clock, the
 device time a step summed over kernels, the device's idle share, and
 device time by kernel name; writes the Chrome trace to ``--out``.
@@ -31,8 +35,9 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("train", "eval"), default="train")
+    ap.add_argument("--path", choices=("train", "eval", "window"), default="train")
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--k", type=int, default=120, help="steps a window (--path window)")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "torch_port_profile"))
     args = ap.parse_args()
 
@@ -48,7 +53,9 @@ def main() -> int:
     from chip_smoke import card_line, setup_vocab
     from mvlpt_torch.config import OptimConfig
     from mvlpt_torch.flagship import CLIP_PIXEL_MEAN, CLIP_PIXEL_STD, flagship
-    from mvlpt_torch.train import init_train_state, make_cached_text_eval, make_train_step
+    from mvlpt_torch.train import (
+        init_train_state, init_window_state, make_cached_text_eval, make_train_step,
+        make_train_step_multi)
 
     print(card_line())  # name, power limit (nvidia-smi)
     print(setup_vocab())
@@ -57,13 +64,21 @@ def main() -> int:
     norm = (CLIP_PIXEL_MEAN, CLIP_PIXEL_STD)
     model, backbone, pp, consts, _, clip_cfg = flagship(device="cuda", kernels="auto")
     rng = np.random.RandomState(0)
-    size = 32 if args.path == "train" else 100
-    batch = {"image": torch.from_numpy(rng.randint(0, 256, (size, 224, 224, 3)).astype(
+    size = 100 if args.path == "eval" else 32
+    lead = (args.k, size) if args.path == "window" else (size,)
+    batch = {"image": torch.from_numpy(rng.randint(0, 256, (*lead, 224, 224, 3)).astype(
                  np.uint8)).cuda(),
-             "label": torch.from_numpy(rng.randint(0, 100, size)).cuda()}
-    if args.path == "train":
-        state = init_train_state(pp, OptimConfig(LR=0.002, LR_SCHEDULER="cosine",
-                                                 MAX_EPOCH=200), 100)
+             "label": torch.from_numpy(rng.randint(0, 100, lead)).cuda()}
+    ocfg = OptimConfig(LR=0.002, LR_SCHEDULER="cosine", MAX_EPOCH=200)
+    per_call = args.k if args.path == "window" else 1
+    if args.path == "window":
+        state = init_window_state(pp, ocfg, 100)
+        window_step = make_train_step_multi(model, pre_embed=True, normalize=norm)
+
+        def step():
+            window_step(state, backbone, consts, batch)
+    elif args.path == "train":
+        state = init_train_state(pp, ocfg, 100)
         train_step = make_train_step(model, normalize=norm)
 
         def step():
@@ -92,14 +107,15 @@ def main() -> int:
     rows = [(ev.self_device_time_total, ev.count, ev.key) for ev in prof.key_averages()
             if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
     rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3 / args.steps
-    step_ms = wall * 1e3 / args.steps
+    steps = args.steps * per_call
+    busy_ms = sum(r[0] for r in rows) / 1e3 / steps
+    step_ms = wall * 1e3 / steps
     print(json.dumps({"path": args.path, "ms_per_step_host": step_ms,
                       "device_ms_per_step": busy_ms,
                       "device_idle_share": max(0.0, 1 - busy_ms / step_ms),
-                      "steps": args.steps}))
+                      "steps": steps}))
     for dev_us, count, key in rows[:30]:
-        print(f"{dev_us / 1e3 / args.steps:9.3f} ms/step {count // args.steps:6d} calls/step  "
+        print(f"{dev_us / 1e3 / steps:9.3f} ms/step {count // steps:6d} calls/step  "
               f"{key[:140]}")
     return 0
 

@@ -14,55 +14,18 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_util import synthetic_vocab  # noqa: F401 (fixture)
+from tests.torch_port_util import synthetic_vocab, two_sides  # noqa: F401 (fixture)
 
 N_CLS, BATCH = 20, 4
 
 
 @pytest.fixture(scope="module")
 def sides(synthetic_vocab):  # noqa: F811
-    from mvlpt_tpu.core.clip import CLIPConfig as JCfg, init_clip_params
-    from mvlpt_tpu.models.custom_clip import MVLPTModel as JModel
-    from mvlpt_tpu.ops import block as jblock
-    from mvlpt_tpu.prompts import (
-        PromptSpec as JSpec, build_prompt_consts as jconsts,
-        compute_cut_context_length as jcut, init_prompt_params as jinit)
-
-    from mvlpt_torch.checkpoint import backbone_from_jax, prompt_params_from_jax
-    from mvlpt_torch.core.clip import CLIPConfig
-    from mvlpt_torch.models import MVLPTModel
-    from mvlpt_torch.ops.attention import select_attn_fn
-    from mvlpt_torch.prompts import PromptSpec, build_prompt_consts, compute_cut_context_length
-
-    dims = dict(embed_dim=32, image_resolution=32, vision_layers=2, vision_width=64,
-                vision_patch_size=8, transformer_width=64, transformer_heads=2,
-                transformer_layers=2, vision_heads_override=2)
-    classnames = [f"c{i}" for i in range(N_CLS)]
-    s = jcut(classnames, 2)
-    assert compute_cut_context_length(classnames, 2) == s
-    spec_kw = dict(n_cls=N_CLS, coop_n_ctx=2, vpt_n_ctx=2, vpt_deep=True,
-                   class_token_position="middle", project_method="transformer",
-                   project_dim=16, context_length=s, vision_layers=2, vision_width=64,
-                   text_width=64, embed_dim=32, vision_patch_size=8)
-
-    j_backbone = init_clip_params(jax.random.PRNGKey(0), JCfg(**dims))
-    j_pp = jinit(jax.random.PRNGKey(1), JSpec(**spec_kw))
-    j_consts = jconsts(classnames, JSpec(**spec_kw), j_backbone, jnp.float32)
-    j_model = JModel(clip_cfg=JCfg(**dims), spec=JSpec(**spec_kw), attn_fn=jblock.FUSED,
-                     compute_dtype=jnp.float32)
-
-    backbone = backbone_from_jax(jax.tree_util.tree_map(np.asarray, j_backbone), "cpu")
-    pp = prompt_params_from_jax(jax.tree_util.tree_map(np.asarray, j_pp), "cpu")
-    spec = PromptSpec(**spec_kw)
-    consts = build_prompt_consts(classnames, spec, backbone, torch.float32)
-    model = MVLPTModel(CLIPConfig(**dims), spec, kernels=select_attn_fn("block"),
-                       compute_dtype=torch.float32)
-
+    out = two_sides(N_CLS)
     rng = np.random.RandomState(0)
-    images = rng.randn(BATCH, 32, 32, 3).astype(np.float32)
-    labels = rng.randint(0, N_CLS, BATCH)
-    return dict(j=(j_model, j_backbone, j_pp, j_consts), t=(model, backbone, pp, consts),
-                images=images, labels=labels, s=s)
+    out["images"] = rng.randn(BATCH, 32, 32, 3).astype(np.float32)
+    out["labels"] = rng.randint(0, N_CLS, BATCH)
+    return out
 
 
 def test_text_tower_is_packed(sides):

@@ -49,3 +49,60 @@ def to_numpy_tree(tree):
     if isinstance(tree, dict):
         return {k: to_numpy_tree(v) for k, v in tree.items()}
     return np.asarray(tree)
+
+
+# The tiny CLIP of the two-sided tests (two layers a tower, narrow widths,
+# after __graft_entry__.py:_tiny_flagship).
+TINY_DIMS = dict(embed_dim=32, image_resolution=32, vision_layers=2, vision_width=64,
+                 vision_patch_size=8, transformer_width=64, transformer_heads=2,
+                 transformer_layers=2, vision_heads_override=2)
+# A UPT spec on it: CoOp ctx 2 'middle', deep VPT 2, the coupler at dim 16.
+UPT_SPEC = dict(coop_n_ctx=2, vpt_n_ctx=2, vpt_deep=True, class_token_position="middle",
+                project_method="transformer", project_dim=16)
+
+
+def two_sides(n_cls: int, **spec):
+    """One model on both sides, fp32 on the CPU: the JAX package's with
+    its fused-block kernels (interpret mode) and the port's with the
+    half-block kernels' plain twins, the same backbone, prompt params and
+    consts carried across by mvlpt_torch.checkpoint.from_jax. ``spec``
+    overrides UPT_SPEC. Call it under the ``synthetic_vocab`` fixture.
+    Returns dict(j=(model, backbone, params, consts), t=(...), s=the
+    prompt length)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from mvlpt_tpu.core.clip import CLIPConfig as JCfg, init_clip_params
+    from mvlpt_tpu.models.custom_clip import MVLPTModel as JModel
+    from mvlpt_tpu.ops import block as jblock
+    from mvlpt_tpu.prompts import (
+        PromptSpec as JSpec, build_prompt_consts as jconsts,
+        compute_cut_context_length as jcut, init_prompt_params as jinit)
+
+    from mvlpt_torch.checkpoint import backbone_from_jax, prompt_params_from_jax
+    from mvlpt_torch.core.clip import CLIPConfig
+    from mvlpt_torch.models import MVLPTModel
+    from mvlpt_torch.ops.attention import select_attn_fn
+    from mvlpt_torch.prompts import PromptSpec, build_prompt_consts, compute_cut_context_length
+
+    classnames = [f"c{i}" for i in range(n_cls)]
+    spec = dict(UPT_SPEC, **spec)
+    s = jcut(classnames, spec["coop_n_ctx"])
+    assert compute_cut_context_length(classnames, spec["coop_n_ctx"]) == s
+    spec_kw = dict(spec, n_cls=n_cls, context_length=s, vision_layers=2, vision_width=64,
+                   text_width=64, embed_dim=32, vision_patch_size=8)
+
+    j_backbone = init_clip_params(jax.random.PRNGKey(0), JCfg(**TINY_DIMS))
+    j_pp = jinit(jax.random.PRNGKey(1), JSpec(**spec_kw))
+    j_consts = jconsts(classnames, JSpec(**spec_kw), j_backbone, jnp.float32)
+    j_model = JModel(clip_cfg=JCfg(**TINY_DIMS), spec=JSpec(**spec_kw), attn_fn=jblock.FUSED,
+                     compute_dtype=jnp.float32)
+
+    backbone = backbone_from_jax(jax.tree_util.tree_map(np.asarray, j_backbone), "cpu")
+    pp = prompt_params_from_jax(jax.tree_util.tree_map(np.asarray, j_pp), "cpu")
+    t_spec = PromptSpec(**spec_kw)
+    consts = build_prompt_consts(classnames, t_spec, backbone, torch.float32)
+    model = MVLPTModel(CLIPConfig(**TINY_DIMS), t_spec, kernels=select_attn_fn("block"),
+                       compute_dtype=torch.float32)
+    return dict(j=(j_model, j_backbone, j_pp, j_consts), t=(model, backbone, pp, consts), s=s)
