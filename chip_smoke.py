@@ -87,9 +87,10 @@
      two windows of 8 steps three ways from the same prompt, one step a
      call, the window run eagerly (capture=False) and the window replayed
      from its CUDA graph; the replay equal to the eager window bit for
-     bit; the eager window's losses, grad norms and prompt displacement
-     within WINDOW_REL of the per-step path's, and two broken windows
-     (a batch index shifted by one, a frozen lr) outside those limits.
+     bit; the eager window's losses, grad norms and prompt leaves equal
+     to the per-step path's bit for bit (it reads the window's own
+     pre-embedded tokens), and two broken windows (a batch index shifted
+     by one, a frozen lr) unequal.
      A replay calls no kernel wrapper: the replayed window's launches
      are counted in a torch.profiler trace by kernel name (TRACE_MARKS),
      and it must run the repo's kernels as often as the eager window.
@@ -100,6 +101,16 @@
      rate) and peak memory, the card's name and power limit on each line;
      then its graph replays 8 of those batches under a trace, which
      counts its launches.
+   - the training CLI end to end (trainer_cli, ``drive_trainer_cli``):
+     ``python -m mvlpt_torch.cli.train``'s main in-process at full width
+     (random ViT-B/16, MVLPT UPT, --dataset-coop on a 100-class dataset
+     it writes, configs/trainers/MVLPT/vit_b16_tpu_fast.yaml, windows of
+     20 with a tail window of 10, best-val selection, two epochs): one
+     capture over both epochs, #1-#6 launched, the checkpoints and a
+     results line written, an --eval-only rerun's test logits bit-equal,
+     the first loss within 1e-2 of an 'off' run's; its epoch times,
+     img/s with the loading, the loader's share, test() img/s and peak
+     memory.
 4. Prints a summary line (img/s, ms/step, MFU, peak memory), one JSON
    line of kernel numbers, then, as the last line, {"ok": true,
    "device": {...}}.
@@ -199,14 +210,13 @@ WINDOW_SPE = 100
 # prompt (``_window_gaps``): the largest relative gap over the steps of
 # the loss and of the grad norm, and the largest gap of the prompt
 # leaves' displacement (leaf less its initial value) relative to the
-# per-step path's largest displacement. Each limit lies between the sound
-# runs' gaps and those of two broken windows the check also runs
-# (WINDOW_CONTROLS): step k reading batch k + 1, and the lr frozen at
-# its first value. On an H100 the sound windows lie at most 1.04e-3,
-# 1.45e-2 and 7.44e-2 from the per-step path ('on'; 'auto' less), the
-# shifted ones at least 1.67e-2, 1.555 and 0.490, the frozen lr's
-# displacement at least 0.829 (PERF.md).
-WINDOW_REL = {"loss": 3e-3, "grad_norm": 5e-2, "displacement": 0.2}
+# per-step path's largest displacement. The per-step path reads the
+# window's own pre-embedded tokens (the stem's output over all K x B
+# images, sliced a batch a step) and updates with the same device SGD,
+# so the two run the same operations on the same values: every gap must
+# be 0, bit equality. Two broken windows (WINDOW_CONTROLS: step k reading
+# batch k + 1, the lr frozen at its first value) must not be.
+WINDOW_REL = {"loss": 0.0, "grad_norm": 0.0, "displacement": 0.0}
 # Which gaps each broken window must exceed: a frozen lr leaves the first
 # epoch's steps as they were, so only the displacement is sure to show it.
 WINDOW_CONTROLS = {"batch k+1 at step k": tuple(WINDOW_REL),
@@ -1193,7 +1203,7 @@ def _tp_rank(rank: int, world: int, workdir: str) -> None:
 
     work = Path(workdir)
     try:
-        from mvlpt_torch.config import OptimConfig
+        from mvlpt_torch.config import optim_config
         from mvlpt_torch.core.layers import layer_params as take
         from mvlpt_torch.core.layers import residual_block
         from mvlpt_torch.flagship import CLIP_PIXEL_MEAN, CLIP_PIXEL_STD, flagship
@@ -1228,7 +1238,7 @@ def _tp_rank(rank: int, world: int, workdir: str) -> None:
         model, backbone, pp, consts, _, clip_cfg = flagship(device="cuda", kernels="block",
                                                             mesh=mesh)
         layer0(model, backbone, clip_cfg, "bfloat16")
-        state = init_train_state(pp, OptimConfig(**OPTIM), 100)
+        state = init_train_state(pp, optim_config(**OPTIM), 100)
         step = make_train_step(model, normalize=norm, mesh=mesh)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1249,7 +1259,7 @@ def _tp_rank(rank: int, world: int, workdir: str) -> None:
                                                      kernels="block", mesh=mesh)
         layer0(model, backbone, clip_cfg, "float32")
         _, m32 = make_train_step(model, normalize=norm, mesh=mesh)(
-            init_train_state(pp, OptimConfig(**OPTIM), 100), backbone, consts, batches[0])
+            init_train_state(pp, optim_config(**OPTIM), 100), backbone, consts, batches[0])
         (work / f"rank{rank}.json").write_text(json.dumps(dict(
             losses=losses, grad_norms=grad_norms, step_ms=[1e3 * t for t in times],
             launches=launches, peak_mem_gib=peak,
@@ -1506,9 +1516,10 @@ def drive_window(selection: str, ocfg, norm, text_shape: tuple[int, int]) -> dic
     WINDOW_CHECK_K steps from the same initial prompt three ways: (a) one
     make_train_step call a batch, (b) make_train_step_multi with
     capture=False, (c) make_train_step_multi replayed from its CUDA graph.
-    (c) must equal (b) bit for bit (every loss, accuracy and grad norm,
-    every prompt leaf after the windows), (b) lie within WINDOW_REL of
-    (a), every value be finite, and each broken window of WINDOW_CONTROLS,
+    (a) reads the window's pre-embedded tokens. (c) must equal (b) bit for
+    bit (every loss, accuracy and grad norm, every prompt leaf after the
+    windows), (b) equal (a) bit for bit (WINDOW_REL), every value be
+    finite, and each broken window of WINDOW_CONTROLS,
     run as (b) is, lie outside the limits it names. The last window of
     (b) and of (c) runs under a device trace: (c)'s launches are counted
     there by TRACE_MARKS, with no wrapper called, and (c) must run the
@@ -1524,11 +1535,11 @@ def drive_window(selection: str, ocfg, norm, text_shape: tuple[int, int]) -> dic
     device trace, which counts the path's launches."""
     import torch
 
-    from mvlpt_torch.config import OptimConfig
+    from mvlpt_torch.config import optim_config
     from mvlpt_torch.flagship import flagship
     from mvlpt_torch.ops import _build
     from mvlpt_torch.train import (
-        init_train_state, init_window_state, make_train_step, make_train_step_multi)
+        init_train_state, make_train_step, make_train_step_multi)
     from mvlpt_torch.train.train_step import WINDOW_METRICS
     from mvlpt_torch.utils import flops
     from mvlpt_torch.utils.tree import tree_leaves
@@ -1538,22 +1549,26 @@ def drive_window(selection: str, ocfg, norm, text_shape: tuple[int, int]) -> dic
     res, k = clip_cfg.image_resolution, WINDOW_CHECK_K
     layers = clip_cfg.vision_layers + clip_cfg.transformer_layers
     per_window = layers * k
-    check_cfg = OptimConfig(**dict(OPTIM, MAX_EPOCH=WINDOW_CHECK_EPOCHS))
+    check_cfg = optim_config(**dict(OPTIM, MAX_EPOCH=WINDOW_CHECK_EPOCHS))
     windows = [_window_batches(k, 40 + i, res) for i in range(WINDOW_CHECK_WINDOWS)]
     init = [t.detach().clone() for t in tree_leaves(pp)]
 
     state = init_train_state(pp, check_cfg, WINDOW_CHECK_SPE)
-    step_a = make_train_step(model, normalize=norm)
+    step_a = make_train_step(model, pre_embedded=True)
     per_step = {"loss": [], "grad_norm": []}
     for w in windows:
+        with torch.no_grad():
+            tokens = model.embed_image(backbone, w["image"].flatten(0, 1), normalize=norm)
+        tokens = tokens.unflatten(0, w["image"].shape[:2])
         for i in range(k):
-            state, m = step_a(state, backbone, consts, {name: t[i] for name, t in w.items()})
+            state, m = step_a(state, backbone, consts, {"image": tokens[i],
+                                                        "label": w["label"][i]})
             for name, values in per_step.items():
                 values.append(m[name].item())
     per_step["leaves"] = [t.detach() for t in tree_leaves(state.prompt_params)]
 
     eager = make_train_step_multi(model, pre_embed=True, normalize=norm, capture=False)
-    eager_state = init_window_state(pp, check_cfg, WINDOW_CHECK_SPE)
+    eager_state = init_train_state(pp, check_cfg, WINDOW_CHECK_SPE)
     eager_m = [eager(eager_state, backbone, consts, w)[1] for w in windows[:-1]]
     _build.reset_launch_counts()
     (_, m), eager_trace = _traced(lambda: eager(eager_state, backbone, consts, windows[-1]))
@@ -1565,7 +1580,7 @@ def drive_window(selection: str, ocfg, norm, text_shape: tuple[int, int]) -> dic
                              f"count {eager_calls}")
     controls = {}
     for name in WINDOW_CONTROLS:
-        st = init_window_state(pp, check_cfg, WINDOW_CHECK_SPE)
+        st = init_train_state(pp, check_cfg, WINDOW_CHECK_SPE)
         ws = windows
         if name.startswith("batch"):
             ws = [{n: t.roll(-1, 0) for n, t in w.items()} for w in windows]
@@ -1574,7 +1589,7 @@ def drive_window(selection: str, ocfg, norm, text_shape: tuple[int, int]) -> dic
         ms = [eager(st, backbone, consts, w)[1] for w in ws]
         controls[name] = _window_gaps(per_step, ms, init, tree_leaves(st.prompt_params))
 
-    graph_state = init_window_state(pp, check_cfg, WINDOW_CHECK_SPE)
+    graph_state = init_train_state(pp, check_cfg, WINDOW_CHECK_SPE)
     replayed = make_train_step_multi(model, pre_embed=True, normalize=norm)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1610,7 +1625,9 @@ def drive_window(selection: str, ocfg, norm, text_shape: tuple[int, int]) -> dic
     for what, limit in WINDOW_REL.items():
         if not gaps[what] <= limit:
             raise AssertionError(f"{path}: the eager window's {what} lies {gaps[what]} from one "
-                                 f"step a call's, over {limit} relative")
+                                 f"step a call's, over {limit} relative (the first differing "
+                                 f"step's losses: per step {per_step['loss']}, window "
+                                 f"{torch.cat([m['loss'] for m in eager_m]).tolist()})")
     for name, caught_by in WINDOW_CONTROLS.items():
         passed = [what for what in caught_by if not controls[name][what] > WINDOW_REL[what]]
         if passed:
@@ -1639,7 +1656,7 @@ def drive_window(selection: str, ocfg, norm, text_shape: tuple[int, int]) -> dic
 
     path = f"train_window_k{WINDOW_K}[{selection}]"
     window = _window_batches(WINDOW_K, 50, res)
-    state = init_window_state(pp, ocfg, WINDOW_SPE)
+    state = init_train_state(pp, ocfg, WINDOW_SPE)
     step = make_train_step_multi(model, pre_embed=True, normalize=norm)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1688,7 +1705,7 @@ def drive_paths(tp_blocks: dict, text_shape: tuple[int, int]) -> dict:
     import numpy as np
     import torch
 
-    from mvlpt_torch.config import OptimConfig
+    from mvlpt_torch.config import optim_config
     from mvlpt_torch.flagship import CLIP_PIXEL_MEAN, CLIP_PIXEL_STD, flagship
     from mvlpt_torch.models import MVLPTModel
     from mvlpt_torch.models.zsclip import IMAGENET_TEMPLATES_SELECT, encode_class_text_features
@@ -1707,7 +1724,7 @@ def drive_paths(tp_blocks: dict, text_shape: tuple[int, int]) -> dict:
                  "label": torch.from_numpy(rng.randint(0, 100, size)).cuda()} for _ in range(n)]
 
     train_batches, eval_batches = batches(STEPS, 32), batches(EVAL_BATCHES, EVAL_BATCH)
-    ocfg = OptimConfig(**OPTIM)
+    ocfg = optim_config(**OPTIM)
     _, m_plain = make_train_step(plain, normalize=norm)(
         init_train_state(pp, ocfg, 100), backbone, consts, train_batches[0])
     loss_plain = m_plain["loss"].item()
@@ -1760,7 +1777,7 @@ def drive_vitl336(norm) -> dict:
     import numpy as np
     import torch
 
-    from mvlpt_torch.config import OptimConfig
+    from mvlpt_torch.config import optim_config
     from mvlpt_torch.flagship import flagship
     from mvlpt_torch.models import MVLPTModel
     from mvlpt_torch.ops.attention import select_attn_fn
@@ -1772,7 +1789,7 @@ def drive_vitl336(norm) -> dict:
     batch = [{"image": torch.from_numpy(rng.randint(0, 256, (n, res, res, 3)).astype(
                   np.uint8)).cuda(),
               "label": torch.from_numpy(rng.randint(0, 100, n)).cuda()}]
-    ocfg = OptimConfig(**OPTIM)
+    ocfg = optim_config(**OPTIM)
     _, m_plain = make_train_step(plain, normalize=norm)(
         init_train_state(pp, ocfg, 100), backbone, consts, batch[0])
     loss_plain = m_plain["loss"].item()
@@ -1788,6 +1805,212 @@ def drive_vitl336(norm) -> dict:
                                                  ce_plain, norm, name="eval_vitl336")[0]
     return out
 
+
+
+# The trainer_cli phase: the port's CLI (mvlpt_torch.cli.train) on a
+# CoOp split-json dataset the phase writes under build/ (CLI_CLASSES
+# classes; CLI_SHOTS train, CLI_VAL val and CLI_TEST test images a
+# class, CLI_IMAGE_SIZE square JPEGs, so random_resized_crop resizes),
+# with the flagship's UPT settings at full width.
+CLI_CLASSES, CLI_SHOTS, CLI_VAL, CLI_TEST = 100, 16, 2, 4
+CLI_IMAGE_SIZE = 256
+CLI_OPTS = ["TRAINER.MVLPT.COOP.N_CTX", "4", "TRAINER.MVLPT.VPT.N_CTX", "4",
+            "TRAINER.MVLPT.PROJECT_DIM", "128", "TRAINER.MVLPT.COOP.CLASS_TOKEN_POSITION",
+            "middle", "DATALOADER.TRAIN_X.BATCH_SIZE", "32", "DATALOADER.TEST.BATCH_SIZE", "100",
+            "TRAIN.STEPS_PER_DISPATCH", "20", "TEST.FINAL_MODEL", "best_val"]
+
+
+def write_cli_dataset(root: Path) -> Path:
+    """A CoOp dataset in OxfordPets' split-json layout under ``root``:
+    smooth seeded noise plus a class colour, as JPEGs."""
+    import numpy as np
+    from PIL import Image
+
+    ddir = root / "oxford_pets"
+    split_path = ddir / "split_zhou_OxfordPets.json"
+    if split_path.exists():
+        return root
+    (ddir / "images").mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(0)
+    split = {"train": [], "val": [], "test": []}
+    n = CLI_IMAGE_SIZE
+    for label in range(CLI_CLASSES):
+        cname = f"class_number_{label}"
+        colour = np.array([(label * 97) % 156, (label * 57) % 156, (label * 37) % 156])
+        for part, count in (("train", CLI_SHOTS), ("val", CLI_VAL), ("test", CLI_TEST)):
+            for i in range(count):
+                coarse = rng.randint(0, 100, (n // 16, n // 16, 3)).astype(np.uint8)
+                img = Image.fromarray(coarse).resize((n, n), Image.BILINEAR)
+                arr = np.asarray(img, dtype=np.int64) + colour
+                rel = f"{cname}_{part}_{i}.jpg"
+                Image.fromarray(arr.astype(np.uint8)).save(ddir / "images" / rel, quality=90)
+                split[part].append([rel, label, cname])
+    split_path.write_text(json.dumps(split))
+    return root
+
+
+class _WindowProbe:
+    """Stands in for ``make_train_step_multi`` in the trainer module for one
+    CLI run: makes the windowed step as it does, keeps each step made, and
+    records the metrics of each window."""
+
+    def __init__(self, make):
+        self.make, self.steps, self.windows = make, [], []
+
+    def __call__(self, *args, **kw):
+        step = self.make(*args, **kw)
+        self.steps.append(step)
+
+        def call(*a, **k):
+            state, metrics = step(*a, **k)
+            self.windows.append(metrics)
+            return state, metrics
+        return call
+
+
+def _cli_run(argv: list):
+    """(trainer, window probe) of one in-process run of the port's CLI."""
+    from mvlpt_torch.cli.train import build_parser, main
+    from mvlpt_torch.train import trainer as trainer_mod
+
+    probe = _WindowProbe(trainer_mod.make_train_step_multi)
+    trainer_mod.make_train_step_multi = probe
+    try:
+        return main(build_parser().parse_args(argv)), probe
+    finally:
+        trainer_mod.make_train_step_multi = probe.make
+
+
+def _test_logits(trainer):
+    """The test split's logits of a trainer's current prompt (the
+    cached-text eval, as its test() runs it)."""
+    import torch
+
+    from mvlpt_torch.utils.pipeline import pipelined_inference
+
+    trainer._eval_text = trainer._eval_text_fn(trainer.backbone, trainer.state.prompt_params,
+                                               trainer.consts)
+    try:
+        return torch.cat([torch.from_numpy(logits[:batch["n_valid"]]) for logits, batch in
+                          pipelined_inference(trainer.test_loader, trainer.model_inference)])
+    finally:
+        trainer._eval_text = None
+
+
+def drive_trainer_cli() -> dict:
+    """The port's training CLI end to end (trainer_cli): ``main(build_parser()
+    .parse_args([...]))`` in-process on a random-init ViT-B/16
+    (MVLPT_TPU_RANDOM_CLIP) with the synthetic vocab, --trainer MVLPT
+    --dataset-coop on the dataset of ``write_cli_dataset``,
+    configs/trainers/MVLPT/vit_b16_tpu_fast.yaml (uint8 staging with the
+    normalisation folded on the card, pre-embedded windows) with CLI_OPTS,
+    two epochs of 50 batches: windows of 20 and 20 and a tail of 10 (at
+    least TRAIN.WINDOW_MIN_TAIL, so one window served by the first
+    capture), best-val selection, the final test. Asserts one capture
+    over both epochs; #1-#6 launched (the wrappers count the first
+    window's eager warm-up step and its capture, and test()'s no-grad
+    forwards); model-best.pth.tar and model.pth.tar-2 written; a results
+    line in log.txt that parses; an --eval-only --model-dir rerun with
+    bit-equal test logits and the same accuracy; the first window's
+    step-0 loss within 1e-2 of an 'off' run's (one epoch, TEST.NO_TEST).
+    Prints each epoch's wall time, training img/s on the host clock with
+    the loading, the share of the epoch spent waiting on the loader,
+    test() img/s and peak memory, beside the card's name and power limit."""
+    import ast
+
+    import PIL
+    import torch
+
+    from mvlpt_torch.ops import _build
+
+    path, card = "trainer_cli", card_line()
+    data = write_cli_dataset(ROOT / "build" / "trainer_cli_data")
+    out_dir = ROOT / "build" / "trainer_cli_out"
+    common = ["--root", str(data), "--trainer", "MVLPT", "--dataset-coop",
+              "--dataset", "OxfordPets", "--shots", str(CLI_SHOTS), "--seed", "1",
+              "--cut-contextlen",
+              "--config-file", str(ROOT / "configs/trainers/MVLPT/vit_b16_tpu_fast.yaml")]
+    print(f"{path}: decoder PIL {PIL.__version__} (JPEG decode, bicubic resample)", flush=True)
+    os.environ["MVLPT_TPU_RANDOM_CLIP"] = "1"
+    os.environ.pop("MVLPT_TPU_RANDOM_CLIP_ARCH", None)
+    os.environ.pop("MVLPT_TPU_CLIP_CKPT", None)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer, probe = _cli_run([*common, "--output-dir", str(out_dir / "train"), *CLI_OPTS,
+                                   "OPTIM.MAX_EPOCH", "2"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        peak = _peak_gib()
+        logits = _test_logits(trainer)
+        # the CLI's --eval-only rerun from the trained run's directory
+        evaluated, _ = _cli_run([*common, "--output-dir", str(out_dir / "eval"), "--eval-only",
+                                 "--model-dir", str(out_dir / "train"), *CLI_OPTS])
+        logits_again = _test_logits(evaluated)
+        _build.reset_launch_counts()
+        plain, plain_probe = _cli_run([*common, "--output-dir", str(out_dir / "off"), *CLI_OPTS,
+                                       "OPTIM.MAX_EPOCH", "1", "TEST.NO_TEST", "True",
+                                       "TPU.USE_PALLAS", "off"])
+    finally:
+        os.environ.pop("MVLPT_TPU_RANDOM_CLIP", None)
+
+    steps = [s for s in probe.steps]
+    if len(steps) != 1 or steps[0].captures != 1:
+        raise AssertionError(f"{path}: {[s.captures for s in steps]} captures of "
+                             f"{len(steps)} windowed steps, want one step with 1 capture")
+    sizes = [int(m["loss"].shape[0]) for m in probe.windows]
+    if sizes != [20, 20, 10] * 2:
+        raise AssertionError(f"{path}: windows of {sizes}, want [20, 20, 10] an epoch")
+    want = ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd", "attn_fwd_infer", "mlp_fwd_infer")
+    missing = [name for name in want if not launches.get(name)]
+    others = {name: n for name, n in launches.items() if n and name not in want}
+    if missing or others:
+        raise AssertionError(f"{path}: launches {launches}: {missing} not launched, "
+                             f"{others} launched")
+    for name in ("model-best.pth.tar", "model.pth.tar-2"):
+        if not (out_dir / "train" / "prompt_learner" / name).is_file():
+            raise AssertionError(f"{path}: no prompt_learner/{name}")
+    results = [ast.literal_eval(line[len("results "):])
+               for line in (out_dir / "train" / "log.txt").read_text().splitlines()
+               if line.startswith("results ")]
+    if not results or "accuracy" not in results[-1]:
+        raise AssertionError(f"{path}: no results line with an accuracy in log.txt")
+    eval_results = [ast.literal_eval(line[len("results "):])
+                    for line in (out_dir / "eval" / "log.txt").read_text().splitlines()
+                    if line.startswith("results ")]
+    if not torch.equal(logits, logits_again) or eval_results[-1] != results[-1]:
+        raise AssertionError(f"{path}: the --eval-only rerun's test logits differ by "
+                             f"{(logits - logits_again).abs().max().item()} (results "
+                             f"{eval_results[-1]} against {results[-1]})")
+    if not (logits.shape == (CLI_CLASSES * CLI_TEST, CLI_CLASSES)
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"{path}: test logits {tuple(logits.shape)}, or not finite")
+    loss0 = probe.windows[0]["loss"][0].item()
+    loss0_plain = plain_probe.windows[0]["loss"][0].item()
+    _near(path, "first window's step-0 loss", loss0, loss0_plain)
+    if plain.train_step_multi is None or plain_probe.steps[0].captures != 1:
+        raise AssertionError(f"{path}: the 'off' run did not run its windows from a graph")
+
+    epochs = trainer.timings["epochs"]
+    tests = trainer.timings["tests"]
+    out = dict(
+        path=path, card=card, decoder=f"PIL {PIL.__version__}", run_s=run_s,
+        windows=sizes, captures=steps[0].captures, replays=steps[0].replays,
+        launches={k: v for k, v in launches.items() if v},
+        epoch_wall_s=[e["wall_s"] for e in epochs],
+        train_img_per_s=[e["images"] / e["wall_s"] for e in epochs],
+        loader_wait_share=[e["loader_s"] / e["wall_s"] for e in epochs],
+        test_img_per_s={f"{t['split']}{i}": t["images"] / t["wall_s"]
+                        for i, t in enumerate(tests)},
+        test_wall_s=[t["wall_s"] for t in tests],
+        results=results[-1], first_losses=probe.windows[0]["loss"][:4].tolist(),
+        first_loss_off=loss0_plain, peak_mem_gib=peak,
+        img_per_s=sum(e["images"] for e in epochs) / sum(e["wall_s"] for e in epochs))
+    print("main-path " + json.dumps(out), flush=True)
+    return out
 
 def kernel_entries(results: list[dict], paths: dict) -> list[dict]:
     """One entry a kernel of KERNELS: its bf16 check row's numbers and its
@@ -1925,6 +2148,7 @@ def main() -> int:
     print(f"text tower: s={s}, G={g}, {rows} packed rows of {g * s} tokens", flush=True)
     paths = drive_paths({"visual": (32, s_img, None), "text": (rows, g * s, packed_mask)},
                         (s, g))
+    paths["trainer_cli"] = drive_trainer_cli()
 
     summary = {"card": card_line()}
     for path, out in paths.items():

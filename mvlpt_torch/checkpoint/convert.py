@@ -15,6 +15,7 @@ HuggingFace and ModifiedResNet converters are not ported yet.
 
 from __future__ import annotations
 
+import hashlib
 import os
 
 import numpy as np
@@ -147,3 +148,36 @@ def load_clip(path: str, dtype=torch.float32, device="cuda"):
         if "state_dict" in sd:
             sd = sd["state_dict"]
     return convert_openai_state_dict(sd, dtype=dtype, device=device)
+
+
+# The OpenAI ViT checkpoints by model name: the file name the reference's
+# loader caches under ~/.cache/clip and its sha256 (clip/clip.py:29-38).
+OPENAI_VIT_FILES = {
+    "ViT-B/32": ("ViT-B-32.pt", "40d365715913c9da98579312b702a82c18be219cc2a73407c4526f58eba950af"),
+    "ViT-B/16": ("ViT-B-16.pt", "5806e77cd80f8b59890b7e101eabd078d9fb84e6937f9e85e4ecb61988df416f"),
+    "ViT-L/14": ("ViT-L-14.pt", "b8cca3fd41ae0c99ba7e8951adf17d267cdb84cd88be6f7c2e0eca1737a03836"),
+    "ViT-L/14@336px": ("ViT-L-14-336px.pt",
+                       "3035c92b350959924f9f00213499208652fc7ea050643e8b385c2dac08641f02"),
+}
+
+
+def find_cached_clip(name: str, root: str | None = None) -> str:
+    """The path of model ``name``'s OpenAI checkpoint in the local cache
+    (``~/.cache/clip``), checked against its sha256. Where the JAX package
+    would download it, this raises: the port fetches nothing."""
+    if name not in OPENAI_VIT_FILES:
+        raise FileNotFoundError(f"no OpenAI ViT checkpoint is known by the name {name!r}; "
+                                f"known: {sorted(OPENAI_VIT_FILES)}")
+    fname, sha = OPENAI_VIT_FILES[name]
+    path = os.path.join(root or os.path.expanduser("~/.cache/clip"), fname)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"{name}: no checkpoint at {path!r}. The port downloads nothing: put the OpenAI "
+            f"file there, or name a local file with MVLPT_TPU_CLIP_CKPT")
+    digest = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            digest.update(chunk)
+    if digest.hexdigest() != sha:
+        raise RuntimeError(f"{path!r} does not have the sha256 of the OpenAI {name} checkpoint")
+    return path

@@ -261,12 +261,28 @@ def _read_torch_payload(path: str) -> dict:
 _TORCH_LEGACY_MAGIC = 0x1950A86A20F9469CFC6C
 
 
+class ForeignState(tuple):
+    """What a JAX-written payload's optimizer state (``opt_state``: optax's
+    NamedTuples, the JAX package's own states) unpickles to here, where
+    neither package is imported: each state a plain tuple of its fields."""
+
+    def __new__(cls, *fields):
+        return tuple.__new__(cls, fields)
+
+
+class _PayloadUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.split(".")[0] in ("optax", "mvlpt_tpu", "jax", "jaxlib"):
+            return ForeignState
+        return super().find_class(module, name)
+
+
 def _read_payload(path: str) -> dict:
     """This package's (or the JAX package's) numpy pickle, or a torch archive."""
     if zipfile.is_zipfile(path):
         return _read_torch_payload(path)
     with open(path, "rb") as f:
-        payload = pickle.load(f)  # a corrupt file raises its own error
+        payload = _PayloadUnpickler(f).load()  # a corrupt file raises its own error
     if isinstance(payload, dict) and "state_dict" in payload:
         return payload
     if isinstance(payload, int) and payload == _TORCH_LEGACY_MAGIC:

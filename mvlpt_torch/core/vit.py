@@ -23,27 +23,57 @@ def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
     return x.reshape(b, gh * gw, patch_size * patch_size * c)
 
 
+def fold_normalize(kernel: torch.Tensor, patch_size: int, normalize: tuple):
+    """(scaled kernel, bias) of the patch embedding with CLIP's
+    ``(x/255 - mean) / std`` folded in: per channel it is ``a*x + b``, so
+    ``x @ (a*K) + b_flat @ K``. Computed from the frozen weights on their
+    device."""
+    compute_dtype = kernel.dtype
+    mean, std = (torch.as_tensor(v, dtype=torch.float32, device=kernel.device)
+                 for v in normalize)
+    a = 1.0 / (255.0 * std)       # (C,)
+    shift = -mean / std           # (C,)
+    c = mean.shape[0]
+    k32 = kernel.float().reshape(patch_size * patch_size, c, -1)
+    k_scaled = (k32 * a[None, :, None]).reshape(patch_size * patch_size * c, -1).to(compute_dtype)
+    bias = (k32 * shift[None, :, None]).sum(dim=(0, 1))  # (W,)
+    return k_scaled, bias
+
+
+class FoldedStems:
+    """:func:`fold_normalize`'s results, made once for each (patch
+    kernel, normalize) pair: building mean and std on the card from
+    Python floats is a host-to-device copy, which synchronises the stream,
+    so no call after the first may do it. Keyed on the kernel's
+    ``data_ptr()`` and the normalize tuple; an entry holds its kernel, so
+    the address cannot be reused by another tensor while it lives."""
+
+    def __init__(self):
+        self._entries: dict = {}
+
+    def get(self, kernel: torch.Tensor, patch_size: int, normalize: tuple):
+        normalize = tuple(tuple(float(x) for x in v) for v in normalize)
+        key = (kernel.data_ptr(), kernel.device, patch_size, normalize)
+        entry = self._entries.get(key)
+        if entry is None or entry[0] is not kernel or entry[1] != kernel._version:
+            entry = (kernel, kernel._version, fold_normalize(kernel, patch_size, normalize))
+            self._entries[key] = entry
+        return entry[2]
+
+
 def embed_image(params: dict, images: torch.Tensor, patch_size: int,
-                normalize: tuple | None = None) -> torch.Tensor:
+                normalize: tuple | None = None, stems: FoldedStems | None = None) -> torch.Tensor:
     """Frozen ViT stem: (B, H, W, 3) -> (B, 1+N, width) tokens after
     ln_pre, before any VPT prompt insertion.
 
     ``normalize=(mean, std)``: ``images`` are raw uint8 pixels and CLIP's
-    ``(x/255 - mean) / std`` is folded into the patch-embed product: per
-    channel it is ``a*x + b``, so ``x @ (a*K) + b_flat @ K`` with the
-    scaled kernel and the bias computed from the frozen weights."""
+    ``(x/255 - mean) / std`` is folded into the patch-embed product
+    (:func:`fold_normalize`), taken from ``stems`` when given."""
     kernel = params["patch_embed"]["kernel"]  # (P*P*C, W)
     compute_dtype = kernel.dtype
     if normalize is not None:
-        mean, std = (torch.as_tensor(v, dtype=torch.float32, device=kernel.device)
-                     for v in normalize)
-        a = 1.0 / (255.0 * std)       # (C,)
-        shift = -mean / std           # (C,)
-        c = images.shape[-1]
-        k32 = kernel.float().reshape(patch_size * patch_size, c, -1)
-        k_scaled = (k32 * a[None, :, None]).reshape(
-            patch_size * patch_size * c, -1).to(compute_dtype)
-        bias = (k32 * shift[None, :, None]).sum(dim=(0, 1))  # (W,)
+        k_scaled, bias = (stems.get(kernel, patch_size, normalize) if stems is not None
+                          else fold_normalize(kernel, patch_size, normalize))
         x = patchify(images, patch_size).to(compute_dtype)
         x = layers._matmul(x, k_scaled, bias)
     else:

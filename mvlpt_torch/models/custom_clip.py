@@ -47,14 +47,16 @@ class MVLPTModel(nn.Module):
         self.spec = spec
         self.kernels = kernels
         self.compute_dtype = compute_dtype
+        self.stems = vit_mod.FoldedStems()
 
     def embed_image(self, backbone, images, normalize=None):
         """Frozen ViT stem only: (B, H, W, 3) -> (B, 1+N, width) tokens.
         ``normalize=(mean, std)`` folds uint8 -> CLIP normalisation into
-        the patch-embed product."""
+        the patch-embed product, folded once for each backbone
+        (``vit.FoldedStems``)."""
         return vit_mod.embed_image(backbone["visual"], images,
                                    patch_size=self.clip_cfg.vision_patch_size,
-                                   normalize=normalize)
+                                   normalize=normalize, stems=self.stems)
 
     def encode_image(self, backbone, prompt_params, images, vpt_shallow=None,
                      vpt_deep=None, pre_embedded=False):

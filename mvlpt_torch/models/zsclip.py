@@ -79,12 +79,14 @@ def make_image_encoder(clip_cfg: CLIPConfig, mean, std, use_pallas="auto"):
             f"zero-shot for {type(clip_cfg).__name__} is not ported; only ViT (CLIPConfig)")
     norm = (tuple(mean), tuple(std))
     kernels = select_attn_fn(use_pallas, inference=True)
+    stems = vit_mod.FoldedStems()
 
     @torch.no_grad()
     def encode(backbone, images):
         if images.dtype == torch.uint8:
             tokens = vit_mod.embed_image(backbone["visual"], images,
-                                         patch_size=clip_cfg.vision_patch_size, normalize=norm)
+                                         patch_size=clip_cfg.vision_patch_size, normalize=norm,
+                                         stems=stems)
             return clip_core.encode_image(backbone, tokens, clip_cfg, pre_embedded=True,
                                           kernels=kernels)
         return clip_core.encode_image(backbone, images, clip_cfg, kernels=kernels)

@@ -5,5 +5,6 @@ from mvlpt_torch.prompts.learner import (
     compute_cut_context_length,
     format_prompts,
     init_prompt_params,
+    spec_from_cfg,
 )
 from mvlpt_torch.prompts.assembly import coop_assemble, upt_couple, vpt_prepare

@@ -86,6 +86,31 @@ class PromptConsts:
     tokenized: np.ndarray | None = dataclasses.field(default=None, repr=False)
 
 
+
+def spec_from_cfg(cfg, n_cls: int, clip_cfg, classnames=None) -> PromptSpec:
+    """Resolve a PromptSpec from the TRAINER.MVLPT config subtree (the
+    counterpart of ``mvlpt_tpu/prompts/learner.py:spec_from_cfg``)."""
+    t = cfg.TRAINER.MVLPT
+    coop_n_ctx = t.COOP.N_CTX
+    if t.COOP.CTX_INIT:
+        coop_n_ctx = len(t.COOP.CTX_INIT.replace("_", " ").split(" "))
+    cocoop_n_ctx = t.COCOOP.N_CTX
+    if t.COCOOP.CTX_INIT:
+        cocoop_n_ctx = len(t.COCOOP.CTX_INIT.replace("_", " ").split(" "))
+    context_length = clip_cfg.context_length
+    if cfg.TRAINER.CUT_CONTEXTLEN and classnames is not None:
+        context_length = compute_cut_context_length(
+            classnames, max(coop_n_ctx, cocoop_n_ctx), clip_cfg.context_length,
+            ctx_init=t.COCOOP.CTX_INIT if cocoop_n_ctx else t.COOP.CTX_INIT)
+    return PromptSpec(
+        n_cls=n_cls, coop_n_ctx=coop_n_ctx, vpt_n_ctx=t.VPT.N_CTX, cocoop_n_ctx=cocoop_n_ctx,
+        coop_csc=t.COOP.CSC, vpt_deep=t.VPT.DEEP, vpt_proj_dim=t.VPT.PROJECT,
+        vpt_dropout=t.VPT.DROPOUT, class_token_position=t.COOP.CLASS_TOKEN_POSITION,
+        project_method=t.PROJECT_METHOD, project_dim=t.PROJECT_DIM,
+        context_length=context_length, vision_layers=clip_cfg.vision_layers,
+        vision_width=clip_cfg.vision_width, text_width=clip_cfg.transformer_width,
+        embed_dim=clip_cfg.embed_dim, vision_patch_size=clip_cfg.vision_patch_size)
+
 def _prompt_prefix(spec: PromptSpec, ctx_init: str = "") -> str:
     n_ctx = spec.cocoop_n_ctx if spec.has_cocoop else spec.coop_n_ctx
     if ctx_init:

@@ -66,28 +66,10 @@ def build_lr_schedule(ocfg, steps_per_epoch: int) -> Callable[[int], float]:
     return schedule
 
 
-def build_optimizer(params, ocfg) -> torch.optim.Optimizer:
-    """SGD over ``params`` with the OPTIM config's momentum, dampening,
-    nesterov and coupled weight decay; the caller sets each step's lr
-    from ``build_lr_schedule``.
-
-    torch.optim.SGD matches the JAX package's optax chain exactly:
-    add_decayed_weights(wd) makes g + wd * p, which is SGD's coupled
-    weight decay; optax.trace keeps buf = g on the first step, then
-    momentum * buf + g, and the dampened trace (optim.py:71-92) keeps
-    buf = g first, then momentum * buf + (1 - damp) * g, which is SGD's
-    momentum buffer with dampening; scale_by_learning_rate makes the
-    update -lr(count) * buf with count the number of earlier updates,
-    which is the lr this port sets on the param group before each step."""
-    damp = _sgd_dampening(ocfg)
-    return torch.optim.SGD(params, lr=float(ocfg.LR), momentum=float(ocfg.MOMENTUM),
-                           dampening=damp, weight_decay=float(ocfg.WEIGHT_DECAY),
-                           nesterov=bool(ocfg.SGD_NESTEROV))
-
-
 def _sgd_dampening(ocfg) -> float:
     """SGD_DAMPNING, once the config is checked to name SGD with a valid
-    dampening and nesterov pair."""
+    dampening and nesterov pair. Adam, AdamW and RMSprop are not ported
+    yet (ROADMAP.md Queue 1, item 11)."""
     name = ocfg.NAME.lower()
     if name != "sgd":
         raise NotImplementedError(f"optimizer {name!r} is not ported yet (SGD only)")
@@ -135,7 +117,12 @@ def device_sgd_update_(params, grads, opt: DeviceSGD) -> None:
     momentum buf + (1 - dampening) g; the Nesterov form g + momentum buf
     where asked; p += -lr(count) x that, with lr(count) the table's entry
     for epoch count // steps_per_epoch. The same arithmetic as the JAX
-    package's optax chain (``build_optimizer``'s docstring)."""
+    package's optax chain: add_decayed_weights(wd) makes g + wd p;
+    optax.trace keeps buf = g on the first step, then momentum buf + g,
+    and its dampened trace (optim.py:71-92) momentum buf + (1 - damp) g;
+    scale_by_learning_rate makes the update -lr(count) buf with count the
+    number of earlier updates. It is also torch.optim.SGD's update with
+    the lr set to lr(count) before each step (the tests' reference)."""
     epoch = torch.clamp(torch.div(opt.count, opt.steps_per_epoch, rounding_mode="floor"),
                         0, opt.lr_table.shape[0] - 1)
     # index_select, not indexing: a 0-dim index tensor would be read back

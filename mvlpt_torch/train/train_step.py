@@ -25,29 +25,9 @@ import torch.distributed as dist
 from mvlpt_torch.models.custom_clip import MVLPTModel, TaskClassRanges
 from mvlpt_torch.ops.block import BlockKernels
 from mvlpt_torch.parallel.mesh import local_batch
-from mvlpt_torch.train.optim import (
-    DeviceSGD,
-    build_device_sgd,
-    build_lr_schedule,
-    build_optimizer,
-    device_sgd_update_,
-)
+from mvlpt_torch.data.transforms import device_constant
+from mvlpt_torch.train.optim import DeviceSGD, build_device_sgd, device_sgd_update_
 from mvlpt_torch.utils.tree import tree_leaves, tree_map
-
-
-@dataclasses.dataclass
-class TrainState:
-    prompt_params: dict          # nested dict of fp32 leaves that require grad
-    optimizer: torch.optim.Optimizer
-    schedule: Callable[[int], float]
-    step: int = 0
-
-
-def init_train_state(prompt_params: dict, ocfg, steps_per_epoch: int) -> TrainState:
-    """Copy ``prompt_params`` into trainable leaves and build SGD over them."""
-    params = tree_map(lambda t: t.detach().clone().requires_grad_(True), prompt_params)
-    return TrainState(params, build_optimizer(tree_leaves(params), ocfg),
-                      build_lr_schedule(ocfg, steps_per_epoch))
 
 
 def soft_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -95,25 +75,32 @@ def _data_mean(tensors, mesh) -> None:
 
 
 def make_train_step(model: MVLPTModel, task_ranges: TaskClassRanges | None = None,
-                    normalize: tuple | None = None, mesh=None) -> Callable:
+                    normalize: tuple | None = None, mesh=None,
+                    pre_embedded: bool = False) -> Callable:
     """step(state, backbone, consts, batch) -> (state, metrics).
 
     batch = {"image": (B,H,W,3) float (or uint8 with ``normalize``),
-    "label": (B,) int or (B,C), and optionally "task": (B,) int}. The
-    state's params and optimizer are updated in place. Metrics are
-    0-dim tensors (loss, acc, grad_norm); reading them waits for the
-    device. Under ``mesh`` the batch is the global one and must divide
-    over the data ranks; ``backbone`` is this rank's shard
-    (``parallel.shard_backbone``) and the model's kernels carry the mesh."""
+    "label": (B,) int or (B,C), and optionally "task": (B,) int}.
+    ``state`` is a ``WindowState`` (``init_train_state``), the same state
+    the windowed step takes: its params and its device SGD are updated in
+    place, with the lr read from the per-epoch table by the update count
+    on the device. Metrics are 0-dim tensors (loss, acc, grad_norm);
+    reading them waits for the device. Under ``mesh`` the batch is the
+    global one and must divide over the data ranks; ``backbone`` is this
+    rank's shard (``parallel.shard_backbone``) and the model's kernels
+    carry the mesh. ``pre_embedded``: batch["image"] holds the (B, 1+N,
+    width) tokens of ``model.embed_image``, as a window's steps read them
+    (``make_train_step_multi(..., pre_embed=True)``)."""
 
-    def step_fn(state: TrainState, backbone, consts, batch):
+    def step_fn(state: WindowState, backbone, consts, batch):
         nonlocal task_ranges
         if mesh is not None:
             batch = local_batch(batch, mesh)
         task_ranges = _ranges_on(task_ranges, batch["image"].device)
         params = state.prompt_params
         leaves = tree_leaves(params)
-        imgs, pre = _prep_images(model, backbone, batch["image"], normalize)
+        imgs, pre = ((batch["image"], True) if pre_embedded
+                     else _prep_images(model, backbone, batch["image"], normalize))
         logits = model(backbone, params, consts, imgs, tasks=batch.get("task"),
                        task_ranges=task_ranges, pre_embedded=pre)
         loss = soft_cross_entropy(logits, batch["label"])
@@ -122,15 +109,8 @@ def make_train_step(model: MVLPTModel, task_ranges: TaskClassRanges | None = Non
             loss, acc = loss.detach(), accuracy(logits, batch["label"])
             _data_mean(grads + (loss, acc), mesh)
             grad_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
-            for p, g in zip(leaves, grads):
-                p.grad = g
-            lr = state.schedule(state.step)
-            for group in state.optimizer.param_groups:
-                group["lr"] = lr
-            state.optimizer.step()
-            state.optimizer.zero_grad(set_to_none=True)
+            device_sgd_update_(leaves, grads, state.sgd)
             metrics = {"loss": loss, "acc": acc, "grad_norm": grad_norm}
-        state.step += 1
         return state, metrics
 
     return step_fn
@@ -138,10 +118,11 @@ def make_train_step(model: MVLPTModel, task_ranges: TaskClassRanges | None = Non
 
 @dataclasses.dataclass
 class WindowState:
-    """The windowed step's train state, all on the device and updated in
-    place: the prompt params (fp32 leaves that require grad) and the SGD
-    state (``optim.DeviceSGD``). Rebind none of its tensors: a captured
-    window reads them where they lie."""
+    """The train state of both train steps (``make_train_step`` and
+    ``make_train_step_multi``), all on the device and updated in place:
+    the prompt params (fp32 leaves that require grad) and the SGD state
+    (``optim.DeviceSGD``). Rebind none of its tensors: a captured window
+    reads them where they lie."""
 
     prompt_params: dict
     sgd: DeviceSGD
@@ -152,9 +133,9 @@ class WindowState:
         return int(self.sgd.count)
 
 
-def init_window_state(prompt_params: dict, ocfg, steps_per_epoch: int) -> WindowState:
+def init_train_state(prompt_params: dict, ocfg, steps_per_epoch: int) -> WindowState:
     """Copy ``prompt_params`` into trainable leaves and build the device
-    SGD over them."""
+    SGD over them, from the OPTIM config ``ocfg``."""
     params = tree_map(lambda t: t.detach().clone().requires_grad_(True), prompt_params)
     return WindowState(params, build_device_sgd(tree_leaves(params), ocfg, steps_per_epoch))
 
@@ -234,7 +215,7 @@ class WindowStep:
                                            normalize=norm)
             imgs = tokens.reshape(k, b, *tokens.shape[1:])
         elif self.normalize is not None and imgs.dtype == torch.uint8:
-            mean, std = (torch.tensor(v, dtype=torch.float32, device=imgs.device)
+            mean, std = (device_constant(tuple(map(float, v)), imgs.device)
                          for v in self.normalize)
             imgs = ((imgs.float() / 255.0 - mean) / std).to(model.compute_dtype)
         return dict(batches, image=imgs)
@@ -324,7 +305,7 @@ def make_train_step_multi(model: MVLPTModel, task_ranges: TaskClassRanges | None
     leading window axis K ("image" (K, B, H, W, 3), "label" (K, B) or
     (K, B, C), optionally "task" (K, B)); the metrics ``loss``, ``acc`` and
     ``grad_norm`` come back as (K,) fp32 tensors on the device. ``state``
-    is a ``WindowState`` (``init_window_state``), updated in place; its
+    is a ``WindowState`` (``init_train_state``), updated in place; its
     SGD reads the lr from the per-epoch table by its update count on the
     device, so a window may cross an epoch boundary.
 

@@ -25,3 +25,13 @@ def tree_leaves(tree) -> list:
             out.extend(tree_leaves(tree[k]))
         return out
     return [] if tree is None else [tree]
+
+
+def tree_keys(tree, prefix: str = "") -> list:
+    """The dotted paths of ``tree_leaves(tree)``, in the same order."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out.extend(tree_keys(tree[k], f"{prefix}{k}."))
+        return out
+    return [] if tree is None else [prefix[:-1]]

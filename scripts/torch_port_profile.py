@@ -15,8 +15,10 @@ images with normalize; a step here is a train step, ``--steps`` counts
 windows), for two warm-up steps (windows), then traces ``--steps`` steps
 (windows) with torch.profiler. Prints the
 card (nvidia-smi name and power limit), ms/step on the host clock, the
-device time a step summed over kernels, the device's idle share, and
-device time by kernel name; writes the Chrome trace to ``--out``.
+device time a step summed over kernels, the device's idle share, the
+host's stream synchronizations (``cudaStreamSynchronize``) and the
+host-to-device copies (``Memcpy HtoD``) a step, and device time by
+kernel name; writes the Chrome trace to ``--out``.
 Needs a card; uses the synthetic vocab unless MVLPT_TORCH_BPE_PATH names
 a file.
 """
@@ -51,10 +53,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from chip_smoke import card_line, setup_vocab
-    from mvlpt_torch.config import OptimConfig
+    from mvlpt_torch.config import optim_config
     from mvlpt_torch.flagship import CLIP_PIXEL_MEAN, CLIP_PIXEL_STD, flagship
     from mvlpt_torch.train import (
-        init_train_state, init_window_state, make_cached_text_eval, make_train_step,
+        init_train_state, make_cached_text_eval, make_train_step,
         make_train_step_multi)
 
     print(card_line())  # name, power limit (nvidia-smi)
@@ -69,10 +71,10 @@ def main() -> int:
     batch = {"image": torch.from_numpy(rng.randint(0, 256, (*lead, 224, 224, 3)).astype(
                  np.uint8)).cuda(),
              "label": torch.from_numpy(rng.randint(0, 100, lead)).cuda()}
-    ocfg = OptimConfig(LR=0.002, LR_SCHEDULER="cosine", MAX_EPOCH=200)
+    ocfg = optim_config(LR=0.002, LR_SCHEDULER="cosine", MAX_EPOCH=200)
     per_call = args.k if args.path == "window" else 1
     if args.path == "window":
-        state = init_window_state(pp, ocfg, 100)
+        state = init_train_state(pp, ocfg, 100)
         window_step = make_train_step_multi(model, pre_embed=True, normalize=norm)
 
         def step():
@@ -108,12 +110,16 @@ def main() -> int:
             if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
     rows.sort(reverse=True)
     steps = args.steps * per_call
+    calls = {ev.key: ev.count for ev in prof.key_averages()}
+    syncs = calls.get("cudaStreamSynchronize", 0)
+    htod = sum(n for key, n in calls.items() if "Memcpy HtoD" in key)
     busy_ms = sum(r[0] for r in rows) / 1e3 / steps
     step_ms = wall * 1e3 / steps
     print(json.dumps({"path": args.path, "ms_per_step_host": step_ms,
                       "device_ms_per_step": busy_ms,
                       "device_idle_share": max(0.0, 1 - busy_ms / step_ms),
-                      "steps": steps}))
+                      "stream_syncs_per_step": syncs / steps,
+                      "htod_copies_per_step": htod / steps, "steps": steps}))
     for dev_us, count, key in rows[:30]:
         print(f"{dev_us / 1e3 / steps:9.3f} ms/step {count // steps:6d} calls/step  "
               f"{key[:140]}")

@@ -136,7 +136,7 @@ def first_steps() -> dict:
     import torch
 
     from chip_smoke import OPTIM
-    from mvlpt_torch.config import OptimConfig
+    from mvlpt_torch.config import optim_config
     from mvlpt_torch.flagship import CLIP_PIXEL_MEAN, CLIP_PIXEL_STD, flagship
     from mvlpt_torch.train import init_train_state, make_train_step
 
@@ -155,7 +155,7 @@ def first_steps() -> dict:
             model, backbone, pp, consts, _, _ = flagship(device="cuda", compute_dtype=dtype,
                                                          kernels=sel)
             step = make_train_step(model, normalize=(CLIP_PIXEL_MEAN, CLIP_PIXEL_STD))
-            _, m = step(init_train_state(pp, OptimConfig(**OPTIM), 100), backbone, consts, batch)
+            _, m = step(init_train_state(pp, optim_config(**OPTIM), 100), backbone, consts, batch)
             out[name] = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item()}
         finally:
             undo()

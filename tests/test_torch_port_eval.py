@@ -112,7 +112,7 @@ def test_three_sgd_steps_match_under_standalone_attention(sides):  # noqa: F811
     from mvlpt_tpu.train.optim import build_optimizer as j_build
     from mvlpt_tpu.train.train_step import init_train_state as j_init, make_train_step as j_step
 
-    from mvlpt_torch.config import OptimConfig
+    from mvlpt_torch.config import optim_config
     from mvlpt_torch.ops.attention import fused_attention
     from mvlpt_torch.train import init_train_state, make_train_step
     from mvlpt_torch.utils.tree import tree_leaves
@@ -126,7 +126,7 @@ def test_three_sgd_steps_match_under_standalone_attention(sides):  # noqa: F811
                 "label": rng.randint(0, N_CLS, BATCH)} for _ in range(3)]
 
     cfg = get_cfg_default()
-    ocfg = OptimConfig(LR=0.05, LR_SCHEDULER="cosine", MAX_EPOCH=4)
+    ocfg = optim_config(LR=0.05, LR_SCHEDULER="cosine", MAX_EPOCH=4)
     for key in ("LR", "LR_SCHEDULER", "MAX_EPOCH"):
         setattr(cfg.OPTIM, key, getattr(ocfg, key))
     tx, _ = j_build(cfg.OPTIM, steps_per_epoch=1)

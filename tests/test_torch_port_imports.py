@@ -1,8 +1,8 @@
 """The port stands alone: no module of mvlpt_torch, not chip_smoke.py, and
 not the entry module of the tensor-parallel tests' spawned ranks imports
 JAX, the JAX package, or a package the GPU host lacks (regex, yaml,
-optax); entry points refuse to run without CUDA unless asked for the
-CPU."""
+optax, scikit-learn); entry points refuse to run without CUDA unless
+asked for the CPU."""
 
 import ast
 import os
@@ -15,7 +15,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "mvlpt_tpu", "regex", "yaml", "optax", "flax")
+FORBIDDEN = ("jax", "jaxlib", "mvlpt_tpu", "regex", "yaml", "optax", "flax", "sklearn")
 SOURCES = sorted((ROOT / "mvlpt_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "torch_port_tp_child.py"]
 
@@ -71,6 +71,10 @@ def test_entry_points_need_cuda_or_cpu(no_cuda):
         flagship()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device(None)
+    from mvlpt_torch.cli.train import build_parser, main
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(build_parser().parse_args(["--trainer", "MVLPT"]))
     assert resolve_device("cpu") == torch.device("cpu")
     cfg = CLIPConfig(embed_dim=8, image_resolution=16, vision_layers=1, vision_width=16,
                      vision_patch_size=8, transformer_width=16, transformer_heads=2,

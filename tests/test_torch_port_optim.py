@@ -1,5 +1,5 @@
-"""The port's LR table and SGD against mvlpt_tpu/train/optim.py (optax)
-on fixed gradient sequences."""
+"""The port's LR table and SGD (``device_sgd_update_``) against
+mvlpt_tpu/train/optim.py (optax) on fixed gradient sequences."""
 
 import jax
 import jax.numpy as jnp
@@ -12,8 +12,8 @@ from mvlpt_tpu.config import get_cfg_default
 from mvlpt_tpu.train.optim import build_lr_schedule as j_schedule
 from mvlpt_tpu.train.optim import build_optimizer as j_optimizer
 
-from mvlpt_torch.config import OptimConfig
-from mvlpt_torch.train.optim import build_lr_schedule, build_optimizer
+from mvlpt_torch.config import optim_config
+from mvlpt_torch.train.optim import build_device_sgd, build_lr_schedule, device_sgd_update_
 
 SCHEDULES = [
     dict(LR_SCHEDULER="cosine", MAX_EPOCH=6),
@@ -28,18 +28,18 @@ SCHEDULES = [
 
 
 def _configs(**kw):
-    ocfg = OptimConfig(LR=0.01, **kw)
+    ocfg = optim_config(LR=0.01, **kw)
     cfg = get_cfg_default()
-    for key, value in vars(ocfg).items():
+    for key, value in ocfg.items():
         setattr(cfg.OPTIM, key, value)
     return cfg.OPTIM, ocfg
 
 
 def test_defaults_match_jax_config():
+    from mvlpt_torch.config import get_cfg_default as t_defaults
+
     jcfg = get_cfg_default().OPTIM
-    for key, value in vars(OptimConfig()).items():
-        want = getattr(jcfg, key)
-        assert (tuple(want) if isinstance(value, tuple) else want) == value, key
+    assert dict(optim_config()) == dict(jcfg) == dict(t_defaults().OPTIM)
 
 
 @pytest.mark.parametrize("kw", SCHEDULES)
@@ -70,22 +70,16 @@ def test_sgd_matches_optax_chain(opt):
         updates, state = tx.update(jax.tree_util.tree_map(jnp.asarray, g), state, jp)
         jp = optax.apply_updates(jp, updates)
 
-    tp = {k: torch.from_numpy(v.copy()).requires_grad_(True) for k, v in params.items()}
-    opt_t = build_optimizer([tp["a"], tp["b"]], ocfg)
-    schedule = build_lr_schedule(ocfg, steps_per_epoch=2)
-    for i, g in enumerate(grads):
-        for k in tp:
-            tp[k].grad = torch.from_numpy(g[k])
-        for group in opt_t.param_groups:
-            group["lr"] = schedule(i)
-        opt_t.step()
-    for k in params:
-        np.testing.assert_allclose(tp[k].detach().numpy(), np.asarray(jp[k]), atol=1e-6)
+    tp = [torch.from_numpy(params[k].copy()) for k in ("a", "b")]
+    opt_t = build_device_sgd(tp, ocfg, steps_per_epoch=2)
+    for g in grads:
+        device_sgd_update_(tp, [torch.from_numpy(g[k]) for k in ("a", "b")], opt_t)
+    for p, k in zip(tp, ("a", "b")):
+        np.testing.assert_allclose(p.numpy(), np.asarray(jp[k]), atol=1e-6)
 
 
 def test_unsupported_optimizers_raise():
     with pytest.raises(NotImplementedError):
-        build_optimizer([torch.zeros(1, requires_grad=True)], OptimConfig(NAME="adam"))
+        build_device_sgd([torch.zeros(1)], optim_config(NAME="adam"), 1)
     with pytest.raises(ValueError):
-        build_optimizer([torch.zeros(1, requires_grad=True)],
-                        OptimConfig(SGD_DAMPNING=0.1, SGD_NESTEROV=True))
+        build_device_sgd([torch.zeros(1)], optim_config(SGD_DAMPNING=0.1, SGD_NESTEROV=True), 1)

@@ -61,11 +61,11 @@ def _torch(batches):
 
 
 def _port_window(sides, batches, **kw):
-    from mvlpt_torch.config import OptimConfig
-    from mvlpt_torch.train import init_window_state, make_train_step_multi
+    from mvlpt_torch.config import optim_config
+    from mvlpt_torch.train import init_train_state, make_train_step_multi
 
     model, backbone, pp, consts = sides["t"]
-    state = init_window_state(pp, OptimConfig(**OPTIM), SPE)
+    state = init_train_state(pp, optim_config(**OPTIM), SPE)
     step = make_train_step_multi(model, **kw)
     state, metrics = step(state, backbone, consts, _torch(batches))
     assert step.captures == 0 and step.replays == 0  # the CPU runs the steps eagerly
@@ -73,12 +73,12 @@ def _port_window(sides, batches, **kw):
 
 
 def _per_step(sides, batches, **kw):
-    """K calls of the port's make_train_step (torch.optim.SGD)."""
-    from mvlpt_torch.config import OptimConfig
+    """K calls of the port's make_train_step."""
+    from mvlpt_torch.config import optim_config
     from mvlpt_torch.train import init_train_state, make_train_step
 
     model, backbone, pp, consts = sides["t"]
-    state = init_train_state(pp, OptimConfig(**OPTIM), SPE)
+    state = init_train_state(pp, optim_config(**OPTIM), SPE)
     step = make_train_step(model, **kw)
     losses = []
     for i in range(batches["image"].shape[0]):
@@ -230,13 +230,12 @@ def test_device_sgd_matches_torch_sgd_and_optax(opt):
     from mvlpt_tpu.config import get_cfg_default
     from mvlpt_tpu.train.optim import build_optimizer as j_optimizer
 
-    from mvlpt_torch.config import OptimConfig
-    from mvlpt_torch.train.optim import (
-        build_device_sgd, build_lr_schedule, build_optimizer, device_sgd_update_)
+    from mvlpt_torch.config import optim_config
+    from mvlpt_torch.train.optim import build_device_sgd, build_lr_schedule, device_sgd_update_
 
-    ocfg = OptimConfig(LR=0.01, LR_SCHEDULER="cosine", MAX_EPOCH=5, **opt)
+    ocfg = optim_config(LR=0.01, LR_SCHEDULER="cosine", MAX_EPOCH=5, **opt)
     cfg = get_cfg_default()
-    for key, value in vars(ocfg).items():
+    for key, value in ocfg.items():
         setattr(cfg.OPTIM, key, value)
     rng = np.random.RandomState(0)
     params = {"a": rng.randn(4, 3).astype(np.float32), "b": rng.randn(5).astype(np.float32)}
@@ -247,7 +246,9 @@ def test_device_sgd_matches_torch_sgd_and_optax(opt):
     jp = {k: jnp.asarray(v) for k, v in params.items()}
     j_state = tx.init(jp)
     ref = [torch.from_numpy(params[k].copy()).requires_grad_(True) for k in ("a", "b")]
-    sgd, schedule = build_optimizer(ref, ocfg), build_lr_schedule(ocfg, steps_per_epoch=2)
+    sgd = torch.optim.SGD(ref, lr=ocfg.LR, momentum=ocfg.MOMENTUM, dampening=ocfg.SGD_DAMPNING,
+                          weight_decay=ocfg.WEIGHT_DECAY, nesterov=ocfg.SGD_NESTEROV)
+    schedule = build_lr_schedule(ocfg, steps_per_epoch=2)
     dev = [torch.from_numpy(params[k].copy()) for k in ("a", "b")]
     opt_dev = build_device_sgd(dev, ocfg, steps_per_epoch=2)
     for i, g in enumerate(grads):
@@ -266,13 +267,13 @@ def test_device_sgd_matches_torch_sgd_and_optax(opt):
 
 
 def test_device_sgd_refuses_what_sgd_refuses():
-    from mvlpt_torch.config import OptimConfig
+    from mvlpt_torch.config import optim_config
     from mvlpt_torch.train.optim import build_device_sgd
 
     with pytest.raises(NotImplementedError):
-        build_device_sgd([torch.zeros(1)], OptimConfig(NAME="adam"), 1)
+        build_device_sgd([torch.zeros(1)], optim_config(NAME="adam"), 1)
     with pytest.raises(ValueError):
-        build_device_sgd([torch.zeros(1)], OptimConfig(SGD_DAMPNING=0.1, SGD_NESTEROV=True), 1)
+        build_device_sgd([torch.zeros(1)], optim_config(SGD_DAMPNING=0.1, SGD_NESTEROV=True), 1)
 
 
 @pytest.mark.parametrize("kw", [

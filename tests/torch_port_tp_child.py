@@ -80,7 +80,7 @@ def run(rank: int, world: int, n_data: int, n_model: int, workdir: str, vocab: s
 def _rank_outputs(rank, n_data, n_model, inputs) -> dict:
     import torch
 
-    from mvlpt_torch.config import OptimConfig
+    from mvlpt_torch.config import optim_config
     from mvlpt_torch.core import layers
     from mvlpt_torch.core.clip import CLIPConfig
     from mvlpt_torch.flagship import CLIP_PIXEL_MEAN, CLIP_PIXEL_STD
@@ -122,7 +122,7 @@ def _rank_outputs(rank, n_data, n_model, inputs) -> dict:
             model, normalize=(CLIP_PIXEL_MEAN, CLIP_PIXEL_STD))
         out["eval_logits"] = eval_fn(backbone, pp, text_fn(backbone, pp, consts),
                                      {"image": torch.from_numpy(inputs["eval_image"])}).numpy()
-    state = init_train_state(pp, OptimConfig(**OPTIM), steps_per_epoch=1)
+    state = init_train_state(pp, optim_config(**OPTIM), steps_per_epoch=1)
     batch = {"image": torch.from_numpy(inputs["image"]),
              "label": torch.from_numpy(inputs["label"])}
     state, metrics = make_train_step(model, mesh=mesh)(state, backbone, consts, batch)
