@@ -111,6 +111,26 @@
      the first loss within 1e-2 of an 'off' run's; its epoch times,
      img/s with the loading, the loader's share, test() img/s and peak
      memory.
+   - ELEVATER through the CLI (``drive_trainer_elevater``), on the 20
+     tasks of scripts/mvlpt/main_mt_elevater_cut.sh written under build/
+     with their real class names (1151 classes), a random ViT-B/16 at full
+     width: trainer_elevater, the multitask UPT run with the script's
+     flags (--multi-task --multi-task-label_pertask --cut-contextlen
+     --act-ckpt 4, NCTX 16, 'middle', best_val), two epochs: one capture,
+     the replayed window equal bit for bit to the eager window, a traced
+     replay launching #1 and #3 twice as often as #2 and #4 (remat), the
+     first window equal bit for bit to an --act-ckpt 1 run's, an
+     --eval-only rerun's test logits bit-equal, every result finite; its
+     window ms/step (host and CUDA events) and MFU with and without
+     remat, peak memory, epoch img/s and loader share, every task's
+     metric. trainer_elevater_transfer: one task warm-started from that
+     run's best prompt (main_single_elevater_cut.sh). zeroshot_cli:
+     ZeroshotCLIP on trainer_cli's dataset, ZeroshotCLIP2 on an ELEVATER
+     task (zeroshot.sh), #5 and #6 launched. The half-block check rows
+     (#1-#6) also run at each shape these runs give the kernels: the
+     ELEVATER-20 and the transfer task's text towers, the image tower
+     with 16 VPT rows at the train and eval batches, and the zero-shot
+     image tower; each run fails if its shapes are not its rows'.
 4. Prints a summary line (img/s, ms/step, MFU, peak memory), one JSON
    line of kernel numbers, then, as the last line, {"ok": true,
    "device": {...}}.
@@ -1820,11 +1840,24 @@ CLI_OPTS = ["TRAINER.MVLPT.COOP.N_CTX", "4", "TRAINER.MVLPT.VPT.N_CTX", "4",
             "TRAIN.STEPS_PER_DISPATCH", "20", "TEST.FINAL_MODEL", "best_val"]
 
 
+def _write_class_jpeg(path: Path, rng, label: int) -> None:
+    """A CLI_IMAGE_SIZE square JPEG at ``path``: smooth noise drawn from
+    ``rng`` plus a colour of class ``label``."""
+    import numpy as np
+    from PIL import Image
+
+    n = CLI_IMAGE_SIZE
+    coarse = rng.randint(0, 100, (n // 16, n // 16, 3)).astype(np.uint8)
+    img = Image.fromarray(coarse).resize((n, n), Image.BILINEAR)
+    colour = np.array([(label * 97) % 156, (label * 57) % 156, (label * 37) % 156])
+    arr = np.asarray(img, dtype=np.int64) + colour
+    Image.fromarray(arr.astype(np.uint8)).save(path, quality=90)
+
+
 def write_cli_dataset(root: Path) -> Path:
     """A CoOp dataset in OxfordPets' split-json layout under ``root``:
     smooth seeded noise plus a class colour, as JPEGs."""
     import numpy as np
-    from PIL import Image
 
     ddir = root / "oxford_pets"
     split_path = ddir / "split_zhou_OxfordPets.json"
@@ -1833,17 +1866,12 @@ def write_cli_dataset(root: Path) -> Path:
     (ddir / "images").mkdir(parents=True, exist_ok=True)
     rng = np.random.RandomState(0)
     split = {"train": [], "val": [], "test": []}
-    n = CLI_IMAGE_SIZE
     for label in range(CLI_CLASSES):
         cname = f"class_number_{label}"
-        colour = np.array([(label * 97) % 156, (label * 57) % 156, (label * 37) % 156])
         for part, count in (("train", CLI_SHOTS), ("val", CLI_VAL), ("test", CLI_TEST)):
             for i in range(count):
-                coarse = rng.randint(0, 100, (n // 16, n // 16, 3)).astype(np.uint8)
-                img = Image.fromarray(coarse).resize((n, n), Image.BILINEAR)
-                arr = np.asarray(img, dtype=np.int64) + colour
                 rel = f"{cname}_{part}_{i}.jpg"
-                Image.fromarray(arr.astype(np.uint8)).save(ddir / "images" / rel, quality=90)
+                _write_class_jpeg(ddir / "images" / rel, rng, label)
                 split[part].append([rel, label, cname])
     split_path.write_text(json.dumps(split))
     return root
@@ -1870,15 +1898,10 @@ class _WindowProbe:
 
 def _cli_run(argv: list):
     """(trainer, window probe) of one in-process run of the port's CLI."""
-    from mvlpt_torch.cli.train import build_parser, main
     from mvlpt_torch.train import trainer as trainer_mod
 
     probe = _WindowProbe(trainer_mod.make_train_step_multi)
-    trainer_mod.make_train_step_multi = probe
-    try:
-        return main(build_parser().parse_args(argv)), probe
-    finally:
-        trainer_mod.make_train_step_multi = probe.make
+    return _cli_probed(argv, probe), probe
 
 
 def _test_logits(trainer):
@@ -1916,8 +1939,6 @@ def drive_trainer_cli() -> dict:
     Prints each epoch's wall time, training img/s on the host clock with
     the loading, the share of the epoch spent waiting on the loader,
     test() img/s and peak memory, beside the card's name and power limit."""
-    import ast
-
     import PIL
     import torch
 
@@ -1973,14 +1994,10 @@ def drive_trainer_cli() -> dict:
     for name in ("model-best.pth.tar", "model.pth.tar-2"):
         if not (out_dir / "train" / "prompt_learner" / name).is_file():
             raise AssertionError(f"{path}: no prompt_learner/{name}")
-    results = [ast.literal_eval(line[len("results "):])
-               for line in (out_dir / "train" / "log.txt").read_text().splitlines()
-               if line.startswith("results ")]
+    results = _results_of(out_dir / "train" / "log.txt")
     if not results or "accuracy" not in results[-1]:
         raise AssertionError(f"{path}: no results line with an accuracy in log.txt")
-    eval_results = [ast.literal_eval(line[len("results "):])
-                    for line in (out_dir / "eval" / "log.txt").read_text().splitlines()
-                    if line.startswith("results ")]
+    eval_results = _results_of(out_dir / "eval" / "log.txt")
     if not torch.equal(logits, logits_again) or eval_results[-1] != results[-1]:
         raise AssertionError(f"{path}: the --eval-only rerun's test logits differ by "
                              f"{(logits - logits_again).abs().max().item()} (results "
@@ -2011,6 +2028,521 @@ def drive_trainer_cli() -> dict:
         img_per_s=sum(e["images"] for e in epochs) / sum(e["wall_s"] for e in epochs))
     print("main-path " + json.dumps(out), flush=True)
     return out
+
+# The ELEVATER phases (trainer_elevater, trainer_elevater_transfer,
+# zeroshot_cli): the 20 tasks of scripts/mvlpt/main_mt_elevater_cut.sh in
+# the local manifest layout under build/ (``write_elevater_dataset``), with
+# their real class names from metadata.json (1151 classes); ELEV_SHOTS
+# train and ELEV_TEST test images a class (cut from the script's 20 shots
+# and the tasks' test sets), CLI_IMAGE_SIZE square JPEGs, ELEV_EPOCHS
+# epochs (cut from the yaml's 200). The script's own flags: UPT with
+# NCTX 16 on both sides, 'middle', --cut-contextlen, --act-ckpt 4,
+# best_val.
+ELEV_SHOTS, ELEV_TEST, ELEV_EPOCHS = 2, 1, 2
+ELEV_CTX = 16  # the script's NCTX: CoOp and VPT context tokens
+ELEV_OPTS = ["TRAINER.MVLPT.COOP.N_CTX", str(ELEV_CTX), "TRAINER.MVLPT.VPT.N_CTX", str(ELEV_CTX),
+             "TRAINER.MVLPT.COOP.CLASS_TOKEN_POSITION", "middle", "TEST.FINAL_MODEL", "best_val"]
+# main_single_elevater_cut.sh's transfer task and the ZeroshotCLIP2 task.
+ELEV_TRANSFER_TASK = "oxford-flower-102"
+ELEV_ZS_TASK = "oxford-flower-102"
+# Steps of the replayed window that is traced (a trace loses records past
+# about 10^5 kernels).
+ELEV_TRACE_K = 8
+
+
+def elevater_classnames(tasks=None) -> list:
+    """The class names of ``tasks`` (the 20 by default) in the multitask
+    manager's global order."""
+    from mvlpt_torch.data.elevater import ELEVATER_20_TASKS, class_map, first_classname
+
+    return [first_classname(c) for t in tasks or ELEVATER_20_TASKS for c in class_map(t)]
+
+
+def elevater_text_shape(tasks=None, n_ctx: int = ELEV_CTX) -> tuple[int, int, int]:
+    """(s, G, rows) of the text tower over ``tasks``' classes (the 20 by
+    default) at CoOp ctx ``n_ctx`` with the vocab in use."""
+    from mvlpt_torch.core.text import packing
+    from mvlpt_torch.prompts import compute_cut_context_length
+
+    names = elevater_classnames(tasks)
+    s = compute_cut_context_length(names, n_ctx)
+    g, rows = packing(len(names), s)
+    return s, g, rows
+
+
+def elevater_image_tokens(vpt_ctx: int = ELEV_CTX) -> int:
+    """The ViT-B/16 image tower's S at 224 px with ``vpt_ctx`` VPT rows."""
+    return 1 + 14 * 14 + vpt_ctx
+
+
+def write_elevater_dataset(root: Path) -> Path:
+    """The 20 ELEVATER tasks under ``root`` in the local manifest layout
+    (``write_task_manifest``; no classnames: metadata.json's apply):
+    ELEV_SHOTS train and ELEV_TEST val images a class (the yaml's
+    DATASET.TEST_SET is "val"), smooth seeded noise plus a class colour,
+    as CLI_IMAGE_SIZE JPEGs; voc-2007-classification's items carry one or
+    two more classes (multilabel). Written by 8 threads. A marker holds
+    the sizes it was written with; data of other sizes is written anew."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from mvlpt_torch.data.elevater import ELEVATER_20_TASKS, class_map, write_task_manifest
+
+    marker = root / "written.json"
+    sizes = {"shots": ELEV_SHOTS, "test": ELEV_TEST, "image_size": CLI_IMAGE_SIZE}
+    if marker.exists() and json.loads(marker.read_text()).get("sizes") == sizes:
+        return root
+    shutil.rmtree(root, ignore_errors=True)
+    jobs = []
+    for t, task in enumerate(ELEVATER_20_TASKS):
+        items = write_task_manifest(str(root / task), len(class_map(task)),
+                                    {"train": ELEV_SHOTS, "val": ELEV_TEST},
+                                    np.random.RandomState(1000 + t),
+                                    multilabel=task == "voc-2007-classification")
+        jobs += [(root / task / rel, label) for rel, label in items]
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda k: _write_class_jpeg(jobs[k][0], np.random.RandomState(k),
+                                                  jobs[k][1]), range(len(jobs))))
+    marker.write_text(json.dumps({"sizes": sizes, "images": len(jobs)}))
+    return root
+
+
+def _state_copy(state) -> tuple:
+    """(prompt leaves, momentum buffers, update count) of a WindowState,
+    cloned."""
+    from mvlpt_torch.utils.tree import tree_leaves
+
+    return ([t.detach().clone() for t in tree_leaves(state.prompt_params)],
+            [b.clone() for b in state.sgd.buffers], state.sgd.count.clone())
+
+
+def _restore(state, copy: tuple) -> None:
+    """Write a ``_state_copy`` back into ``state``'s tensors, in place."""
+    import torch
+
+    from mvlpt_torch.utils.tree import tree_leaves
+
+    leaves, buffers, count = copy
+    with torch.no_grad():
+        for dst, src in zip(tree_leaves(state.prompt_params), leaves):
+            dst.copy_(src)
+        for dst, src in zip(state.sgd.buffers, buffers):
+            dst.copy_(src)
+        state.sgd.count.copy_(count)
+
+
+class _TimedWindowProbe(_WindowProbe):
+    """A ``_WindowProbe`` that also records, for each window: its host ms
+    (a sync before and after the call) and its ms between CUDA events, its
+    peak memory (the allocator's peak reset at the call); for the windows
+    in ``copies``, the state before and after it (``_state_copy``,
+    ``states[window]``); and keeps the staged batches of window ``keep``."""
+
+    def __init__(self, make, keep: int = -1, copies: tuple = (0,)):
+        super().__init__(make)
+        self.keep, self.copies, self.kept, self.timings, self.states = keep, copies, None, [], {}
+        self.state = None  # the WindowState of the first window, which the graph reads
+
+    def __call__(self, *args, **kw):
+        import torch
+
+        step = self.make(*args, **kw)
+        self.steps.append(step)
+
+        def call(state, backbone, consts, batches):
+            if self.state is None:
+                self.state = state
+            window = len(self.windows)
+            before = _state_copy(state) if window in self.copies else None
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            start.record()
+            state, metrics = step(state, backbone, consts, batches)
+            end.record()
+            torch.cuda.synchronize()
+            k = int(metrics["loss"].shape[0])
+            self.timings.append(dict(steps=k, host_ms=1e3 * (time.perf_counter() - t0),
+                                     device_ms=start.elapsed_time(end), peak_gib=_peak_gib()))
+            if before is not None:
+                self.states[window] = (before, _state_copy(state))
+            if window == self.keep:
+                self.kept = batches
+            self.windows.append(metrics)
+            return state, metrics
+        return call
+
+
+def _cli_probed(argv: list, probe, epochs: int = 0):
+    """(trainer) of one in-process run of the port's CLI with ``probe``
+    standing in for ``make_train_step_multi``; then ``epochs`` more epochs
+    of the trainer's by ``run_epoch`` (for a --no-train run)."""
+    from mvlpt_torch.cli.train import build_parser, main
+    from mvlpt_torch.train import trainer as trainer_mod
+
+    trainer_mod.make_train_step_multi = probe
+    try:
+        trainer = main(build_parser().parse_args(argv))
+        for trainer.epoch in range(epochs):
+            trainer.run_epoch()
+        return trainer
+    finally:
+        trainer_mod.make_train_step_multi = probe.make
+
+
+def _results_of(log: Path) -> list[dict]:
+    import ast
+
+    return [ast.literal_eval(line[len("results "):]) for line in log.read_text().splitlines()
+            if line.startswith("results ")]
+
+
+def _equal_windows(path: str, what: str, a: dict, b: dict, leaves_a, leaves_b,
+                   steps: int | None = None) -> None:
+    """Bit equality of two windows' metrics (the first ``steps``) and of
+    the prompt leaves after them."""
+    import torch
+
+    from mvlpt_torch.train.train_step import WINDOW_METRICS
+
+    for name in WINDOW_METRICS:
+        x, y = a[name][:steps], b[name][:steps]
+        if not torch.equal(x, y):
+            raise AssertionError(f"{path}: {what}: {name} {x.tolist()} against {y.tolist()}")
+    for j, (p, q) in enumerate(zip(leaves_a, leaves_b)):
+        if not torch.equal(p, q):
+            raise AssertionError(f"{path}: {what}: prompt leaf {j} differs by "
+                                 f"{(p - q).abs().max().item()}")
+
+
+def _check_row_shapes(path: str, trainer, text: tuple, text_row: tuple,
+                      image_tokens: int) -> None:
+    """That a CLI run's kernel shapes are those of its check rows
+    (``half_block_shapes``): its text tower's (s, G, rows), its image
+    tower's S, and its train and eval batches."""
+    cfg = trainer.cfg.DATALOADER
+    got = (text, image_tokens, cfg.TRAIN_X.BATCH_SIZE, cfg.TEST.BATCH_SIZE)
+    want = (text_row, elevater_image_tokens(), 32, EVAL_BATCH)
+    if got != want:
+        raise AssertionError(f"{path}: the run's (text (s, G, rows), image S, train batch, "
+                             f"eval batch) {got} are not its check rows' {want}")
+
+
+def drive_trainer_elevater() -> dict:
+    """The ELEVATER phases through the port's CLI, in-process on a random
+    ViT-B/16 (MVLPT_TPU_RANDOM_CLIP) with the vocab in use, on the data of
+    ``write_elevater_dataset``, configs/trainers/MVLPT/vit_b16_tpu_fast.yaml
+    (uint8 staging, pre-embedded windows, STEPS_PER_DISPATCH 120 clamped to
+    the epoch) and ELEV_OPTS.
+
+    trainer_elevater (main_mt_elevater_cut.sh, UPT): --multi-task
+    --multi-task-label_pertask over the 20 tasks, --act-ckpt 4, ELEV_EPOCHS
+    epochs. Holds: one windowed step with one capture, windows of one
+    shape; the wrappers' launches #1-#6 only, attn_fwd and mlp_fwd twice
+    as often as attn_bwd and mlp_bwd (remat); epoch 2's window, replayed,
+    equal bit for bit to the same window run eagerly (capture=False) from
+    the state before it; that window's first ELEV_TRACE_K steps replayed
+    again under a device trace, with no wrapper called, launching #1 and
+    #3 twice a layer and #2 and #4 once (TRACE_MARKS), with the metrics of
+    the run; the first window equal bit for bit (losses, accuracies, grad
+    norms and prompt leaves after it) to the same window of an --act-ckpt
+    1 run of the same flags (its trainer built by the CLI with --no-train,
+    then two epochs by ``run_epoch``); an --eval-only --model-dir rerun's
+    test logits bit-equal; every loss, logit and result finite. Prints s,
+    G and the text rows; each epoch's wall, img/s with the loading and the
+    loader-wait share; the replayed window's ms a step on the host clock
+    and on CUDA events, with and without remat, their peak memory; MFU by
+    utils/flops.py at 1151 classes, the run's s, G and image tokens (model
+    FLOPs only: remat's recomputed forwards are not counted); every task's
+    test metric and the average.
+
+    trainer_elevater_transfer (main_single_elevater_cut.sh):
+    ELEV_TRANSFER_TASK alone, warm-started with --model-dir from the
+    multitask run's best prompt, --act-ckpt 4, one epoch: the prompt it
+    starts from equal to model-best.pth.tar's, one capture, a finite
+    results line of the task's metric.
+
+    zeroshot_cli (zeroshot.sh, --eval-only --no-train): ZeroshotCLIP on
+    trainer_cli's CoOp dataset and ZeroshotCLIP2 on ELEV_ZS_TASK; each
+    launches #5 and #6 only, and prints its test() img/s and accuracy."""
+    import PIL
+    import torch
+
+    from mvlpt_torch.checkpoint import prompt_io
+    from mvlpt_torch.core.text import packing
+    from mvlpt_torch.data.elevater import ELEVATER_20_TASKS
+    from mvlpt_torch.ops import _build
+    from mvlpt_torch.train import init_train_state, make_train_step_multi
+    from mvlpt_torch.train.train_step import WINDOW_METRICS
+    from mvlpt_torch.utils import flops
+    from mvlpt_torch.utils.tree import tree_keys, tree_leaves
+
+    path, card = "trainer_elevater", card_line()
+    t_data = time.perf_counter()
+    data = write_elevater_dataset(ROOT / "build" / "trainer_elevater_data")
+    data_s = time.perf_counter() - t_data
+    out_dir = ROOT / "build" / "trainer_elevater_out"
+    yaml = str(ROOT / "configs/trainers/MVLPT/vit_b16_tpu_fast.yaml")
+    common = ["--root", str(data), "--trainer", "MVLPT", "--multi-task",
+              "--multi-task-label_pertask", "--dataset", ",".join(ELEVATER_20_TASKS),
+              "--shots", str(ELEV_SHOTS), "--seed", "1", "--cut-contextlen",
+              "--config-file", yaml]
+    os.environ["MVLPT_TPU_RANDOM_CLIP"] = "1"
+    os.environ.pop("MVLPT_TPU_RANDOM_CLIP_ARCH", None)
+    os.environ.pop("MVLPT_TPU_CLIP_CKPT", None)
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        probe = _TimedWindowProbe(make_train_step_multi, keep=1, copies=(0, 1))
+        t0 = time.perf_counter()
+        trainer = _cli_probed([*common, "--output-dir", str(out_dir / "train"), "--act-ckpt",
+                               "4", *ELEV_OPTS, "OPTIM.MAX_EPOCH", str(ELEV_EPOCHS)], probe)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        peak_after = _peak_gib()
+        logits = _test_logits(trainer)
+        evaluated, _ = _cli_run([*common, "--output-dir", str(out_dir / "eval"), "--eval-only",
+                                 "--model-dir", str(out_dir / "train"), *ELEV_OPTS])
+        logits_again = _test_logits(evaluated)
+        del evaluated
+
+        # the same flags under --act-ckpt 1: the trainer from the CLI, its
+        # epochs by run_epoch
+        probe1 = _TimedWindowProbe(make_train_step_multi)
+        plain = _cli_probed([*common, "--output-dir", str(out_dir / "act_ckpt1"), "--act-ckpt",
+                             "1", "--no-train", *ELEV_OPTS, "OPTIM.MAX_EPOCH",
+                             str(ELEV_EPOCHS)], probe1, epochs=ELEV_EPOCHS)
+        if plain.model.remat or not trainer.model.remat:
+            raise AssertionError(f"{path}: remat {trainer.model.remat} under --act-ckpt 4, "
+                                 f"{plain.model.remat} under 1")
+        del plain
+
+        # the transfer run, warm-started from the multitask run's best prompt
+        tprobe = _TimedWindowProbe(make_train_step_multi)
+        _build.reset_launch_counts()
+        transfer = _cli_probed(["--root", str(data), "--trainer", "MVLPT", "--dataset",
+                                ELEV_TRANSFER_TASK, "--shots", str(ELEV_SHOTS), "--seed", "1",
+                                "--cut-contextlen", "--config-file", yaml, "--act-ckpt", "4",
+                                "--model-dir", str(out_dir / "train"), "--output-dir",
+                                str(out_dir / "transfer"), *ELEV_OPTS, "OPTIM.MAX_EPOCH", "1"],
+                               tprobe)
+        t_launches = {name: n for name, n in _build.LAUNCHES.items() if n}
+    finally:
+        os.environ.pop("MVLPT_TPU_RANDOM_CLIP", None)
+
+    # one windowed step, one capture, windows of one shape
+    sizes = [int(m["loss"].shape[0]) for m in probe.windows]
+    if (len(probe.steps) != 1 or probe.steps[0].captures != 1 or len(set(sizes)) != 1
+            or len(sizes) != ELEV_EPOCHS):
+        raise AssertionError(f"{path}: {[s.captures for s in probe.steps]} captures of "
+                             f"{len(probe.steps)} windowed steps, windows {sizes}: want one "
+                             f"step with 1 capture and one window an epoch")
+    want = ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd", "attn_fwd_infer", "mlp_fwd_infer")
+    missing = [name for name in want if not launches.get(name)]
+    others = {name: n for name, n in launches.items() if n and name not in want}
+    if missing or others or launches["attn_fwd"] != 2 * launches["attn_bwd"] \
+            or launches["mlp_fwd"] != 2 * launches["mlp_bwd"]:
+        raise AssertionError(f"{path}: launches {launches}: {missing} not launched, {others} "
+                             "launched, or the forwards not twice the backwards (remat)")
+
+    # epoch 2's window, replayed from the graph, against the same window
+    # run eagerly from the state before it
+    k = sizes[1]
+    before, after = probe.states[1]
+    eager_state = init_train_state(trainer.state.prompt_params, trainer.cfg.OPTIM,
+                                   trainer.steps_per_epoch)
+    _restore(eager_state, before)
+    eager = make_train_step_multi(trainer.model, trainer.task_ranges,
+                                  pre_embed=bool(trainer.cfg.TPU.PRE_EMBED_WINDOW),
+                                  normalize=trainer._normalize, capture=False)
+    _, eager_m = eager(eager_state, trainer.backbone, trainer.consts, probe.kept)
+    _equal_windows(path, "the replayed window against the eager window", probe.windows[1],
+                   eager_m, after[0], tree_leaves(eager_state.prompt_params))
+    del eager_state, eager
+    # its first ELEV_TRACE_K steps replayed again, traced, on the state
+    # the graph was captured against (load_model gave the trainer another)
+    _restore(probe.state, before)
+    _build.reset_launch_counts()
+    (_, traced_m), trace = _traced(lambda: probe.steps[0](
+        probe.state, trainer.backbone, trainer.consts,
+        {name: t[:ELEV_TRACE_K] for name, t in probe.kept.items()}))
+    called = {name: n for name, n in _build.LAUNCHES.items() if n}
+    marked = _marked(trace)
+    layers = trainer.clip_cfg.vision_layers + trainer.clip_cfg.transformer_layers
+    want_marks = {name: 0 for name in marked}
+    want_marks.update(attn_fwd=2 * layers * ELEV_TRACE_K, mlp_fwd=2 * layers * ELEV_TRACE_K,
+                      attn_bwd=layers * ELEV_TRACE_K, mlp_bwd=layers * ELEV_TRACE_K)
+    if called or marked != want_marks or probe.steps[0].captures != 1:
+        raise AssertionError(f"{path}: the traced replay called the wrappers {called} and "
+                             f"launched {marked}, want {want_marks}")
+    for name in WINDOW_METRICS:
+        if not torch.equal(traced_m[name][:ELEV_TRACE_K], probe.windows[1][name][:ELEV_TRACE_K]):
+            raise AssertionError(f"{path}: the traced replay's {name} differs from the run's")
+
+    # remat against none: the first window bit for bit
+    _equal_windows(path, "the first window under --act-ckpt 4 against --act-ckpt 1",
+                   probe.windows[0], probe1.windows[0], probe.states[0][1][0],
+                   probe1.states[0][1][0])
+
+    results = _results_of(out_dir / "train" / "log.txt")
+    eval_results = _results_of(out_dir / "eval" / "log.txt")
+    n_tasks = len(ELEVATER_20_TASKS)
+    final = dict(zip([*ELEVATER_20_TASKS, "average"], results[-(n_tasks + 1):]))
+    if not torch.equal(logits, logits_again) or eval_results[-1] != results[-1]:
+        raise AssertionError(f"{path}: the --eval-only rerun's test logits differ by "
+                             f"{(logits - logits_again).abs().max().item()} (results "
+                             f"{eval_results[-1]} against {results[-1]})")
+    n_test = len(trainer.test_loader.dataset.items)
+    values = [v for r in final.values() for v in r.values()]
+    losses = torch.cat([m["loss"] for m in probe.windows])
+    if not (logits.shape == (n_test, trainer.num_classes) and trainer.num_classes == 1151
+            and bool(torch.isfinite(logits).all()) and bool(torch.isfinite(losses).all())
+            and all(math.isfinite(v) for v in values)):
+        raise AssertionError(f"{path}: test logits {tuple(logits.shape)} of "
+                             f"{trainer.num_classes} classes, or a loss, logit or result not "
+                             f"finite: {final}")
+
+    s = trainer.spec.context_length
+    g, rows = packing(trainer.num_classes, s)
+    image_tokens = 1 + trainer.clip_cfg.grid_size ** 2 + trainer.spec.vpt_n_ctx
+    _check_row_shapes(path, trainer, (s, g, rows), elevater_text_shape(), image_tokens)
+    step_flops = flops.flagship_step_flops(batch=32, n_cls=trainer.num_classes,
+                                           image_tokens=image_tokens, text_tokens_per_cls=s,
+                                           text_pack_classes=g)
+    peak_flops = PEAK_FLOPS["bfloat16"]
+
+    def window_numbers(timings: list) -> dict:
+        """The replayed window's times (the last) and the capture window's
+        peak memory (the first: the eager warm-up step and the capture
+        allocate what a step needs; a replay allocates nothing)."""
+        t = timings[-1]
+        host, dev = t["host_ms"] / t["steps"], t["device_ms"] / t["steps"]
+        return dict(ms_per_step=host, device_ms_per_step=dev, img_per_s=32e3 / host,
+                    mfu_host=step_flops / (host * 1e-3) / peak_flops,
+                    mfu_device=step_flops / (dev * 1e-3) / peak_flops,
+                    peak_mem_gib=timings[0]["peak_gib"], replay_peak_mem_gib=t["peak_gib"],
+                    capture_window_host_ms=timings[0]["host_ms"])
+
+    epochs = trainer.timings["epochs"]
+    remat_w, plain_w = window_numbers(probe.timings), window_numbers(probe1.timings)
+    out = {path: dict(
+        path=path, card=card, decoder=f"PIL {PIL.__version__}", data_written_s=data_s,
+        run_s=run_s, classes=trainer.num_classes, tasks=n_tasks, text_s=s, text_g=g,
+        text_rows=rows, image_tokens=image_tokens, train_images=len(
+            trainer.train_loader_x.dataset.items), test_images=n_test, windows=sizes,
+        captures=probe.steps[0].captures, replays=probe.steps[0].replays,
+        launches={k: v for k, v in launches.items() if v},
+        traced_replay_launches={k: v for k, v in marked.items() if v},
+        traced_replay_steps=ELEV_TRACE_K,
+        epoch_wall_s=[e["wall_s"] for e in epochs],
+        train_img_per_s=[e["images"] / e["wall_s"] for e in epochs],
+        loader_wait_share=[e["loader_s"] / e["wall_s"] for e in epochs],
+        test_img_per_s={f"{t['split']}{i}": t["images"] / t["wall_s"]
+                        for i, t in enumerate(trainer.timings["tests"])},
+        flops_per_step=step_flops, flops_counted="model FLOPs only (remat's recompute left out)",
+        peak_tflops=peak_flops / 1e12, **remat_w,
+        act_ckpt1=plain_w,
+        remat_equals_act_ckpt1=True, replay_equals_eager=True, eval_only_logits_equal=True,
+        first_losses=probe.windows[0]["loss"][:4].tolist(), peak_mem_gib_run=max(
+            [peak_after] + [t["peak_gib"] for t in probe.timings]),
+        results=final)}
+    print("main-path " + json.dumps(out[path]), flush=True)
+
+    # the transfer run
+    tpath = "trainer_elevater_transfer"
+    best = prompt_io.load_prompt_checkpoint(prompt_io.checkpoint_path(str(out_dir / "train")))
+    start = dict(zip(tree_keys(transfer.state.prompt_params), tprobe.states[0][0][0]))
+    for key, value in best["state_dict"].items():
+        if key in start and not torch.equal(start[key].cpu(), torch.as_tensor(value)):
+            raise AssertionError(f"{tpath}: the run did not start from the multitask prompt "
+                                 f"({key})")
+    t_results = _results_of(out_dir / "transfer" / "log.txt")
+    t_sizes = [int(m["loss"].shape[0]) for m in tprobe.windows]
+    if (len(tprobe.steps) != 1 or tprobe.steps[0].captures != 1 or not t_results
+            or list(t_results[-1]) != ["mean-per-class"]
+            or not math.isfinite(t_results[-1]["mean-per-class"])):
+        raise AssertionError(f"{tpath}: captures {[st.captures for st in tprobe.steps]}, "
+                             f"results {t_results}")
+    t_s = transfer.spec.context_length
+    _check_row_shapes(tpath, transfer, (t_s, *packing(transfer.num_classes, t_s)),
+                      elevater_text_shape((ELEV_TRANSFER_TASK,)),
+                      1 + transfer.clip_cfg.grid_size ** 2 + transfer.spec.vpt_n_ctx)
+    t_epoch = transfer.timings["epochs"][0]
+    out[tpath] = dict(
+        path=tpath, card=card, task=ELEV_TRANSFER_TASK, classes=transfer.num_classes,
+        text_s=transfer.spec.context_length, windows=t_sizes,
+        captures=tprobe.steps[0].captures, launches=t_launches,
+        warm_started_from="trainer_elevater's best prompt",
+        epoch_wall_s=t_epoch["wall_s"], train_img_per_s=t_epoch["images"] / t_epoch["wall_s"],
+        **window_numbers(tprobe.timings), results=t_results[-1])
+    print("main-path " + json.dumps(out[tpath]), flush=True)
+    del transfer, trainer
+    out["zeroshot_cli"] = drive_zeroshot_cli(data)
+    return out
+
+
+def drive_zeroshot_cli(elevater_data: Path) -> dict:
+    """zeroshot.sh through the port's CLI (--eval-only --no-train):
+    ZeroshotCLIP on trainer_cli's CoOp dataset, ZeroshotCLIP2 on
+    ELEV_ZS_TASK; each must launch #5 and #6 and no other kernel, and give
+    a finite accuracy. Prints each one's test() img/s and accuracy."""
+    import torch
+
+    from mvlpt_torch.ops import _build
+
+    path, card = "zeroshot_cli", card_line()
+    yaml = str(ROOT / "configs/trainers/MVLPT/vit_b16_tpu_fast.yaml")
+    runs = {
+        "ZeroshotCLIP[OxfordPets]": [
+            "--root", str(write_cli_dataset(ROOT / "build" / "trainer_cli_data")), "--trainer",
+            "ZeroshotCLIP", "--dataset-coop", "--dataset", "OxfordPets",
+            "--dataset-config-file", str(ROOT / "configs/datasets/oxford_pets.yaml")],
+        f"ZeroshotCLIP2[{ELEV_ZS_TASK}]": [
+            "--root", str(elevater_data), "--trainer", "ZeroshotCLIP2", "--dataset",
+            ELEV_ZS_TASK]}
+    out = dict(path=path, card=card, launches={})
+    os.environ["MVLPT_TPU_RANDOM_CLIP"] = "1"
+    try:
+        for name, argv in runs.items():
+            run_dir = ROOT / "build" / "zeroshot_cli_out" / name.split("[")[0]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            trainer, _ = _cli_run([*argv, "--config-file", yaml, "--output-dir", str(run_dir),
+                                   "--eval-only", "--no-train"])
+            launches = _launches_of(f"{path} {name}", dict(_build.LAUNCHES),
+                                    ("attn_fwd_infer", "mlp_fwd_infer"),
+                                    _build.LAUNCHES["attn_fwd_infer"])
+            if not launches["attn_fwd_infer"]:
+                raise AssertionError(f"{path} {name}: #5 and #6 not launched")
+            for kname, n in launches.items():
+                out["launches"][kname] = out["launches"].get(kname, 0) + n
+            cfg = trainer.cfg
+            image_tokens = 1 + trainer.clip_cfg.grid_size ** 2
+            if (image_tokens, cfg.DATALOADER.TEST.BATCH_SIZE) != (elevater_image_tokens(0),
+                                                                  EVAL_BATCH):
+                raise AssertionError(f"{path} {name}: image S {image_tokens}, eval batch "
+                                     f"{cfg.DATALOADER.TEST.BATCH_SIZE}: not its check rows'")
+            test = trainer.timings["tests"][-1]
+            results = _results_of(run_dir / "log.txt")[-1]
+            if type(trainer).__name__ != name.split("[")[0] or not all(
+                    math.isfinite(v) for v in results.values()):
+                raise AssertionError(f"{path} {name}: {type(trainer).__name__}, {results}")
+            out[name] = dict(images=test["images"], img_per_s=test["images"] / test["wall_s"],
+                             accuracy=results["accuracy"], classes=len(trainer.dm.classnames),
+                             peak_mem_gib=_peak_gib(),
+                             launches={kname: n for kname, n in launches.items() if n})
+    finally:
+        os.environ.pop("MVLPT_TPU_RANDOM_CLIP", None)
+    print("main-path " + json.dumps(out), flush=True)
+    return out
+
 
 def kernel_entries(results: list[dict], paths: dict) -> list[dict]:
     """One entry a kernel of KERNELS: its bf16 check row's numbers and its
@@ -2057,7 +2589,16 @@ def half_block_shapes() -> tuple[dict, dict]:
     """The shapes of check_kernels' and check_tp_kernels' rows."""
     from mvlpt_torch.core.layers import causal_mask
 
+    from mvlpt_torch.core.text import block_causal_mask
+
     s, g, rows, s_img, s_l336, packed_mask = text_and_image_shapes()
+    s_e, g_e, rows_e = elevater_text_shape()
+    n_e = len(elevater_classnames())
+    mask_e = block_causal_mask(g_e, s_e, device="cuda")
+    s_t, g_t, rows_t = elevater_text_shape((ELEV_TRANSFER_TASK,))
+    n_t = len(elevater_classnames((ELEV_TRANSFER_TASK,)))
+    mask_t = block_causal_mask(g_t, s_t, device="cuda")
+    s_ei, s_zs = elevater_image_tokens(), elevater_image_tokens(0)
     every, no_residual = ("train", "no-residual"), ("no-residual",)
     attn_only = (("attn_fwd", "train"), ("attn_fwd", "no-residual"), ("attn_bwd", "train"))
     kernel_shapes = {
@@ -2068,7 +2609,17 @@ def half_block_shapes() -> tuple[dict, dict]:
         "vitl336": (4, s_l336, 1024, 16, None, s_l336, 4, attn_only),
         # The attention half-blocks at S = 1024 (causal), four windows of
         # the bf16 cores' keys (or queries).
-        "s1024": (2, 1024, 768, 12, causal_mask(1024, device="cuda"), 1024, 2, attn_only)}
+        "s1024": (2, 1024, 768, 12, causal_mask(1024, device="cuda"), 1024, 2, attn_only),
+        # The ELEVATER-20 text tower of trainer_elevater (1151 classes,
+        # CoOp ctx 16): its s, G and packed rows, causal within each class.
+        "text_elevater": (rows_e, g_e * s_e, 512, 8, mask_e, s_e, n_e, every),
+        # Their image tower (VPT ctx 16): the train batch and the eval batch.
+        "image_elevater": (32, s_ei, 768, 12, None, s_ei, 32, every),
+        "image_eval_elevater": (EVAL_BATCH, s_ei, 768, 12, None, s_ei, EVAL_BATCH, no_residual),
+        # The text tower of trainer_elevater_transfer (ELEV_TRANSFER_TASK).
+        "text_elevater_transfer": (rows_t, g_t * s_t, 512, 8, mask_t, s_t, n_t, every),
+        # The zero-shot image tower (no VPT rows): zeroshot[*], zeroshot_cli.
+        "image_eval_zeroshot": (EVAL_BATCH, s_zs, 768, 12, None, s_zs, EVAL_BATCH, no_residual)}
     tp_shapes = {
         "image": (32, s_img, 768, 12, None, s_img, 32, TP_KERNELS),
         "text": (rows, g * s, 512, 8, packed_mask, s, 100, TP_KERNELS),
@@ -2113,6 +2664,7 @@ def main() -> int:
     check_hgmma()
 
     s, g, rows, s_img, s_l336, packed_mask = text_and_image_shapes()
+    s_e, g_e, rows_e = elevater_text_shape()
     kernel_shapes, tp_shapes = half_block_shapes()
     results = check_kernels(kernel_shapes)
     results += check_tp_kernels(tp_shapes)
@@ -2149,6 +2701,9 @@ def main() -> int:
     paths = drive_paths({"visual": (32, s_img, None), "text": (rows, g * s, packed_mask)},
                         (s, g))
     paths["trainer_cli"] = drive_trainer_cli()
+    print(f"ELEVATER-20 text tower: s={s_e}, G={g_e}, {rows_e} rows of {g_e * s_e} tokens",
+          flush=True)
+    paths.update(drive_trainer_elevater())
 
     summary = {"card": card_line()}
     for path, out in paths.items():

@@ -230,8 +230,8 @@ def validate_support(cfg) -> None:
     As in the JAX package: the Dassl DataLoader features MVLPT never
     exercises. Besides, what the port has not ported yet, each naming
     its ROADMAP.md item: CoCoOp, optimizers other than SGD, VPT dropout,
-    ELEVATER datasets, a mesh of more than one device, activation
-    checkpointing, and the data backends other than "python"."""
+    a mesh of more than one device, and the data backends other than
+    "python"."""
     problems = []
     if cfg.DATALOADER.K_TRANSFORMS != 1:
         problems.append("DATALOADER.K_TRANSFORMS != 1 (multi-view "
@@ -261,16 +261,10 @@ def validate_support(cfg) -> None:
                        "(ROADMAP.md Queue 1, item 11)")
     if cfg.TRAINER.MVLPT.VPT.DROPOUT > 0:
         missing.append("TRAINER.MVLPT.VPT.DROPOUT > 0 (ROADMAP.md Queue 1, item 11)")
-    if not cfg.DATASET.COOP and cfg.TRAINER.NAME in ("MVLPT", "CoOp"):
-        missing.append("ELEVATER datasets (without --dataset-coop; ROADMAP.md "
-                       "Queue 1, item 11)")
     mesh = (cfg.TPU.MESH_DATA, cfg.TPU.MESH_MODEL)
     if cfg.TPU.MESH_DATA not in (-1, 1) or cfg.TPU.MESH_MODEL != 1:
         missing.append(f"TPU.MESH_DATA/MESH_MODEL {mesh}: the trainer runs on one "
                        "device (ROADMAP.md Queue 1, item 8)")
-    if cfg.TRAINER.ACT_CKPT > 1:
-        missing.append("TRAINER.ACT_CKPT > 1 (activation checkpointing; ROADMAP.md "
-                       "Queue 1, item 6)")
     if cfg.DATALOADER.BACKEND != "python":
         missing.append(f"DATALOADER.BACKEND {cfg.DATALOADER.BACKEND!r}: only 'python' "
                        "(ROADMAP.md Queue 1, item 9)")

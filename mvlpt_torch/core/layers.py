@@ -11,7 +11,10 @@ points:
 
 Layout is batch-major ``(B, S, W)``; per-layer parameters are stacked on
 a leading layer axis and the stack runs as a Python loop. Gradients of
-the plain path come from torch autograd.
+the plain path come from torch autograd. ``remat`` recomputes each
+block's forward in the backward instead of keeping its activations
+(``torch.utils.checkpoint``; the JAX package's ``jax.checkpoint`` a
+layer, TRAINER.ACT_CKPT > 1).
 
 ``kernels`` is what ``ops.attention.select_attn_fn`` returns: an
 ``ops.block.BlockKernels`` routes each block to the fused half-block
@@ -24,6 +27,7 @@ products; None keeps the plain path.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from mvlpt_torch.ops import block as block_ops
 
@@ -108,20 +112,34 @@ def layer_params(blocks: dict, i: int) -> dict:
 
 def transformer(x: torch.Tensor, blocks: dict, n_heads: int,
                 mask: torch.Tensor | None = None, *,
-                inject: torch.Tensor | None = None, kernels=None) -> torch.Tensor:
+                inject: torch.Tensor | None = None, kernels=None,
+                remat: bool = False) -> torch.Tensor:
     """Run a stacked-parameter transformer.
 
     ``inject``, of shape (L, n_ctx, W), holds deep-VPT rows: before
     layer i >= 1, token positions [1, 1+n_ctx) are replaced by row i,
     broadcast over the batch. Layer 0 is never injected, so row 0 is a
-    dummy."""
+    dummy. ``remat`` checkpoints every block, layer 0 included, when
+    autograd records: the backward runs the block's forward again
+    (kernels included) and reads the recomputed residuals; the
+    injection stays outside the checkpoint. The block is deterministic,
+    so the values equal those without remat bit for bit."""
     n_layers = blocks["ln_1"]["scale"].shape[0]
+    remat = remat and torch.is_grad_enabled()
     for i in range(n_layers):
         if inject is not None and i >= 1:
             n_ctx = inject.shape[1]
             rows = inject[i].to(x.dtype)[None].expand(x.shape[0], n_ctx, x.shape[2])
             x = torch.cat([x[:, :1], rows, x[:, 1 + n_ctx:]], dim=1)
-        x = residual_block(x, layer_params(blocks, i), n_heads, mask, kernels)
+        p = layer_params(blocks, i)
+        if remat:
+            # No RNG runs in a block, so none is saved (saving it would
+            # read the generator's state, which a CUDA-graph capture
+            # forbids).
+            x = checkpoint(residual_block, x, p, n_heads, mask, kernels,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = residual_block(x, p, n_heads, mask, kernels)
     return x
 
 

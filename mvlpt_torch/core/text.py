@@ -20,13 +20,14 @@ def _eot_gather(x: torch.Tensor, eot_idx: torch.Tensor) -> torch.Tensor:
 
 
 def encode_text_embeds(params: dict, prompt_embeds: torch.Tensor, eot_idx: torch.Tensor,
-                       *, n_heads: int, kernels=None) -> torch.Tensor:
+                       *, n_heads: int, kernels=None, remat: bool = False) -> torch.Tensor:
     """(N, S, W) prompt embeddings + (N,) EOT indices -> (N, embed_dim)."""
     compute_dtype = prompt_embeds.dtype
     s = prompt_embeds.shape[1]
     x = prompt_embeds + params["pos_embedding"].to(compute_dtype)[None, :s]
     mask = layers.causal_mask(s, device=x.device)
-    x = layers.transformer(x, params["blocks"], n_heads, mask=mask, kernels=kernels)
+    x = layers.transformer(x, params["blocks"], n_heads, mask=mask, kernels=kernels,
+                           remat=remat)
     x = layers.layer_norm(x, params["ln_final"])
     return layers._matmul(_eot_gather(x, eot_idx), params["text_projection"])
 
@@ -53,7 +54,7 @@ def block_causal_mask(g: int, s: int, device=None) -> torch.Tensor:
 
 def encode_text_embeds_packed(params: dict, prompt_embeds: torch.Tensor,
                               eot_idx: torch.Tensor, *, n_heads: int, kernels=None,
-                              target_tokens: int = 128) -> torch.Tensor:
+                              target_tokens: int = 128, remat: bool = False) -> torch.Tensor:
     """Class-packed text encoding: G = target_tokens // S class rows per
     sequence under a block-diagonal causal mask, zero-padded to whole
     rows. Attention is blocked per class and every other op works per
@@ -63,7 +64,7 @@ def encode_text_embeds_packed(params: dict, prompt_embeds: torch.Tensor,
     g, rows = packing(n_cls, s, target_tokens)
     if g == 1:
         return encode_text_embeds(params, prompt_embeds, eot_idx, n_heads=n_heads,
-                                  kernels=kernels)
+                                  kernels=kernels, remat=remat)
     n_pad = rows * g - n_cls
     if n_pad:
         prompt_embeds = torch.cat(
@@ -71,7 +72,8 @@ def encode_text_embeds_packed(params: dict, prompt_embeds: torch.Tensor,
     pos = params["pos_embedding"].to(prompt_embeds.dtype)[:s]
     x = prompt_embeds.reshape(rows, g * s, w) + pos.repeat(g, 1)[None]
     mask = block_causal_mask(g, s, device=x.device)
-    x = layers.transformer(x, params["blocks"], n_heads, mask=mask, kernels=kernels)
+    x = layers.transformer(x, params["blocks"], n_heads, mask=mask, kernels=kernels,
+                           remat=remat)
     x = layers.layer_norm(x, params["ln_final"])
     x = x.reshape(rows * g, s, w)[:n_cls]
     return layers._matmul(_eot_gather(x, eot_idx), params["text_projection"])

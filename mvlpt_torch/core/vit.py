@@ -90,13 +90,14 @@ def embed_image(params: dict, images: torch.Tensor, patch_size: int,
 def encode_image(params: dict, images: torch.Tensor, *, patch_size: int, n_heads: int,
                  vpt_shallow: torch.Tensor | None = None,
                  vpt_deep: torch.Tensor | None = None, kernels=None,
-                 pre_embedded: bool = False) -> torch.Tensor:
+                 pre_embedded: bool = False, remat: bool = False) -> torch.Tensor:
     """Encode NHWC images to (B, output_dim) features.
 
     ``vpt_shallow``: (1 or B, n_ctx, width) prompt tokens inserted after
     ln_pre. ``vpt_deep``: (L-1, n_ctx, width) per-layer replacement rows.
     ``pre_embedded``: ``images`` is already the (B, 1+N, width) output of
-    :func:`embed_image`."""
+    :func:`embed_image`. ``remat``: per-layer activation checkpointing
+    (``layers.transformer``)."""
     x = images if pre_embedded else embed_image(params, images, patch_size)
     b, compute_dtype = x.shape[0], x.dtype
 
@@ -110,7 +111,7 @@ def encode_image(params: dict, images: torch.Tensor, *, patch_size: int, n_heads
         inject = torch.cat([torch.zeros_like(vpt_deep[:1]), vpt_deep], dim=0)
 
     x = layers.transformer(x, params["blocks"], n_heads, mask=None, inject=inject,
-                           kernels=kernels)
+                           kernels=kernels, remat=remat)
     x = layers.layer_norm(x[:, 0], params["ln_post"])
     if params.get("proj") is not None:
         x = layers._matmul(x, params["proj"])

@@ -1,23 +1,34 @@
 """Data managers: the multitask machinery (SURVEY.md §2.4, the MVLPT
 core contribution).
 
-The counterpart of ``mvlpt_tpu/data/managers.py`` for the CoOp universe:
-``CoopMultitaskDataManager`` rebuilds MVLPTCOOPDataManager (the
-reference's mvlpt.py:585-735): per-task CoOp dataset build, label
-offsetting by running class count, task-id stamping, split
-concatenation, and ``task_class_idx`` ranges. The ELEVATER managers are
-not ported yet (ROADMAP.md Queue 1, item 11).
+The counterpart of ``mvlpt_tpu/data/managers.py``:
+
+  * CoopMultitaskDataManager rebuilds MVLPTCOOPDataManager (the
+    reference's mvlpt.py:585-735): per-task CoOp dataset build, label
+    offsetting by running class count, task-id stamping, split
+    concatenation, and ``task_class_idx`` ranges.
+  * ElevaterDataManager rebuilds MVLPTDataManager (mvlpt.py:740-770)
+    over the local manifests of ``data.elevater`` (construct_dataloader,
+    feature.py:538-619).
+  * ElevaterMultitaskDataManager rebuilds MVLPTMTDataManager
+    (mvlpt.py:772-825) and construct_multitask_dataset
+    (feature.py:782-862): merged manifests, global contiguous class ids,
+    k-hot targets over the global class space, a task id on every item.
+
+Only the "python" DATALOADER.BACKEND is ported (ROADMAP.md Queue 1,
+item 9).
 """
 
 from __future__ import annotations
 
+import numpy as np
+
 from mvlpt_torch.data import transforms as T
 from mvlpt_torch.data.coop import datasets as coop_datasets  # noqa: F401  (registers loaders)
-from mvlpt_torch.data.loader import build_data_loader
+from mvlpt_torch.data.elevater import manifest as ev
+from mvlpt_torch.data.loader import DataLoader, _load_image, build_data_loader
+from mvlpt_torch.evaluation.metrics import get_metric
 from mvlpt_torch.utils.registry import DATASET_REGISTRY
-
-_ELEVATER = ("ELEVATER datasets (ElevaterDataManager, ElevaterMultitaskDataManager) are not "
-             "ported yet (ROADMAP.md Queue 1, item 11); pass --dataset-coop for a CoOp dataset")
 
 
 class CoopMultitaskDataManager:
@@ -88,24 +99,242 @@ class CoopMultitaskDataManager:
         return self._classnames
 
 
+class _ElevaterDataset:
+    """items -> (image, target, task_id) rows for DataLoader."""
+
+    def __init__(self, items, transform, target_fn):
+        self.items = items
+        self.transform = transform
+        self.target_fn = target_fn
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, idx):
+        it = self.items[idx]
+        return self.transform(_load_image(it.impath)), self.target_fn(it), it.task_id
+
+
+def _elevater_transform(cfg):
+    """ELEVATER preprocessing: Resize+CenterCrop when DATASET.CENTER_CROP
+    else a plain warp; no train-time augmentation (feature.py:539-553).
+    Only the "python" DATALOADER.BACKEND is ported."""
+    if cfg.DATALOADER.BACKEND != "python":
+        raise NotImplementedError(
+            f"DATALOADER.BACKEND {cfg.DATALOADER.BACKEND!r} is not ported (ROADMAP.md "
+            "Queue 1, item 9); use 'python'")
+    size = cfg.INPUT.SIZE if not isinstance(cfg.INPUT.SIZE, int) else (
+        cfg.INPUT.SIZE, cfg.INPUT.SIZE)
+    return T.EvalTransform(
+        size=tuple(size), interpolation="bicubic",
+        mean=tuple(cfg.INPUT.PIXEL_MEAN), std=tuple(cfg.INPUT.PIXEL_STD),
+        center_crop_mode=bool(cfg.DATASET.CENTER_CROP),
+        to_uint8=bool(cfg.TPU.DEVICE_NORMALIZE))
+
+
+def _make_loader(cfg, items, transform, target_fn, batch_size, shuffle, multitask):
+    """The threaded loader over ELEVATER items: train loaders shuffle and
+    drop their tail batch, eval loaders pad it."""
+    ds = _ElevaterDataset(items, transform, target_fn)
+    return DataLoader(
+        ds, batch_size=batch_size, shuffle=shuffle,
+        num_workers=cfg.DATALOADER.NUM_WORKERS,
+        seed=max(cfg.SEED, 0), drop_last=shuffle, multitask=multitask)
+
+
+_METRIC_DEFAULT_NOTED: set[str] = set()
+
+
+def _metric_name_for(task: str, overrides: dict) -> str:
+    """Metric for a task: override > metadata.json > 'accuracy'.
+
+    Custom tasks (self-describing manifests) have no metadata.json
+    metric row; a bare lookup would KeyError even for flows that never
+    consult the metric (feature extraction). Default to accuracy with a
+    note — eval flows can pick one with DATASET.METRIC_OVERRIDES. The
+    note prints once per task, not on every manager construction
+    (train/eval/extract each build one)."""
+    metric = overrides.get(task)
+    if metric is not None:
+        return metric
+    try:
+        return ev.class_map_metric(task)
+    except KeyError:
+        if task not in _METRIC_DEFAULT_NOTED:
+            _METRIC_DEFAULT_NOTED.add(task)
+            print(f"[data] task {task!r} not in metadata.json: metric "
+                  f"defaults to 'accuracy' (override with "
+                  f"DATASET.METRIC_OVERRIDES '{task}=<metric>')")
+        return "accuracy"
+
+
+def _metric_overrides(cfg) -> dict:
+    """Parse DATASET.METRIC_OVERRIDES ("task=metric" entries)."""
+    out = {}
+    for entry in cfg.DATASET.METRIC_OVERRIDES:
+        task, _, metric = str(entry).partition("=")
+        if not metric:
+            raise ValueError(
+                f"DATASET.METRIC_OVERRIDES entry {entry!r} is not "
+                "'task=metric'")
+        out[task] = metric
+    return out
+
+
 class ElevaterDataManager:
-    """Single ELEVATER task: not ported yet."""
+    """Single ELEVATER task (mvlpt.py:740-770 + feature.py:538-619)."""
 
     def __init__(self, cfg, strict_classnames: bool = True):
-        raise NotImplementedError(_ELEVATER)
+        task = cfg.DATASET.DATASET
+        root = cfg.DATASET.ROOT
+        man = ev.load_task_manifest(
+            root, task, train_set=cfg.DATASET.TRAIN_SET,
+            val_set=cfg.DATASET.VAL_SET, test_set=cfg.DATASET.TEST_SET,
+            strict_classnames=strict_classnames)
+        overrides = _metric_overrides(cfg)
+        self._metric_name = _metric_name_for(task, overrides)
+        self._metric = get_metric(self._metric_name)
+        # classnames resolved by the manifest loader (manifest-declared >
+        # metadata > placeholders) so counts always agree with targets
+        names = man.classnames
+        self._num_classes = man.num_classes
+        self._lab2cname = {i: ev.first_classname(c) for i, c in enumerate(names)}
+
+        shots = cfg.DATASET.NUM_SAMPLES_PER_CLASS
+        seed = cfg.DATASET.RANDOM_SEED_SAMPLING
+        train_items = ev.sample_few_shot_subset(
+            man.train, shots, seed, man.num_classes)
+        if man.val:
+            # Explicit DATASET.VAL_SET: train is used whole
+            # (feature.py:611-613).
+            val_items = man.val
+        elif shots == 1:
+            # 1-shot: no split — val IS the train set (feature.py:602-605),
+            # else the 20% split would empty the training set.
+            val_items = list(train_items)
+        else:
+            train_items, val_items = ev.train_val_split(
+                train_items, 0.2, seed, man.num_classes, man.is_multilabel)
+
+        if man.is_multilabel:
+            def target_fn(it, n=man.num_classes):
+                vec = np.zeros(n, np.float32)
+                vec[list(it.labels)] = 1.0
+                return vec
+        else:
+            def target_fn(it):
+                return it.labels[0]
+
+        tfm = _elevater_transform(cfg)
+        bs_train = cfg.DATALOADER.TRAIN_X.BATCH_SIZE
+        bs_test = cfg.DATALOADER.TEST.BATCH_SIZE
+        self.train_loader_x = _make_loader(
+            cfg, train_items, tfm, target_fn, bs_train, True, False)
+        self.val_loader = _make_loader(
+            cfg, val_items, tfm, target_fn, bs_test, False, False) if val_items else None
+        self.test_loader = _make_loader(
+            cfg, man.test, tfm, target_fn, bs_test, False, False)
+        self.train_loader_u = None
+
+    @property
+    def num_classes(self):
+        return self._num_classes
+
+    @property
+    def lab2cname(self):
+        return self._lab2cname
+
+    @property
+    def classnames(self):
+        return [self._lab2cname[i] for i in range(self._num_classes)]
 
 
 class ElevaterMultitaskDataManager:
-    """Merged ELEVATER tasks: not ported yet."""
+    """Merged ELEVATER tasks (mvlpt.py:772-825 + feature.py:782-862):
+    targets are k-hot over the GLOBAL class space, every item carries its
+    task id (MultiTaskTorchDataset semantics, feature.py:709-756)."""
 
     def __init__(self, cfg):
-        raise NotImplementedError(_ELEVATER)
+        tasks = cfg.DATASET.DATASET.split(",")
+        root = cfg.DATASET.ROOT
+        mt = ev.load_multitask_manifest(root, tasks)
+        self._task_names = mt.task_names
+        self._task2id = {t: i for i, t in enumerate(tasks)}
+        self._id2task = dict(enumerate(tasks))
+        overrides = _metric_overrides(cfg)
+        self._metric_name = {
+            t: _metric_name_for(t, overrides) for t in tasks}
+        self._metric = {t: get_metric(self._metric_name[t]) for t in tasks}
+        self._labelmap = {t: mt.manifests[t].classnames for t in tasks}
+        self._task_class_idx = mt.task_class_idx()
+        self._num_classes = mt.num_classes
+        self._lab2cname = {}
+        for t in tasks:
+            for i, c in enumerate(mt.manifests[t].classnames):
+                self._lab2cname[mt.get_cid(i, t)] = ev.first_classname(c)
+
+        shots = cfg.DATASET.NUM_SAMPLES_PER_CLASS
+        seed = cfg.DATASET.RANDOM_SEED_SAMPLING
+        train_items, test_items = [], []
+        for tid, t in enumerate(tasks):
+            man = mt.manifests[t]
+            off = mt.class_offset[t]
+            for src, dst in ((man.train, train_items), (man.test, test_items)):
+                for it in src:
+                    dst.append(ev.ElevaterItem(
+                        it.impath,
+                        tuple(l + off for l in it.labels),
+                        task_id=tid))
+        # few-shot sample the MERGED manifest, then 80/20 split
+        # (feature.py:843-852)
+        train_items = ev.sample_few_shot_subset(
+            train_items, shots, seed, mt.num_classes)
+        if shots == 1:
+            # the greedy class-cover split would consume the single item
+            # of every class; mirror the single-task 1-shot rule
+            # (feature.py:602-605): no split, val IS the train set
+            val_items = list(train_items)
+        else:
+            train_items, val_items = ev.train_val_split(
+                train_items, 0.2, seed, mt.num_classes, multilabel=True)
+
+        n_global = mt.num_classes
+
+        def target_fn(it):
+            vec = np.zeros(n_global, np.float32)
+            vec[list(it.labels)] = 1.0
+            return vec
+
+        tfm = _elevater_transform(cfg)
+        bs_train = cfg.DATALOADER.TRAIN_X.BATCH_SIZE
+        bs_test = cfg.DATALOADER.TEST.BATCH_SIZE
+        self.train_loader_x = _make_loader(
+            cfg, train_items, tfm, target_fn, bs_train, True, True)
+        self.val_loader = _make_loader(
+            cfg, val_items, tfm, target_fn, bs_test, False, True) if val_items else None
+        self.test_loader = _make_loader(
+            cfg, test_items, tfm, target_fn, bs_test, False, True)
+        self.train_loader_u = None
+
+    @property
+    def num_classes(self):
+        return self._num_classes
+
+    @property
+    def lab2cname(self):
+        return self._lab2cname
+
+    @property
+    def classnames(self):
+        return [self._lab2cname[i] for i in range(self._num_classes)]
 
 
 def build_data_manager(cfg, strict_classnames: bool = True):
     """Universe dispatch (the reference's mvlpt.py:892-897): DATASET.COOP
     -> CoopMultitaskDataManager, else MULTITASK -> ElevaterMultitask,
-    else a single ELEVATER task."""
+    else a single ELEVATER task. ``strict_classnames=False`` relaxes the
+    single-task manifest vs metadata class-count guard for flows that
+    never read classnames (``manifest._resolve_classnames``)."""
     if cfg.DATASET.COOP:
         return CoopMultitaskDataManager(cfg)
     if cfg.DATASET.MULTITASK:

@@ -36,10 +36,11 @@ class TaskClassRanges:
 class MVLPTModel(nn.Module):
     """Architecture + prompt spec + kernel selection (what
     ``ops.attention.select_attn_fn`` returns). Holds no tensors: the
-    backbone, prompt params and consts are passed to each call."""
+    backbone, prompt params and consts are passed to each call.
+    ``remat``: both towers checkpoint every block (TRAINER.ACT_CKPT > 1)."""
 
     def __init__(self, clip_cfg: CLIPConfig, spec: PromptSpec, kernels=None,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16, remat: bool = False):
         super().__init__()
         if spec.has_cocoop:
             raise NotImplementedError("CoCoOp is not ported yet (ROADMAP.md Queue 1)")
@@ -47,6 +48,7 @@ class MVLPTModel(nn.Module):
         self.spec = spec
         self.kernels = kernels
         self.compute_dtype = compute_dtype
+        self.remat = remat
         self.stems = vit_mod.FoldedStems()
 
     def embed_image(self, backbone, images, normalize=None):
@@ -68,12 +70,13 @@ class MVLPTModel(nn.Module):
         return vit_mod.encode_image(
             backbone["visual"], images, patch_size=self.clip_cfg.vision_patch_size,
             n_heads=self.clip_cfg.vision_heads, vpt_shallow=vpt_shallow,
-            vpt_deep=vpt_deep, kernels=self.kernels, pre_embedded=pre_embedded)
+            vpt_deep=vpt_deep, kernels=self.kernels, pre_embedded=pre_embedded,
+            remat=self.remat)
 
     def encode_text_prompts(self, backbone, prompts, eot_idx):
         return text_mod.encode_text_embeds_packed(
             backbone["text"], prompts.to(self.compute_dtype), eot_idx,
-            n_heads=self.clip_cfg.transformer_heads, kernels=self.kernels)
+            n_heads=self.clip_cfg.transformer_heads, kernels=self.kernels, remat=self.remat)
 
     def compute_text_features(self, backbone, prompt_params, consts: PromptConsts):
         """(n_cls, embed_dim) text features for the current prompts."""

@@ -1,23 +1,33 @@
-"""Zero-shot CLIP: class text features from prompt templates, and the
-image path that scores a batch against them.
+"""Zero-shot CLIP trainers (the reference's trainers/zsclip.py:32-99):
+class text features from prompt templates, and the image path that
+scores a batch against them.
 
-The counterpart of ``mvlpt_tpu/models/zsclip.py:22-140``. The class
-text features run through the plain text tower once (no kernel
-selection, as on the JAX side) and are averaged over the templates; the
-image tower runs under the ``USE_PALLAS`` selection in its no-grad form.
-The trainers around them (``ZeroshotCLIP``, ``ZeroshotCLIP2``) and the
-80-template pool wait for the port's trainer and data manager.
+The counterpart of ``mvlpt_tpu/models/zsclip.py``. The class text
+features run through the plain text tower once (no kernel selection, as
+on the JAX side) and are averaged over the templates; the image tower
+runs under the ``USE_PALLAS`` selection in its no-grad form. The
+trainers (``ZeroshotCLIP``: one hand-crafted template a dataset;
+``ZeroshotCLIP2``: the 7 select templates and the dataset's own) test on
+either universe's test split, through the classification evaluator.
 """
 
 from __future__ import annotations
 
+import time
+
+import numpy as np
 import torch
 
 from mvlpt_torch.core import clip as clip_core
 from mvlpt_torch.core import vit as vit_mod
 from mvlpt_torch.core.clip import CLIPConfig
+from mvlpt_torch.data.elevater import load_metadata, template_map
+from mvlpt_torch.evaluation import ClassificationEvaluator
 from mvlpt_torch.ops.attention import select_attn_fn
 from mvlpt_torch.tokenizer import tokenize
+from mvlpt_torch.utils.device import resolve_device
+from mvlpt_torch.utils.pipeline import pipelined_inference
+from mvlpt_torch.utils.registry import TRAINER_REGISTRY
 
 # The standard public CLIP evaluation templates.
 CUSTOM_TEMPLATES = {
@@ -47,6 +57,12 @@ IMAGENET_TEMPLATES_SELECT = [
     "art of the {}.",
     "a photo of the small {}.",
 ]
+
+
+def imagenet_templates_full() -> list[str]:
+    """The 80-template CLIP ImageNet pool (from this package's
+    metadata.json)."""
+    return list(template_map("imagenet-1k"))
 
 
 @torch.no_grad()
@@ -106,3 +122,83 @@ def make_zs_infer(clip_cfg: CLIPConfig, mean, std, use_pallas="auto"):
         return torch.exp(backbone["logit_scale"].float()) * img @ text_features.t()
 
     return infer
+
+
+class _ZeroshotBase:
+    """The zero-shot trainer's surface (``train``, ``load_model``,
+    ``test``), on ``device`` (the card unless the caller asks for the
+    CPU). ``timings["tests"]`` records each test() pass's wall time and
+    images on the host clock."""
+
+    def __init__(self, cfg, device="cuda"):
+        from mvlpt_torch.data.managers import build_data_manager
+        from mvlpt_torch.train.trainer import load_clip_backbone
+
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dm = build_data_manager(cfg)
+        self.test_loader = self.dm.test_loader
+        self.timings = {"tests": []}
+        print(f"Loading CLIP (backbone: {cfg.MODEL.BACKBONE.NAME})")
+        self.backbone, self.clip_cfg = load_clip_backbone(
+            cfg, getattr(torch, cfg.TPU.PARAM_DTYPE), self.device)
+        classnames = self.dm.classnames
+        self.text_features = encode_class_text_features(
+            self.backbone, self.clip_cfg, classnames, self.templates(classnames))
+        self._infer = make_zs_infer(self.clip_cfg, cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD,
+                                    use_pallas=cfg.TPU.USE_PALLAS)
+
+    def templates(self, classnames) -> list[str]:
+        raise NotImplementedError
+
+    def model_inference(self, images) -> torch.Tensor:
+        images = torch.from_numpy(np.asarray(images)).to(self.device)
+        return self._infer(self.backbone, self.text_features, images)
+
+    def train(self):
+        print("ZeroshotCLIP has no training; running test()")
+        return self.test()
+
+    def load_model(self, directory, epoch=None):
+        pass
+
+    def test(self, split=None) -> float:
+        evaluator = ClassificationEvaluator(self.dm.lab2cname)
+        t0, images = time.perf_counter(), 0
+        for logits, batch in pipelined_inference(
+                self.test_loader, lambda b: self.model_inference(b["image"])):
+            n_valid = batch.get("n_valid", len(batch["image"]))
+            images += n_valid
+            evaluator.process(logits[:n_valid], np.asarray(batch["label"])[:n_valid])
+        self.timings["tests"].append({"split": "test", "wall_s": time.perf_counter() - t0,
+                                      "images": images})
+        results = evaluator.evaluate()
+        print("results", results)
+        return results["accuracy"]
+
+
+@TRAINER_REGISTRY.register()
+class ZeroshotCLIP(_ZeroshotBase):
+    """Hand-crafted template zero-shot eval (zsclip.py:32-60): the CoOp
+    dataset's template, else the ELEVATER task's first, else a photo."""
+
+    def templates(self, classnames):
+        name = self.cfg.DATASET.NAME or self.cfg.DATASET.DATASET
+        if name in CUSTOM_TEMPLATES:
+            return [CUSTOM_TEMPLATES[name]]
+        if name in load_metadata():
+            return [template_map(name)[0]]
+        return ["a photo of a {}."]
+
+
+@TRAINER_REGISTRY.register()
+class ZeroshotCLIP2(_ZeroshotBase):
+    """Template-ensembled zero-shot eval (zsclip.py:63-99): the 7 select
+    templates, plus the dataset's own outside ImageNet."""
+
+    def templates(self, classnames):
+        temps = list(IMAGENET_TEMPLATES_SELECT)
+        name = self.cfg.DATASET.NAME or self.cfg.DATASET.DATASET
+        if name != "ImageNet" and name in CUSTOM_TEMPLATES:
+            temps.append(CUSTOM_TEMPLATES[name])
+        return temps

@@ -14,13 +14,17 @@ mvlpt.py:827-1125):
     prompt-only checkpoints under <OUTPUT_DIR>/prompt_learner/;
   * resume from RESUME dir; warm start from --model-dir via load_model
     (drops token_prefix/suffix, renames upt_proj, non-strict);
-  * multitask test() with per-task evaluator routing, per-task logit
-    slicing by task_class_idx ranges, overall = average or
-    MULTITASK_EVALKEY (mvlpt.py:989-1088), and `results {...}` prints;
+  * test() over both universes (mvlpt.py:989-1088): CoOp through the
+    classification evaluator, per task in multitask runs; a single
+    ELEVATER task by its metric over the concatenated logits; ELEVATER
+    multitask per task, on the task's slice [lo:hi] of the logits and
+    k-hot targets (the argmax for "accuracy"); overall = average or
+    MULTITASK_EVALKEY, and `results {...}` prints;
+  * per-layer activation checkpointing for TRAINER.ACT_CKPT > 1;
   * scalar logging to <OUTPUT_DIR>/tb/scalars.jsonl.
 
-The CoOp universe only: ELEVATER datasets, CoCoOp and the zero-shot and
-fine-tune trainers are not ported yet (ROADMAP.md Queue 1).
+CoCoOp and the fine-tune trainer are not ported yet (ROADMAP.md Queue
+1); the zero-shot trainers live in ``models/zsclip.py``.
 """
 
 from __future__ import annotations
@@ -226,9 +230,12 @@ class PromptTrainer:
                 start=torch.tensor([idx[t][0] for t in self.dm._task_names], device=self.device),
                 end=torch.tensor([idx[t][1] for t in self.dm._task_names], device=self.device))
 
+        # ACT_CKPT is the memory lever (the reference's
+        # checkpoint_sequential chunks, mvlpt.py:119-121): any value > 1
+        # checkpoints every layer, as the JAX package's remat does.
         self.model = MVLPTModel(self.clip_cfg, self.spec,
                                 kernels=select_attn_fn(cfg.TPU.USE_PALLAS),
-                                compute_dtype=compute_dtype)
+                                compute_dtype=compute_dtype, remat=cfg.TRAINER.ACT_CKPT > 1)
 
         n_prompt = sum(t.numel() for t in tree_leaves(prompt_params))
         n_clip = sum(t.numel() for t in tree_leaves(self.backbone))
@@ -449,9 +456,12 @@ class PromptTrainer:
         print(f"Evaluate on the *{split}* set")
 
         self.evaluator.reset()
+        coop = cfg.DATASET.COOP
+        elevater_pred, elevater_true = [], []
         task_eval = {}
         if self.multi_task:
-            task_eval = {t: self.evaluator.clone() for t in self.dm._task_names}
+            task_eval = {t: self.evaluator.clone() if coop else {"y_pred": [], "y_true": []}
+                         for t in self.dm._task_names}
 
         t0 = time.perf_counter()
         # one text-tower pass for the whole split (prompts frozen)
@@ -464,13 +474,21 @@ class PromptTrainer:
                 images += n_valid
                 logits = logits_full[:n_valid]
                 labels = np.asarray(batch["label"])[:n_valid]
-                self.evaluator.process(logits, labels)
+                if coop:
+                    self.evaluator.process(logits, labels)
+                elif not self.multi_task:
+                    elevater_pred.append(logits)
+                    elevater_true.append(labels)
                 if "task" in batch:
                     tasks_np = np.asarray(batch["task"])[:n_valid]
                     for out, lab, tid in zip(logits, labels, tasks_np):
                         task = self.dm._id2task[int(tid)]
-                        lo, hi = self.dm._task_class_idx[task]
-                        task_eval[task].process(out[None, lo:hi], np.asarray([lab - lo]))
+                        if coop:
+                            lo, hi = self.dm._task_class_idx[task]
+                            task_eval[task].process(out[None, lo:hi], np.asarray([lab - lo]))
+                        else:
+                            task_eval[task]["y_pred"].append(out[None])
+                            task_eval[task]["y_true"].append(lab[None])
         finally:
             self._eval_text = None  # prompts train on after test()
         self.timings["tests"].append({"split": split, "wall_s": time.perf_counter() - t0,
@@ -479,8 +497,19 @@ class PromptTrainer:
         results_overall = {}
         for task, ev in task_eval.items():
             print(f"evaluate on the *{task}* !")
-            results = ev.evaluate()
-            results_overall[task] = results["accuracy"]
+            if coop:
+                results = ev.evaluate()
+                results_overall[task] = results["accuracy"]
+            else:
+                y_true = np.concatenate(ev["y_true"], axis=0)
+                y_pred = np.concatenate(ev["y_pred"], axis=0)
+                lo, hi = self.dm._task_class_idx[task]
+                y_true, y_pred = y_true[:, lo:hi], y_pred[:, lo:hi]
+                if self.dm._metric_name[task] == "accuracy":
+                    y_true = np.argmax(y_true, axis=-1)
+                value = self.dm._metric[task](y_true, y_pred)
+                results = {self.dm._metric_name[task]: value}
+                results_overall[task] = value
             print("results", results)
             for k, v in results.items():
                 self.writer.write_scalar(f"{split}/{task}/{k}", v, self.epoch)
@@ -496,6 +525,10 @@ class PromptTrainer:
                     raise KeyError(f"DATASET.MULTITASK_EVALKEY {evalkey!r} names no task: "
                                    f"{sorted(results_overall)}")
                 results = {evalkey: results_overall[evalkey]}
+        elif not coop:
+            y_true = np.concatenate(elevater_true, axis=0)
+            y_pred = np.concatenate(elevater_pred, axis=0)
+            results = {self.dm._metric_name: self.dm._metric(y_true, y_pred)}
         else:
             results = self.evaluator.evaluate()
         print("results", results)
@@ -622,13 +655,13 @@ class CoOp(PromptTrainer):
 # that brings each.
 NOT_PORTED = {
     "CoCoOp": "Queue 1, item 6",
-    "ZeroshotCLIP": "Queue 1, item 11",
-    "ZeroshotCLIP2": "Queue 1, item 11",
     "FinetuneCLIP": "Queue 1, item 10",
 }
 
 
 def build_trainer(cfg, device="cuda"):
+    from mvlpt_torch.models import zsclip  # noqa: F401  (registers the zero-shot trainers)
+
     name = cfg.TRAINER.NAME
     if name in NOT_PORTED:
         raise NotImplementedError(f"trainer {name!r} is not ported yet (ROADMAP.md "

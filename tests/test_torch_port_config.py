@@ -126,10 +126,10 @@ def test_frozen_and_unknown_keys_raise(make, tmp_path):
     (["TRAINER.MVLPT.COCOOP.N_CTX", "4"], "item 6"),
     (["OPTIM.NAME", "adam"], "item 11"),
     (["TRAINER.MVLPT.VPT.DROPOUT", "0.1"], "item 11"),
-    (["DATASET.COOP", "False"], "item 11"),
+    (["OPTIM.NAME", "adamw"], "item 11"),
     (["TPU.MESH_MODEL", "2"], "item 8"),
     (["TPU.MESH_DATA", "4"], "item 8"),
-    (["TRAINER.ACT_CKPT", "2"], "item 6"),
+    (["OPTIM.NAME", "rmsprop"], "item 11"),
     (["DATALOADER.BACKEND", "native"], "item 9"),
 ])
 def test_validate_support_names_the_roadmap_item(opts, item):
@@ -146,4 +146,19 @@ def test_validate_support_passes_the_flagship_and_keeps_jax_checks():
     validate_support(cfg)
     cfg.merge_from_list(["DATALOADER.K_TRANSFORMS", "2"])
     with pytest.raises(NotImplementedError, match="K_TRANSFORMS"):
+        validate_support(cfg)
+
+
+def test_validate_support_passes_elevater_and_remat():
+    """What the ELEVATER scripts set (scripts/mvlpt/main_mt_elevater_cut.sh,
+    main_single_elevater_cut.sh, zeroshot.sh): no --dataset-coop,
+    --multi-task, --act-ckpt 4, the zero-shot trainers."""
+    for opts in (["TRAINER.NAME", "MVLPT", "DATASET.MULTITASK", "True",
+                  "DATASET.MULTITASK_LABEL_PERTASK", "True", "TRAINER.ACT_CKPT", "4"],
+                 ["TRAINER.NAME", "MVLPT", "TRAINER.ACT_CKPT", "4"],
+                 ["TRAINER.NAME", "ZeroshotCLIP", "DATASET.COOP", "True"],
+                 ["TRAINER.NAME", "ZeroshotCLIP2"]):
+        cfg = get_cfg_default()
+        cfg.merge_from_file(str(ROOT / "configs/trainers/MVLPT/vit_b16_tpu_fast.yaml"))
+        cfg.merge_from_list(opts)
         validate_support(cfg)

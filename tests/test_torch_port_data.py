@@ -209,13 +209,25 @@ def test_coop_readers_and_manager_match(tmp_path, dataset, shots, multitask):
 
 
 def test_elevater_managers_raise(tmp_path):
+    """The ELEVATER managers raise where a task has no manifest or
+    ImageFolder, and on a data backend other than "python" (ROADMAP.md
+    Queue 1, item 9)."""
+    from tests.torch_port_util import write_elevater_task
+
     cfg = get_cfg_default()
+    cfg.DATASET.ROOT = str(tmp_path)
     cfg.DATASET.DATASET = "cifar-10"
-    with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
+    with pytest.raises(FileNotFoundError, match="cifar-10"):
         build_data_manager(cfg)
     cfg.DATASET.MULTITASK = True
-    with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
+    with pytest.raises(FileNotFoundError, match="cifar-10"):
         build_data_manager(cfg)
+    write_elevater_task(tmp_path, "cifar-10", 10, seed=0)
+    cfg.DATALOADER.BACKEND = "native"
+    for multitask in (True, False):
+        cfg.DATASET.MULTITASK = multitask
+        with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
+            build_data_manager(cfg)
 
 
 @pytest.mark.parametrize("n,k,seed", [(50, 5, 0), (7, 20, 1), (300, 3, 2), (1, 1, 3),

@@ -83,6 +83,30 @@ def test_entry_points_need_cuda_or_cpu(no_cuda):
                             device="cpu")["text"]["token_embedding"].shape == (32, 16)
 
 
+def test_elevater_and_zeroshot_runs_need_cuda_or_cpu(no_cuda, tmp_path):
+    """The ELEVATER trainer (with remat) and the zero-shot trainers raise
+    without a card, from the CLI and from their constructors, before they
+    read any data: none runs on the CPU unless asked."""
+    from mvlpt_torch.cli.train import build_parser, main
+    from mvlpt_torch.config import get_cfg_default
+    from mvlpt_torch.models.zsclip import ZeroshotCLIP, ZeroshotCLIP2
+    from mvlpt_torch.train.trainer import MVLPT
+
+    for argv in (["--trainer", "ZeroshotCLIP", "--dataset", "cifar-10", "--eval-only",
+                  "--no-train"],
+                 ["--trainer", "MVLPT", "--multi-task", "--dataset", "cifar-10,mnist",
+                  "--act-ckpt", "4"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(build_parser().parse_args(["--root", str(tmp_path), "--output-dir",
+                                            str(tmp_path / "out"), *argv]))
+    cfg = get_cfg_default()
+    cfg.merge_from_list(["DATASET.ROOT", str(tmp_path), "DATASET.DATASET", "cifar-10",
+                         "OUTPUT_DIR", str(tmp_path / "out")])
+    for trainer in (ZeroshotCLIP, ZeroshotCLIP2, MVLPT):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            trainer(cfg)
+
+
 def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     from mvlpt_torch.ops import _build
 

@@ -106,3 +106,24 @@ def two_sides(n_cls: int, **spec):
     model = MVLPTModel(CLIPConfig(**TINY_DIMS), t_spec, kernels=select_attn_fn("block"),
                        compute_dtype=torch.float32)
     return dict(j=(j_model, j_backbone, j_pp, j_consts), t=(model, backbone, pp, consts), s=s)
+
+
+def write_elevater_task(root, task: str, n_classes: int, seed: int, n_train: int = 2,
+                        n_test: int = 1, multilabel: bool = False, size: int = 32,
+                        splits=("train", "test"), classnames=None) -> None:
+    """<root>/<task>/manifest.json (the port's ``write_task_manifest``) and
+    its JPEGs: ``n_train`` train and ``n_test`` items a class in each of
+    ``splits`` (the first is "train"). Every draw comes from ``seed``
+    (never from ``hash``, which varies with PYTHONHASHSEED)."""
+    import os
+
+    from mvlpt_torch.data.elevater import write_task_manifest
+    from tests.util_fixtures import _write_image
+
+    task_dir = os.path.join(root, task)
+    counts = {split: n_train if split == "train" else n_test for split in splits}
+    items = write_task_manifest(task_dir, n_classes, counts, np.random.RandomState(seed),
+                                multilabel=multilabel, classnames=classnames)
+    for k, (rel, label) in enumerate(items):
+        _write_image(os.path.join(task_dir, rel), seed=seed * 100003 + k, size=(size, size),
+                     class_signal=label)
