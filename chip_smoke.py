@@ -131,6 +131,24 @@
      ELEVATER-20 and the transfer task's text towers, the image tower
      with 16 VPT rows at the train and eval batches, and the zero-shot
      image tower; each run fails if its shapes are not its rows'.
+   - CoCoOp through the CLI (``drive_trainer_cocoop``), on a synthetic
+     ImageNet of 1000 wnid folders written under build/, a random
+     ViT-B/16 at full width, configs/trainers/CoCoOp/vit_b16.yaml (N_CTX
+     16, s = 77, causal, G = 1): trainer_cocoop, scripts/cocoop/
+     base2new_train.sh imagenet 1 (500 base classes, 16,000 text
+     sequences a step in 4 checkpointed chunks of 4000) and
+     base2new_test.sh imagenet 1 (500 new classes, chunks of 2500 at
+     batch 100), #1-#6 launched exactly as the steps and test batches
+     need; trainer_cocoop_window, the same training in windows of 5: one
+     capture, a traced replay launching #1-#4, the replay equal bit for
+     bit to the eager window and to one step a call; cocoop_memory, one
+     step at SUN397 base (199 classes, 6368 rows, no chunk checkpoint
+     under the rule) and with the checkpoint forced, bit-equal, each
+     one's peak memory. ms/step (host and CUDA events), img/s, MFU by
+     model FLOPs, peak memory, test() img/s. Check rows for #1-#6 at the
+     text chunk (4000, 77), the test chunk (2500, 77) and the image tower
+     without VPT rows at (32, 197); each run fails if its shapes are not
+     its rows'.
 4. Prints a summary line (img/s, ms/step, MFU, peak memory), one JSON
    line of kernel numbers, then, as the last line, {"ok": true,
    "device": {...}}.
@@ -1463,6 +1481,34 @@ def _traced(fn) -> tuple:
     return out, counts
 
 
+# A traced graph replay now and then loses a few kernel records (CUPTI
+# drops them when its buffer fills). A replay whose trace marks fewer
+# launches than it must is traced again from the same state, up to
+# TRACE_TRIES times; a graph launches the same kernels on every replay, so
+# a full count on any try is the graph's own. More than it must fails.
+TRACE_TRIES = 3
+
+
+def _traced_replay(fn, state, want: dict) -> tuple:
+    """fn(), a replay of a captured window from ``state`` (a WindowState),
+    under a trace: (its result, the trace's counts, the tries taken).
+    While the trace marks (TRACE_MARKS) fewer launches of a kernel than
+    ``want`` and of none more, ``state`` is restored and the replay traced
+    again. The wrappers' counts are reset before each try."""
+    from mvlpt_torch.ops import _build
+
+    before = _state_copy(state)
+    for tries in range(1, TRACE_TRIES + 1):
+        _build.reset_launch_counts()
+        out, counts = _traced(fn)
+        marked = _marked(counts)
+        short = any(marked[name] < want.get(name, 0) for name in marked)
+        over = any(marked[name] > want.get(name, 0) for name in marked)
+        if not short or over or tries == TRACE_TRIES:
+            return out, counts, tries
+        _restore(state, before)
+
+
 def _repo_kernels(counts: dict) -> dict:
     """The counts of a trace's kernels that this repo's sources define (the
     __global__ functions under mvlpt_torch/csrc)."""
@@ -1615,8 +1661,9 @@ def drive_window(selection: str, ocfg, norm, text_shape: tuple[int, int]) -> dic
     torch.cuda.reset_peak_memory_stats()
     timed = [_timed_window(replayed, graph_state, backbone, consts, w) for w in windows[:-1]]
     graph_m = [t[2] for t in timed]
-    _build.reset_launch_counts()
-    (_, m), trace = _traced(lambda: replayed(graph_state, backbone, consts, windows[-1]))
+    (_, m), trace, trace_tries = _traced_replay(
+        lambda: replayed(graph_state, backbone, consts, windows[-1]), graph_state,
+        {name: per_window for name in TRAIN_KERNELS[selection]})
     graph_m.append(m)
     launches = _replayed_launches(path, trace, TRAIN_KERNELS[selection], per_window)
     if replayed.captures != 1:
@@ -1659,6 +1706,7 @@ def drive_window(selection: str, ocfg, norm, text_shape: tuple[int, int]) -> dic
         path=path, card=card, k=k, windows=len(windows), steps_per_epoch=WINDOW_CHECK_SPE,
         captures=replayed.captures, replays=replayed.replays, launches=launches,
         launches_counted="the last check window, replayed, in its device trace",
+        trace_tries=trace_tries,
         eager_wrapper_launches={n: c for n, c in eager_calls.items() if c},
         repo_kernels_per_step={key[:80]: n // k for key, n in sorted(ours.items())},
         losses_per_step=per_step["loss"], losses_eager_window=torch.cat(
@@ -1686,9 +1734,9 @@ def drive_window(selection: str, ocfg, norm, text_shape: tuple[int, int]) -> dic
     # A trace of a whole window of WINDOW_K steps (about 130,000 kernels)
     # loses records: the graph replays the first WINDOW_CHECK_K batches
     # under the trace instead.
-    _build.reset_launch_counts()
-    (_, m), trace = _traced(lambda: step(state, backbone, consts,
-                                         {name: t[:k] for name, t in window.items()}))
+    (_, m), trace, trace_tries = _traced_replay(
+        lambda: step(state, backbone, consts, {name: t[:k] for name, t in window.items()}),
+        state, {name: per_window for name in TRAIN_KERNELS[selection]})
     launches = _replayed_launches(path, trace, TRAIN_KERNELS[selection], per_window)
     values = torch.cat([x[name] for x in [t[2] for t in timed] + [m] for name in WINDOW_METRICS])
     if not bool(torch.isfinite(values).all()):
@@ -1701,7 +1749,7 @@ def drive_window(selection: str, ocfg, norm, text_shape: tuple[int, int]) -> dic
     peak_flops = PEAK_FLOPS["bfloat16"]
     out[path] = dict(
         path=path, card=card, k=WINDOW_K, steps_per_epoch=WINDOW_SPE, text_s=s, text_g=g,
-        captures=step.captures, replays=step.replays, launches=launches,
+        captures=step.captures, replays=step.replays, launches=launches, trace_tries=trace_tries,
         launches_counted=f"a window of its first {k} batches replayed through its graph, in "
                          "its device trace",
         warmup_window_host_ms=timed[0][0], window_host_ms=[t[0] for t in timed[1:]],
@@ -1854,14 +1902,36 @@ def _write_class_jpeg(path: Path, rng, label: int) -> None:
     Image.fromarray(arr.astype(np.uint8)).save(path, quality=90)
 
 
+def _fresh_data(root: Path, sizes: dict) -> bool:
+    """Whether ``root`` holds data written at ``sizes`` (its marker says
+    so); when it does not, ``root`` is removed, to be written anew (the
+    readers' caches with it)."""
+    import shutil
+
+    marker = root / "written.json"
+    if marker.exists() and json.loads(marker.read_text()).get("sizes") == sizes:
+        return True
+    shutil.rmtree(root, ignore_errors=True)
+    return False
+
+
+def _mark_written(root: Path, sizes: dict) -> None:
+    """The marker ``_fresh_data`` reads: ``root``'s data is written at
+    ``sizes``."""
+    (root / "written.json").write_text(json.dumps({"sizes": sizes}))
+
+
 def write_cli_dataset(root: Path) -> Path:
     """A CoOp dataset in OxfordPets' split-json layout under ``root``:
-    smooth seeded noise plus a class colour, as JPEGs."""
+    smooth seeded noise plus a class colour, as JPEGs. A marker holds the
+    sizes it was written with; data of other sizes is written anew."""
     import numpy as np
 
     ddir = root / "oxford_pets"
     split_path = ddir / "split_zhou_OxfordPets.json"
-    if split_path.exists():
+    sizes = {"classes": CLI_CLASSES, "shots": CLI_SHOTS, "val": CLI_VAL, "test": CLI_TEST,
+             "image_size": CLI_IMAGE_SIZE}
+    if _fresh_data(root, sizes):
         return root
     (ddir / "images").mkdir(parents=True, exist_ok=True)
     rng = np.random.RandomState(0)
@@ -1874,6 +1944,7 @@ def write_cli_dataset(root: Path) -> Path:
                 _write_class_jpeg(ddir / "images" / rel, rng, label)
                 split[part].append([rel, label, cname])
     split_path.write_text(json.dumps(split))
+    _mark_written(root, sizes)
     return root
 
 
@@ -1906,13 +1977,14 @@ def _cli_run(argv: list):
 
 def _test_logits(trainer):
     """The test split's logits of a trainer's current prompt (the
-    cached-text eval, as its test() runs it)."""
+    cached-text eval, as its test() runs it; CoCoOp both towers a batch)."""
     import torch
 
     from mvlpt_torch.utils.pipeline import pipelined_inference
 
-    trainer._eval_text = trainer._eval_text_fn(trainer.backbone, trainer.state.prompt_params,
-                                               trainer.consts)
+    if trainer._eval_text_fn is not None:
+        trainer._eval_text = trainer._eval_text_fn(
+            trainer.backbone, trainer.state.prompt_params, trainer.consts)
     try:
         return torch.cat([torch.from_numpy(logits[:batch["n_valid"]]) for logits, batch in
                           pipelined_inference(trainer.test_loader, trainer.model_inference)])
@@ -2083,18 +2155,15 @@ def write_elevater_dataset(root: Path) -> Path:
     as CLI_IMAGE_SIZE JPEGs; voc-2007-classification's items carry one or
     two more classes (multilabel). Written by 8 threads. A marker holds
     the sizes it was written with; data of other sizes is written anew."""
-    import shutil
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
 
     from mvlpt_torch.data.elevater import ELEVATER_20_TASKS, class_map, write_task_manifest
 
-    marker = root / "written.json"
     sizes = {"shots": ELEV_SHOTS, "test": ELEV_TEST, "image_size": CLI_IMAGE_SIZE}
-    if marker.exists() and json.loads(marker.read_text()).get("sizes") == sizes:
+    if _fresh_data(root, sizes):
         return root
-    shutil.rmtree(root, ignore_errors=True)
     jobs = []
     for t, task in enumerate(ELEVATER_20_TASKS):
         items = write_task_manifest(str(root / task), len(class_map(task)),
@@ -2106,7 +2175,7 @@ def write_elevater_dataset(root: Path) -> Path:
     with ThreadPoolExecutor(8) as pool:
         list(pool.map(lambda k: _write_class_jpeg(jobs[k][0], np.random.RandomState(k),
                                                   jobs[k][1]), range(len(jobs))))
-    marker.write_text(json.dumps({"sizes": sizes, "images": len(jobs)}))
+    _mark_written(root, sizes)
     return root
 
 
@@ -2368,16 +2437,15 @@ def drive_trainer_elevater() -> dict:
     # its first ELEV_TRACE_K steps replayed again, traced, on the state
     # the graph was captured against (load_model gave the trainer another)
     _restore(probe.state, before)
-    _build.reset_launch_counts()
-    (_, traced_m), trace = _traced(lambda: probe.steps[0](
-        probe.state, trainer.backbone, trainer.consts,
-        {name: t[:ELEV_TRACE_K] for name, t in probe.kept.items()}))
-    called = {name: n for name, n in _build.LAUNCHES.items() if n}
-    marked = _marked(trace)
     layers = trainer.clip_cfg.vision_layers + trainer.clip_cfg.transformer_layers
-    want_marks = {name: 0 for name in marked}
+    want_marks = {name: 0 for name in TRACE_MARKS}
     want_marks.update(attn_fwd=2 * layers * ELEV_TRACE_K, mlp_fwd=2 * layers * ELEV_TRACE_K,
                       attn_bwd=layers * ELEV_TRACE_K, mlp_bwd=layers * ELEV_TRACE_K)
+    (_, traced_m), trace, trace_tries = _traced_replay(lambda: probe.steps[0](
+        probe.state, trainer.backbone, trainer.consts,
+        {name: t[:ELEV_TRACE_K] for name, t in probe.kept.items()}), probe.state, want_marks)
+    called = {name: n for name, n in _build.LAUNCHES.items() if n}
+    marked = _marked(trace)
     if called or marked != want_marks or probe.steps[0].captures != 1:
         raise AssertionError(f"{path}: the traced replay called the wrappers {called} and "
                              f"launched {marked}, want {want_marks}")
@@ -2438,7 +2506,7 @@ def drive_trainer_elevater() -> dict:
             trainer.train_loader_x.dataset.items), test_images=n_test, windows=sizes,
         captures=probe.steps[0].captures, replays=probe.steps[0].replays,
         launches={k: v for k, v in launches.items() if v},
-        traced_replay_launches={k: v for k, v in marked.items() if v},
+        traced_replay_launches={k: v for k, v in marked.items() if v}, trace_tries=trace_tries,
         traced_replay_steps=ELEV_TRACE_K,
         epoch_wall_s=[e["wall_s"] for e in epochs],
         train_img_per_s=[e["images"] / e["wall_s"] for e in epochs],
@@ -2544,6 +2612,513 @@ def drive_zeroshot_cli(elevater_data: Path) -> dict:
     return out
 
 
+# The CoCoOp phases (trainer_cocoop, trainer_cocoop_window): base-to-new
+# on a synthetic ImageNet of COCOOP_CLASSES wnid folders the phase writes
+# under build/ (``write_imagenet_dataset``), as scripts/cocoop/
+# base2new_train.sh and base2new_test.sh run it with
+# configs/trainers/CoCoOp/vit_b16.yaml (N_CTX 16, no CTX_INIT, fp16 ->
+# bf16, s = 77, batch 32 and 100). Cuts: COCOOP_SHOTS train images a class
+# (the script: 16), COCOOP_TEST val images a class (ImageNet's 50),
+# CLI_IMAGE_SIZE square JPEGs, COCOOP_EPOCHS epochs (the yaml: 200).
+COCOOP_CLASSES, COCOOP_SHOTS, COCOOP_TEST, COCOOP_EPOCHS = 1000, 1, 1, 1
+COCOOP_CTX = 16  # the yaml's TRAINER.COCOOP.N_CTX
+# The window run's TRAIN.STEPS_PER_DISPATCH, and the steps of its traced
+# replay (each CoCoOp step launches about 4 x 10^3 kernels).
+COCOOP_WINDOW_K, COCOOP_TRACE_K = 5, 2
+# The memory probe: SUN397 base (397 classes, the first 199), the most
+# conditioned rows a step (32 x 199 = 6368) that the 8192-row rule leaves
+# without the chunk checkpoint among configs/datasets/.
+COCOOP_PROBE_CLASSES = 199
+
+
+def cocoop_base_classes() -> int:
+    """The base half of COCOOP_CLASSES (the first ceil(n / 2))."""
+    return (COCOOP_CLASSES + 1) // 2
+
+
+def cocoop_chunk_rows(batch: int, n_cls: int) -> int:
+    """The text tower's rows a call at ``batch`` images and ``n_cls``
+    classes: _auto_chunk's images a chunk times the classes."""
+    from mvlpt_torch.models.custom_clip import _auto_chunk
+
+    return _auto_chunk(batch, n_cls) * n_cls
+
+
+def cocoop_step_flops(batch: int, n_cls: int, s: int, image_tokens: int) -> int:
+    """Model FLOPs of one CoCoOp train step by utils/flops.py: the text
+    tower forward and dx-only backward over batch x n_cls sequences of s
+    tokens (causal blocks counted whole, as flagship_step_flops does); the
+    image tower and the stem forward only (no trained parameter reaches
+    them: the meta-net reads their output); the logits. Remat's recomputed
+    forwards are not counted."""
+    from mvlpt_torch.utils import flops
+
+    seqs = batch * n_cls
+    text = flops.transformer_matmul_flops(seqs * s, 512, 12, attn_token_blocks=[s] * seqs)
+    image = batch * flops.transformer_matmul_flops(image_tokens, 768, 12, bwd=False)
+    stem = batch * 2 * 196 * 768 * 768
+    return text + image + stem + 2 * 2 * batch * 512 * n_cls
+
+
+def write_imagenet_dataset(root: Path) -> Path:
+    """A synthetic ImageNet under ``root`` in the layout the port's reader
+    takes (data/coop/datasets.py: ImageNet): imagenet/classnames.txt with
+    COCOOP_CLASSES seeded wnids and names, and imagenet/images/{train,val}/
+    <wnid>/ with COCOOP_SHOTS and COCOOP_TEST JPEGs a class (smooth seeded
+    noise plus a class colour, CLI_IMAGE_SIZE square), written by 8
+    threads. A marker holds the sizes it was written with; data of other
+    sizes is written anew (the reader's caches with it)."""
+    import string
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    sizes = {"classes": COCOOP_CLASSES, "shots": COCOOP_SHOTS, "test": COCOOP_TEST,
+             "image_size": CLI_IMAGE_SIZE}
+    if _fresh_data(root, sizes):
+        return root
+    ddir = root / "imagenet"
+    rng = np.random.RandomState(0)
+    wnids = [f"n{id_:08d}" for id_ in sorted(rng.choice(10 ** 8, COCOOP_CLASSES, replace=False))]
+    letters = np.array(list(string.ascii_lowercase))
+    names = [" ".join("".join(rng.choice(letters, rng.randint(3, 10)))
+                      for _ in range(rng.randint(1, 4))) for _ in wnids]
+    jobs = []
+    for label, wnid in enumerate(wnids):
+        for split, count in (("train", COCOOP_SHOTS), ("val", COCOOP_TEST)):
+            (ddir / "images" / split / wnid).mkdir(parents=True, exist_ok=True)
+            jobs += [(ddir / "images" / split / wnid / f"{wnid}_{i}.JPEG", label)
+                     for i in range(count)]
+    (ddir / "classnames.txt").write_text(
+        "".join(f"{wnid} {name}\n" for wnid, name in zip(wnids, names)))
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda k: _write_class_jpeg(jobs[k][0], np.random.RandomState(k),
+                                                  jobs[k][1]), range(len(jobs))))
+    _mark_written(root, sizes)
+    return root
+
+
+def _cocoop_argv(data: Path, out: Path, sub: str, flags=(), opts=()) -> list:
+    """scripts/cocoop/base2new_{train,test}.sh imagenet 1's flags with the
+    phase's cuts, DATASET.SUBSAMPLE_CLASSES ``sub``, ``flags`` and ``opts``."""
+    return ["--root", str(data), "--seed", "1", "--trainer", "CoCoOp", "--dataset-coop",
+            "--dataset-config-file", str(ROOT / "configs/datasets/imagenet.yaml"),
+            "--config-file", str(ROOT / "configs/trainers/CoCoOp/vit_b16.yaml"),
+            "--output-dir", str(out), *flags, "DATASET.NUM_SHOTS", str(COCOOP_SHOTS),
+            "DATASET.SUBSAMPLE_CLASSES", sub, "OPTIM.MAX_EPOCH", str(COCOOP_EPOCHS), *opts]
+
+
+class _TimedStepProbe:
+    """Stands in for ``make_train_step`` in the trainer module for one CLI
+    run: makes the step as it does and records, for each call, its host ms
+    (a sync before and after) and its ms between CUDA events."""
+
+    def __init__(self, make):
+        self.make, self.timings = make, []
+
+    def __call__(self, *args, **kw):
+        import torch
+
+        step = self.make(*args, **kw)
+
+        def call(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            out = step(*a, **k)
+            end.record()
+            torch.cuda.synchronize()
+            self.timings.append((1e3 * (time.perf_counter() - t0), start.elapsed_time(end)))
+            return out
+        return call
+
+
+def _free_cuda() -> None:
+    """Collect garbage and hand the allocator's cached blocks back, so that
+    the next run of the phase starts from an empty card (a CoCoOp step's
+    peak is most of it)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _check_cocoop_shapes(path: str, got: dict) -> None:
+    """That a CoCoOp run's kernel shapes are those of its check rows
+    (``half_block_shapes``): s, the text rows a call in training and at
+    test, the image tower's S, the train and test batches."""
+    want = dict(s=77, train_rows=cocoop_chunk_rows(32, cocoop_base_classes()),
+                test_rows=cocoop_chunk_rows(EVAL_BATCH, COCOOP_CLASSES - cocoop_base_classes()),
+                image_tokens=elevater_image_tokens(0), train_batch=32, test_batch=EVAL_BATCH)
+    if got != want:
+        raise AssertionError(f"{path}: the run's shapes {got} are not its check rows' {want}")
+
+
+def drive_trainer_cocoop() -> dict:
+    """CoCoOp through the port's CLI, in-process on a random ViT-B/16
+    (MVLPT_TPU_RANDOM_CLIP) with the vocab in use, on the data of
+    ``write_imagenet_dataset``, configs/trainers/CoCoOp/vit_b16.yaml (float
+    images normalised on the host, batch 32, test batch 100), N_CTX 16,
+    s = 77 (no --cut-contextlen), so the text tower is causal, G = 1.
+
+    trainer_cocoop: base2new_train.sh imagenet 1 (the base classes, one
+    step a call: 32 x 500 = 16,000 text sequences a step, _auto_chunk 8,
+    4 chunks of 4000, each checkpointed past 8192 rows), its final test()
+    on the base classes, then base2new_test.sh imagenet 1 (--eval-only
+    --model-dir, the new classes at batch 100: chunks of 5 x 500 = 2500,
+    20 a batch). Holds: #1-#6 launched as the steps and test batches
+    need, and nothing else (per step: the text tower's 4 chunks x 12
+    layers #1 and #3 twice, #2 and #4 once; the image tower's 12 layers #1
+    and #3 once, no backward: no trained parameter reaches it; per test
+    batch 20 x 12 + 12 of #5 and #6); finite losses and results; the
+    shapes of its check rows. Prints ms a step on the host clock and on
+    CUDA events (the first step left out), img/s, MFU by model FLOPs
+    (``cocoop_step_flops``), peak memory, each test() img/s.
+
+    trainer_cocoop_window: the same training with TRAIN.STEPS_PER_DISPATCH
+    COCOOP_WINDOW_K (TEST.NO_TEST): one capture, windows of K; window 2's
+    first COCOOP_TRACE_K steps replayed again under a trace from the state
+    before it, calling no wrapper and launching #1-#4 as above; then, the
+    graph freed, window 2 run eagerly (capture=False) and one step a call
+    (make_train_step on the window's own pre-embedded tokens) from the
+    same state: both equal to the replay bit for bit (losses, accuracies,
+    grad norms, prompt leaves). Prints the replayed windows' ms a step
+    (host and events), img/s, MFU and the capture window's peak memory.
+
+    Then cocoop_memory (``drive_cocoop_memory``)."""
+    import PIL
+    import torch
+
+    from mvlpt_torch.ops import _build
+    from mvlpt_torch.train import init_train_state, make_train_step, make_train_step_multi
+    from mvlpt_torch.train import trainer as trainer_mod
+    from mvlpt_torch.train.train_step import WINDOW_METRICS
+    from mvlpt_torch.utils.tree import tree_leaves
+
+    path, wpath, card = "trainer_cocoop", "trainer_cocoop_window", card_line()
+    _free_cuda()
+    t_data = time.perf_counter()
+    data = write_imagenet_dataset(ROOT / "build" / "trainer_cocoop_data")
+    data_s = time.perf_counter() - t_data
+    out_dir = ROOT / "build" / "trainer_cocoop_out"
+    n_base, n_new = cocoop_base_classes(), COCOOP_CLASSES - cocoop_base_classes()
+    os.environ["MVLPT_TPU_RANDOM_CLIP"] = "1"
+    os.environ.pop("MVLPT_TPU_RANDOM_CLIP_ARCH", None)
+    os.environ.pop("MVLPT_TPU_CLIP_CKPT", None)
+    try:
+        # base2new_train.sh: one step a call, timed by _TimedStepProbe
+        steps_probe = _TimedStepProbe(trainer_mod.make_train_step)
+        trainer_mod.make_train_step = steps_probe
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            trainer, _ = _cli_run(_cocoop_argv(data, out_dir / "train_base", "base"))
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        finally:
+            trainer_mod.make_train_step = steps_probe.make
+        launches, peak = dict(_build.LAUNCHES), _peak_gib()
+        shapes = dict(s=trainer.spec.context_length,
+                      train_rows=cocoop_chunk_rows(trainer.cfg.DATALOADER.TRAIN_X.BATCH_SIZE,
+                                                   trainer.num_classes),
+                      image_tokens=1 + trainer.clip_cfg.grid_size ** 2 + trainer.spec.vpt_n_ctx,
+                      train_batch=trainer.cfg.DATALOADER.TRAIN_X.BATCH_SIZE,
+                      test_batch=trainer.cfg.DATALOADER.TEST.BATCH_SIZE)
+        layers = trainer.clip_cfg.vision_layers
+        chunks = 32 * n_base // shapes["train_rows"]
+        n_steps, classes = len(steps_probe.timings), trainer.num_classes
+        epochs, tests = trainer.timings["epochs"], trainer.timings["tests"]
+        n_train, n_test = (len(trainer.train_loader_x.dataset.items),
+                           len(trainer.test_loader.dataset.items))
+        remat = trainer.model.remat
+        del trainer
+        _free_cuda()
+
+        # base2new_test.sh: the new classes, --eval-only from the train run
+        _build.reset_launch_counts()
+        tested, _ = _cli_run(_cocoop_argv(data, out_dir / "test_new", "new", flags=(
+            "--model-dir", str(out_dir / "train_base"), "--eval-only")))
+        test_launches = dict(_build.LAUNCHES)
+        shapes["test_rows"] = cocoop_chunk_rows(tested.cfg.DATALOADER.TEST.BATCH_SIZE,
+                                                tested.num_classes)
+        new_classes, new_tests = tested.num_classes, tested.timings["tests"]
+        n_test_new = len(tested.test_loader.dataset.items)
+        del tested
+        _free_cuda()
+
+        # the window run
+        probe = _TimedWindowProbe(make_train_step_multi, keep=1, copies=(1,))
+        _build.reset_launch_counts()
+        wtrainer = _cli_probed(_cocoop_argv(
+            data, out_dir / "window", "base",
+            opts=("TRAIN.STEPS_PER_DISPATCH", str(COCOOP_WINDOW_K), "TEST.NO_TEST", "True")),
+            probe)
+        w_launches = dict(_build.LAUNCHES)
+    finally:
+        os.environ.pop("MVLPT_TPU_RANDOM_CLIP", None)
+
+    # trainer_cocoop: launches, results, shapes
+    _check_cocoop_shapes(path, shapes)
+    text_calls = chunks * layers
+    per_step = dict(attn_fwd=2 * text_calls + layers, mlp_fwd=2 * text_calls + layers,
+                    attn_bwd=text_calls, mlp_bwd=text_calls)
+    test_batches = -(-n_test // EVAL_BATCH)
+    per_batch = (EVAL_BATCH * n_base // shapes["test_rows"]) * layers + layers
+    want = {name: 0 for name in launches}
+    want.update({name: n * n_steps for name, n in per_step.items()},
+                attn_fwd_infer=per_batch * test_batches, mlp_fwd_infer=per_batch * test_batches)
+    if (classes, new_classes, chunks, remat) != (n_base, n_new, 4, False) or launches != want:
+        raise AssertionError(f"{path}: {classes} base and {new_classes} new classes, {chunks} "
+                             f"chunks a step, remat {remat}; launches {launches}, want {want}")
+    want_test = {name: 0 for name in test_launches}
+    test_batches_new = -(-n_test_new // EVAL_BATCH)
+    want_test.update(attn_fwd_infer=per_batch * test_batches_new,
+                     mlp_fwd_infer=per_batch * test_batches_new)
+    if test_launches != want_test:
+        raise AssertionError(f"{path}: the test run launched {test_launches}, want {want_test}")
+    results = _results_of(out_dir / "train_base" / "log.txt")
+    results_new = _results_of(out_dir / "test_new" / "log.txt")
+    if not (results and results_new and math.isfinite(results[-1]["accuracy"])
+            and math.isfinite(results_new[-1]["accuracy"])):
+        raise AssertionError(f"{path}: results {results[-1:]} (base), {results_new[-1:]} (new)")
+    step_flops = cocoop_step_flops(32, n_base, shapes["s"], shapes["image_tokens"])
+    peak_flops = PEAK_FLOPS["bfloat16"]
+
+    def rates(host_ms: float, dev_ms: float) -> dict:
+        return dict(ms_per_step=host_ms, device_ms_per_step=dev_ms, img_per_s=32e3 / host_ms,
+                    mfu_host=step_flops / (host_ms * 1e-3) / peak_flops,
+                    mfu_device=step_flops / (dev_ms * 1e-3) / peak_flops)
+
+    timed_steps = steps_probe.timings[1:]
+    out = {path: dict(
+        path=path, card=card, decoder=f"PIL {PIL.__version__}", data_written_s=data_s,
+        run_s=run_s, classes=classes, new_classes=new_classes, text_s=shapes["s"],
+        text_rows_a_step=32 * n_base, text_rows_a_chunk=shapes["train_rows"],
+        test_rows_a_chunk=shapes["test_rows"], image_tokens=shapes["image_tokens"],
+        train_images=n_train, steps=n_steps,
+        launches={k: v + test_launches[k] for k, v in launches.items() if v or test_launches[k]},
+        train_run_launches={k: v for k, v in launches.items() if v},
+        test_run_launches={k: v for k, v in test_launches.items() if v},
+        flops_per_step=step_flops, flops_counted="model FLOPs only (remat's recompute left out)",
+        peak_tflops=peak_flops / 1e12,
+        **rates(sum(h for h, _ in timed_steps) / len(timed_steps),
+                sum(d for _, d in timed_steps) / len(timed_steps)),
+        step_ms_host=[h for h, _ in steps_probe.timings], peak_mem_gib=peak,
+        epoch_wall_s=[e["wall_s"] for e in epochs],
+        train_img_per_s=[e["images"] / e["wall_s"] for e in epochs],
+        loader_wait_share=[e["loader_s"] / e["wall_s"] for e in epochs],
+        test_img_per_s={"base": [t["images"] / t["wall_s"] for t in tests],
+                        "new": [t["images"] / t["wall_s"] for t in new_tests]},
+        test_images={"base": n_test, "new": n_test_new},
+        results_base=results[-1], results_new=results_new[-1])}
+    print("main-path " + json.dumps(out[path]), flush=True)
+
+    # trainer_cocoop_window: one capture, windows of K, the traced replay
+    sizes = [int(m["loss"].shape[0]) for m in probe.windows]
+    step = probe.steps[0] if len(probe.steps) == 1 else None
+    if (step is None or step.captures != 1 or set(sizes) != {COCOOP_WINDOW_K}
+            or sum(sizes) != n_steps):
+        raise AssertionError(f"{wpath}: {[st.captures for st in probe.steps]} captures of "
+                             f"{len(probe.steps)} windowed steps, windows {sizes}: want one "
+                             f"step with 1 capture and windows of {COCOOP_WINDOW_K} over "
+                             f"{n_steps} steps")
+    want_w = {name: 0 for name in w_launches}
+    want_w.update({name: 2 * n for name, n in per_step.items()})  # the warm-up step, the capture
+    if w_launches != want_w:
+        raise AssertionError(f"{wpath}: launches {w_launches}, want {want_w}")
+    before, after = probe.states[1]
+    _restore(probe.state, before)
+    want_marks = {name: 0 for name in TRACE_MARKS}
+    want_marks.update({name: n * COCOOP_TRACE_K for name, n in per_step.items()})
+    (_, traced_m), trace, trace_tries = _traced_replay(lambda: step(
+        probe.state, wtrainer.backbone, wtrainer.consts,
+        {name: t[:COCOOP_TRACE_K] for name, t in probe.kept.items()}), probe.state, want_marks)
+    called = {name: n for name, n in _build.LAUNCHES.items() if n}
+    marked = _marked(trace)
+    if called or marked != want_marks or step.captures != 1:
+        raise AssertionError(f"{wpath}: the traced replay called the wrappers {called} and "
+                             f"launched {marked}, want {want_marks}")
+    for name in WINDOW_METRICS:
+        if not torch.equal(traced_m[name], probe.windows[1][name][:COCOOP_TRACE_K]):
+            raise AssertionError(f"{wpath}: the traced replay's {name} differs from the run's")
+    timings, k = probe.timings, sizes[1]
+    replayed = timings[1:]
+    w_rates = rates(sum(t["host_ms"] for t in replayed) / sum(t["steps"] for t in replayed),
+                    sum(t["device_ms"] for t in replayed) / sum(t["steps"] for t in replayed))
+    capture_peak, replay_peak = timings[0]["peak_gib"], max(t["peak_gib"] for t in replayed)
+    windows = probe.windows
+    kept, model, backbone, consts = probe.kept, wtrainer.model, wtrainer.backbone, wtrainer.consts
+    state_args = (wtrainer.state.prompt_params, wtrainer.cfg.OPTIM, wtrainer.steps_per_epoch)
+    eager_kw = dict(pre_embed=bool(wtrainer.cfg.TPU.PRE_EMBED_WINDOW),
+                    normalize=wtrainer._normalize)
+    task_ranges = wtrainer.task_ranges
+    # free the graph (its pool holds a step's peak) before the eager runs
+    probe.steps.clear()
+    del step, wtrainer
+    _free_cuda()
+
+    eager_state = init_train_state(*state_args)
+    _restore(eager_state, before)
+    eager = make_train_step_multi(model, task_ranges, capture=False, **eager_kw)
+    _, eager_m = eager(eager_state, backbone, consts, kept)
+    _equal_windows(wpath, "the replayed window against the eager window", windows[1], eager_m,
+                   after[0], tree_leaves(eager_state.prompt_params))
+    tokens = eager._window_inputs(backbone, kept)
+    step_state = init_train_state(*state_args)
+    _restore(step_state, before)
+    one = make_train_step(model, task_ranges, normalize=eager_kw["normalize"],
+                          pre_embedded=eager_kw["pre_embed"])
+    per = [one(step_state, backbone, consts, {name: t[i] for name, t in tokens.items()})[1]
+           for i in range(k)]
+    _equal_windows(wpath, "one step a call against the eager window",
+                   {name: torch.stack([m[name] for m in per]) for name in WINDOW_METRICS},
+                   eager_m, tree_leaves(step_state.prompt_params),
+                   tree_leaves(eager_state.prompt_params))
+    losses = torch.cat([m["loss"] for m in windows])
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"{wpath}: a loss is not finite: {losses.tolist()}")
+    out[wpath] = dict(
+        path=wpath, card=card, windows=sizes, captures=1, launches={
+            k_: v for k_, v in w_launches.items() if v},
+        traced_replay_launches={k_: v for k_, v in marked.items() if v},
+        trace_tries=trace_tries,
+        traced_replay_steps=COCOOP_TRACE_K, **w_rates, peak_mem_gib=capture_peak,
+        replay_peak_mem_gib=replay_peak, capture_window_host_ms=timings[0]["host_ms"],
+        replay_equals_eager=True, eager_equals_per_step=True,
+        first_losses=windows[0]["loss"].tolist())
+    print("main-path " + json.dumps(out[wpath]), flush=True)
+    del eager, eager_state, step_state, one, per, tokens, kept, model, backbone, consts
+    _free_cuda()
+
+    out.update(drive_cocoop_memory(card, peak))
+    return out
+
+
+def drive_cocoop_memory(card: str, imagenet_peak: float) -> dict:
+    """cocoop_memory: one CoCoOp train step (``cocoop_step_memory``) at
+    COCOOP_PROBE_CLASSES (SUN397 base) under the rule (no chunk checkpoint
+    at 32 x 199 = 6368 rows) and with the checkpoint forced. Holds: loss
+    and prompt leaves bit-equal; each step's text-tower calls at the
+    text_cocoop_probe row's shape and its image tower at image_cocoop's;
+    #1-#4 launched as the step needs them and nothing else. Prints each
+    step's peak memory beside ``imagenet_peak`` (trainer_cocoop's)."""
+    import torch
+
+    path = "cocoop_memory"
+    rule = cocoop_step_memory(COCOOP_PROBE_CLASSES)
+    _free_cuda()
+    forced = cocoop_step_memory(COCOOP_PROBE_CLASSES, chunk_remat=True)
+    _free_cuda()
+    if rule["chunk_remat"] or rule["loss"] != forced["loss"] or not all(
+            torch.equal(a, b) for a, b in zip(rule.pop("leaves"), forced.pop("leaves"))):
+        raise AssertionError(f"{path}: chunk checkpoint {rule['chunk_remat']} under the rule, "
+                             f"or the forced one not bit-equal to none")
+    probe_rows, s_image = cocoop_chunk_rows(32, COCOOP_PROBE_CLASSES), elevater_image_tokens(0)
+    for run in (rule, forced):
+        # the text tower's chunks x its layers, their forwards twice under
+        # the checkpoint; the image tower's layers forward only
+        want_shapes = {(probe_rows, 77)}
+        text_calls = 32 * COCOOP_PROBE_CLASSES // probe_rows * run.pop("text_layers")
+        fwd = text_calls * (1 + run["chunk_remat"]) + run.pop("image_layers")
+        want = {name: 0 for name in run["launches"]}
+        want.update(attn_fwd=fwd, mlp_fwd=fwd, attn_bwd=text_calls, mlp_bwd=text_calls)
+        if (set(run["text_shapes"]) != want_shapes or run["image_shape"] != (32, s_image)
+                or run["launches"] != want):
+            raise AssertionError(
+                f"{path}: text calls {run['text_shapes']}, image {run['image_shape']}, "
+                f"launches {run['launches']}; want {want_shapes}, {(32, s_image)}, {want}")
+        run["text_shapes"] = sorted(set(run["text_shapes"]))
+        run["launches"] = {name: n for name, n in run["launches"].items() if n}
+    names = set(rule["launches"]) | set(forced["launches"])
+    launches = {name: rule["launches"].get(name, 0) + forced["launches"].get(name, 0)
+                for name in sorted(names)}
+    out = dict(path=path, card=card, no_chunk_remat=rule, chunk_remat=forced,
+               imagenet_base_peak_mem_gib=imagenet_peak,
+               card_gib=torch.cuda.get_device_properties(0).total_memory / 2 ** 30,
+               launches={name: n for name, n in launches.items() if n})
+    print("main-path " + json.dumps(out), flush=True)
+    return {path: out}
+
+
+def cocoop_step_memory(n_cls: int, chunk_remat: bool | None = None) -> dict:
+    """One CoCoOp train step (make_train_step, 32 float images from a seed)
+    of configs/trainers/CoCoOp/vit_b16.yaml's CoCoOp (N_CTX 16, s = 77,
+    bf16) on a random ViT-B/16 at full width over ``n_cls`` classes:
+    its peak memory (the allocator's peak reset before it), host ms, loss,
+    the prompt leaves after it, the wrappers' launches in the step and the
+    (rows, s) of each text-tower call and the image tower's (B, S).
+    ``chunk_remat`` forces each chunk's checkpoint on or off (None: the
+    model's rule)."""
+    import numpy as np
+    import torch
+
+    from mvlpt_torch.config import optim_config
+    from mvlpt_torch.core.clip import CLIPConfig, cast_backbone, init_clip_params
+    from mvlpt_torch.models import MVLPTModel, custom_clip
+    from mvlpt_torch.ops import _build
+    from mvlpt_torch.ops.attention import select_attn_fn
+    from mvlpt_torch.prompts import PromptSpec, build_prompt_consts, init_prompt_params
+    from mvlpt_torch.train import init_train_state, make_train_step
+    from mvlpt_torch.utils.tree import tree_leaves
+
+    clip_cfg = CLIPConfig.for_backbone("ViT-B/16")
+    backbone = cast_backbone(init_clip_params(torch.Generator().manual_seed(0), clip_cfg,
+                                              device="cuda"), torch.bfloat16)
+    spec = PromptSpec(n_cls=n_cls, cocoop_n_ctx=COCOOP_CTX,
+                      context_length=clip_cfg.context_length,
+                      vision_layers=clip_cfg.vision_layers, vision_width=clip_cfg.vision_width,
+                      text_width=clip_cfg.transformer_width, embed_dim=clip_cfg.embed_dim,
+                      vision_patch_size=clip_cfg.vision_patch_size)
+    pp = init_prompt_params(torch.Generator().manual_seed(1), spec, device="cuda")
+    consts = build_prompt_consts([f"class number {i}" for i in range(n_cls)], spec, backbone,
+                                 torch.bfloat16)
+    model = MVLPTModel(clip_cfg, spec, kernels=select_attn_fn("auto"),
+                       compute_dtype=torch.bfloat16)
+    text_shapes, image_shape = [], []
+
+    def encode_text_prompts(backbone, prompts, eot_idx):
+        text_shapes.append(tuple(prompts.shape[:2]))
+        return MVLPTModel.encode_text_prompts(model, backbone, prompts, eot_idx)
+
+    def encode_image(backbone, prompt_params, images, *args, **kw):
+        grid = images.shape[1] // clip_cfg.vision_patch_size
+        image_shape.append((images.shape[0], 1 + grid * grid + spec.vpt_n_ctx))
+        return MVLPTModel.encode_image(model, backbone, prompt_params, images, *args, **kw)
+
+    model.encode_text_prompts, model.encode_image = encode_text_prompts, encode_image
+    state = init_train_state(pp, optim_config(**OPTIM), 100)
+    rng = np.random.RandomState(3)
+    res = clip_cfg.image_resolution
+    batch = {"image": torch.from_numpy(rng.randn(32, res, res, 3).astype(np.float32)).cuda(),
+             "label": torch.from_numpy(rng.randint(0, n_cls, 32)).cuda()}
+    rule = custom_clip.COCOOP_REMAT_ROWS
+    if chunk_remat is not None:
+        custom_clip.COCOOP_REMAT_ROWS = -1 if chunk_remat else 1 << 62
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = make_train_step(model)(state, backbone, consts, batch)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        launches = dict(_build.LAUNCHES)
+    finally:
+        custom_clip.COCOOP_REMAT_ROWS = rule
+    return dict(n_cls=n_cls, rows=32 * n_cls, chunk=custom_clip._auto_chunk(32, n_cls),
+                text_layers=clip_cfg.transformer_layers, image_layers=clip_cfg.vision_layers,
+                chunk_remat=32 * n_cls > rule if chunk_remat is None else chunk_remat,
+                peak_gib=_peak_gib(), step_ms=step_ms, loss=metrics["loss"].item(),
+                launches=launches, text_shapes=text_shapes, image_shape=image_shape[0],
+                leaves=[t.detach().clone() for t in tree_leaves(state.prompt_params)])
+
+
 def kernel_entries(results: list[dict], paths: dict) -> list[dict]:
     """One entry a kernel of KERNELS: its bf16 check row's numbers and its
     launches on each path."""
@@ -2599,6 +3174,10 @@ def half_block_shapes() -> tuple[dict, dict]:
     n_t = len(elevater_classnames((ELEV_TRANSFER_TASK,)))
     mask_t = block_causal_mask(g_t, s_t, device="cuda")
     s_ei, s_zs = elevater_image_tokens(), elevater_image_tokens(0)
+    rows_c = cocoop_chunk_rows(32, cocoop_base_classes())
+    rows_ce = cocoop_chunk_rows(EVAL_BATCH, COCOOP_CLASSES - cocoop_base_classes())
+    rows_p = cocoop_chunk_rows(32, COCOOP_PROBE_CLASSES)
+    mask_c = causal_mask(77, device="cuda")
     every, no_residual = ("train", "no-residual"), ("no-residual",)
     attn_only = (("attn_fwd", "train"), ("attn_fwd", "no-residual"), ("attn_bwd", "train"))
     kernel_shapes = {
@@ -2618,8 +3197,18 @@ def half_block_shapes() -> tuple[dict, dict]:
         "image_eval_elevater": (EVAL_BATCH, s_ei, 768, 12, None, s_ei, EVAL_BATCH, no_residual),
         # The text tower of trainer_elevater_transfer (ELEV_TRANSFER_TASK).
         "text_elevater_transfer": (rows_t, g_t * s_t, 512, 8, mask_t, s_t, n_t, every),
-        # The zero-shot image tower (no VPT rows): zeroshot[*], zeroshot_cli.
-        "image_eval_zeroshot": (EVAL_BATCH, s_zs, 768, 12, None, s_zs, EVAL_BATCH, no_residual)}
+        # The zero-shot image tower (no VPT rows): zeroshot[*], zeroshot_cli,
+        # and trainer_cocoop's test batches.
+        "image_eval_zeroshot": (EVAL_BATCH, s_zs, 768, 12, None, s_zs, EVAL_BATCH, no_residual),
+        # trainer_cocoop's text tower (s = 77, causal, G = 1): a train
+        # chunk of 8 images x 500 base classes, a test chunk of 5 x 500
+        # new ones; its image tower without VPT rows at the train batch.
+        "text_cocoop": (rows_c, 77, 512, 8, mask_c, 77, rows_c, every),
+        "text_eval_cocoop": (rows_ce, 77, 512, 8, mask_c, 77, rows_ce, no_residual),
+        "image_cocoop": (32, s_zs, 768, 12, None, s_zs, 32, every),
+        # cocoop_memory's text chunk: 16 images x COCOOP_PROBE_CLASSES
+        # (SUN397 base), the train kernels only (one train step).
+        "text_cocoop_probe": (rows_p, 77, 512, 8, mask_c, 77, rows_p, ("train",))}
     tp_shapes = {
         "image": (32, s_img, 768, 12, None, s_img, 32, TP_KERNELS),
         "text": (rows, g * s, 512, 8, packed_mask, s, 100, TP_KERNELS),
@@ -2704,6 +3293,7 @@ def main() -> int:
     print(f"ELEVATER-20 text tower: s={s_e}, G={g_e}, {rows_e} rows of {g_e * s_e} tokens",
           flush=True)
     paths.update(drive_trainer_elevater())
+    paths.update(drive_trainer_cocoop())
 
     summary = {"card": card_line()}
     for path, out in paths.items():

@@ -36,6 +36,7 @@ def backbone_from_jax(tree: dict, device="cuda") -> dict:
 
 
 def prompt_params_from_jax(tree: dict, device="cuda") -> dict:
-    """JAX prompt tree -> fp32 port prompt params."""
+    """JAX prompt tree -> fp32 port prompt params, every subtree as it is
+    (coop, vpt, mvlpt_proj, and cocoop's ctx and meta_net)."""
     device = resolve_device(device)
     return tree_map(lambda a: _to_tensor(a, device, torch.float32), tree)

@@ -12,8 +12,8 @@ merge order (the reference's train.py:222-295), so run scripts translate
 
 Config merge order: dataset-yaml < trainer-yaml < CLI flags < opts
 (train.py:171-191). Runs on the card; ``main(args, device="cpu")`` runs
-on the CPU. CoOp and ELEVATER datasets, ``--act-ckpt``, and the zero-shot
-trainers run; what the port does not run yet (CoCoOp, the fine-tune
+on the CPU. CoOp and ELEVATER datasets, CoCoOp, ``--act-ckpt``, and the
+zero-shot trainers run; what the port does not run yet (the fine-tune
 trainer, optimizers other than SGD, VPT dropout, a mesh) raises, naming
 its ROADMAP.md item.
 """

@@ -229,9 +229,8 @@ def validate_support(cfg) -> None:
 
     As in the JAX package: the Dassl DataLoader features MVLPT never
     exercises. Besides, what the port has not ported yet, each naming
-    its ROADMAP.md item: CoCoOp, optimizers other than SGD, VPT dropout,
-    a mesh of more than one device, and the data backends other than
-    "python"."""
+    its ROADMAP.md item: optimizers other than SGD, VPT dropout, a mesh
+    of more than one device, and the data backends other than "python"."""
     problems = []
     if cfg.DATALOADER.K_TRANSFORMS != 1:
         problems.append("DATALOADER.K_TRANSFORMS != 1 (multi-view "
@@ -253,9 +252,6 @@ def validate_support(cfg) -> None:
         raise NotImplementedError("; ".join(problems))
 
     missing = []
-    if cfg.TRAINER.NAME == "CoCoOp" or cfg.TRAINER.MVLPT.COCOOP.N_CTX > 0 \
-            or cfg.TRAINER.MVLPT.COCOOP.CTX_INIT:
-        missing.append("CoCoOp (ROADMAP.md Queue 1, item 6)")
     if cfg.OPTIM.NAME.lower() != "sgd":
         missing.append(f"OPTIM.NAME {cfg.OPTIM.NAME!r}: only SGD "
                        "(ROADMAP.md Queue 1, item 11)")

@@ -7,4 +7,10 @@ from mvlpt_torch.prompts.learner import (
     init_prompt_params,
     spec_from_cfg,
 )
-from mvlpt_torch.prompts.assembly import coop_assemble, upt_couple, vpt_prepare
+from mvlpt_torch.prompts.assembly import (
+    cocoop_assemble,
+    cocoop_condition,
+    coop_assemble,
+    upt_couple,
+    vpt_prepare,
+)

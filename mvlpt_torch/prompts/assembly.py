@@ -1,5 +1,6 @@
 """Prompt-assembly functions: UPT coupling, VPT preparation, CoOp prompt
-construction. The counterpart of ``mvlpt_tpu/prompts/assembly.py``."""
+construction, CoCoOp conditioning. The counterpart of
+``mvlpt_tpu/prompts/assembly.py``."""
 
 from __future__ import annotations
 
@@ -116,3 +117,31 @@ def coop_assemble(ctx: torch.Tensor | None, consts: PromptConsts,
         idx = consts.perm[:, :, None].expand(-1, -1, prompts.shape[-1])
         prompts = torch.gather(prompts, 1, idx)
     return prompts
+
+
+def cocoop_assemble(ctx: torch.Tensor, consts: PromptConsts) -> torch.Tensor:
+    """(c * n_cls, S, Wt) prompt embeddings of ``c`` instances' contexts
+    ``ctx`` (c, n_ctx, Wt): each instance's (n_cls, S, Wt) grid as
+    :func:`coop_assemble` builds it from a shared context, instance-major
+    (the JAX package's vmap of coop_assemble, then a reshape)."""
+    prefix, suffix = consts.token_prefix, consts.token_suffix
+    c, n_cls = ctx.shape[0], prefix.shape[0]
+    ctx = ctx[:, None].expand(c, n_cls, *ctx.shape[1:]).to(prefix.dtype)
+    prompts = torch.cat([prefix.expand(c, *prefix.shape), ctx,
+                         suffix.expand(c, *suffix.shape)], dim=2)
+    if consts.perm is not None:
+        idx = consts.perm[None, :, :, None].expand(c, -1, -1, prompts.shape[-1])
+        prompts = torch.gather(prompts, 2, idx)
+    return prompts.reshape(c * n_cls, *prompts.shape[2:])
+
+
+def cocoop_condition(prompt_params: dict, spec: PromptSpec,
+                     image_features: torch.Tensor) -> torch.Tensor:
+    """CoCoOp's instance-conditioned contexts: the shared ctx shifted by a
+    meta-net bias per image (Linear, ReLU, Linear in fp32). Returns
+    (B, n_ctx, Wt)."""
+    cc = prompt_params["cocoop"]
+    mn = cc["meta_net"]
+    h = torch.relu(_linear(image_features.float(), mn["linear1"]))
+    bias = _linear(h, mn["linear2"])  # (B, Wt)
+    return cc["ctx"][None] + bias[:, None, :]

@@ -4,13 +4,12 @@ The counterpart of ``mvlpt_tpu/prompts/learner.py``:
 
   * ``PromptSpec``   - static hyperparameters (shapes, modes);
   * prompt params    - one nested dict of fp32 leaf tensors holding the
-                       CoOp context, VPT shallow/deep embeddings and the
-                       UPT coupler; the only tensors that take gradients;
+                       CoOp context, VPT shallow/deep embeddings, the
+                       UPT coupler and CoCoOp's context and meta-net; the
+                       only tensors that take gradients;
   * ``PromptConsts`` - frozen task buffers: the embedded prompt prefix
                        and suffix, EOT indices, and the gather that puts
                        the class token in the 'middle' or at the 'front'.
-
-CoCoOp's meta-net is not ported yet.
 """
 
 from __future__ import annotations
@@ -147,16 +146,24 @@ def _torch_linear_init(gen, in_dim, out_dim):
             "bias": _uniform(gen, (out_dim,), -bound, bound)}
 
 
+def _ctx_from_words(clip_params: dict, ctx_init: str, n_ctx: int) -> torch.Tensor:
+    """(n_ctx, Wt) fp32: the token embeddings of the init words."""
+    ids = tokenize(ctx_init.replace("_", " "))
+    emb = clip_params["text"]["token_embedding"].float().cpu()
+    return emb[torch.from_numpy(ids[0, 1:1 + n_ctx]).long()]
+
+
 def init_prompt_params(gen: torch.Generator, spec: PromptSpec, device="cuda",
-                       clip_params: dict | None = None, coop_ctx_init: str = "") -> dict:
+                       clip_params: dict | None = None, coop_ctx_init: str = "",
+                       cocoop_ctx_init: str = "") -> dict:
     """Initialize the trainable prompt tree (fp32 masters) with the JAX
     package's distributions: VPT xavier-uniform with fan 3*patch^2 +
-    vpt_dim; CoOp N(0, 0.02) or the embeddings of the init words; the UPT
-    coupler a CLIP-style 1-layer transformer plus nn.Linear-default
-    pre/post projections. Drawn on the host from ``gen``."""
+    vpt_dim; CoOp and CoCoOp N(0, 0.02) or the embeddings of the init
+    words; the UPT coupler a CLIP-style 1-layer transformer plus
+    nn.Linear-default pre/post projections; CoCoOp's meta-net two
+    nn.Linear-default layers, embed_dim -> embed_dim // 16 -> text_width.
+    Drawn on the host from ``gen``."""
     device = resolve_device(device)
-    if spec.has_cocoop:
-        raise NotImplementedError("CoCoOp prompts are not ported yet (ROADMAP.md Queue 1)")
     params: dict = {}
     if spec.has_vpt:
         val = math.sqrt(6.0 / (3 * spec.vision_patch_size ** 2 + spec.vpt_dim))
@@ -174,9 +181,7 @@ def init_prompt_params(gen: torch.Generator, spec: PromptSpec, device="cuda",
 
     if spec.has_coop:
         if coop_ctx_init:
-            ids = tokenize(coop_ctx_init.replace("_", " "))
-            emb = clip_params["text"]["token_embedding"].float().cpu()
-            ctx = emb[torch.from_numpy(ids[0, 1:1 + spec.coop_n_ctx]).long()]
+            ctx = _ctx_from_words(clip_params, coop_ctx_init, spec.coop_n_ctx)
         elif spec.coop_csc:
             ctx = torch.randn((spec.n_cls, spec.coop_n_ctx, spec.text_width),
                               generator=gen) * 0.02
@@ -196,6 +201,15 @@ def init_prompt_params(gen: torch.Generator, spec: PromptSpec, device="cuda",
         if spec.project_method in ("transformer", "transformer_seq"):
             proj["transformer"] = init_block_stack(gen, 1, d)
         params["mvlpt_proj"] = proj
+
+    if spec.has_cocoop:
+        if cocoop_ctx_init:
+            ctx = _ctx_from_words(clip_params, cocoop_ctx_init, spec.cocoop_n_ctx)
+        else:
+            ctx = torch.randn((spec.cocoop_n_ctx, spec.text_width), generator=gen) * 0.02
+        params["cocoop"] = {"ctx": ctx, "meta_net": {
+            "linear1": _torch_linear_init(gen, spec.embed_dim, spec.embed_dim // 16),
+            "linear2": _torch_linear_init(gen, spec.embed_dim // 16, spec.text_width)}}
 
     return tree_map(lambda t: t.to(device=device, dtype=torch.float32), params)
 

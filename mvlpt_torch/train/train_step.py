@@ -385,7 +385,11 @@ def make_cached_text_eval(model: MVLPTModel, task_ranges: TaskClassRanges | None
     are frozen at eval, so ``text_fn(backbone, prompt_params, consts)``
     computes the text features once and ``eval_fn(backbone,
     prompt_params, text_features, batch)`` runs the image tower and the
-    logits per batch, with the same values as :func:`make_eval_step`."""
+    logits per batch, with the same values as :func:`make_eval_step`.
+    CoCoOp's text features depend on the image: it returns (None, None),
+    and callers run :func:`make_eval_step`."""
+    if model.spec.has_cocoop:
+        return None, None
     model = _inference_model(model)
 
     @torch.no_grad()

@@ -14,8 +14,9 @@ mvlpt.py:827-1125):
     prompt-only checkpoints under <OUTPUT_DIR>/prompt_learner/;
   * resume from RESUME dir; warm start from --model-dir via load_model
     (drops token_prefix/suffix, renames upt_proj, non-strict);
-  * test() over both universes (mvlpt.py:989-1088): CoOp through the
-    classification evaluator, per task in multitask runs; a single
+  * test() over both universes (mvlpt.py:989-1088), with the text
+    features once a pass (CoCoOp: both towers each batch): CoOp through
+    the classification evaluator, per task in multitask runs; a single
     ELEVATER task by its metric over the concatenated logits; ELEVATER
     multitask per task, on the task's slice [lo:hi] of the logits and
     k-hot targets (the argmax for "accuracy"); overall = average or
@@ -23,8 +24,8 @@ mvlpt.py:827-1125):
   * per-layer activation checkpointing for TRAINER.ACT_CKPT > 1;
   * scalar logging to <OUTPUT_DIR>/tb/scalars.jsonl.
 
-CoCoOp and the fine-tune trainer are not ported yet (ROADMAP.md Queue
-1); the zero-shot trainers live in ``models/zsclip.py``.
+The fine-tune trainer is not ported yet (ROADMAP.md Queue 1); the
+zero-shot trainers live in ``models/zsclip.py``.
 """
 
 from __future__ import annotations
@@ -147,7 +148,7 @@ def _foreign_trace(opt_state, keys: set):
 
 
 class PromptTrainer:
-    """Shared engine for the MVLPT and CoOp trainers. Runs on ``device``
+    """Shared engine for the MVLPT, CoOp and CoCoOp trainers. Runs on ``device``
     (the card unless the caller asks for the CPU).
 
     ``timings`` records what the host clock saw: each epoch's wall time
@@ -187,11 +188,12 @@ class PromptTrainer:
         return getattr(torch, self.cfg.TPU.PARAM_DTYPE), getattr(torch, self.cfg.TPU.COMPUTE_DTYPE)
 
     def build_spec(self, clip_cfg: CLIPConfig, classnames) -> PromptSpec:
-        """MVLPT spec from TRAINER.MVLPT.* (overridden by CoOp)."""
+        """MVLPT spec from TRAINER.MVLPT.* (overridden by CoOp and CoCoOp)."""
         return spec_from_cfg(self.cfg, len(classnames), clip_cfg, classnames)
 
-    def ctx_init(self) -> str:
-        return self.tcfg.COOP.CTX_INIT
+    def ctx_inits(self) -> tuple[str, str]:
+        """(CoOp, CoCoOp) context init words."""
+        return self.tcfg.COOP.CTX_INIT, self.tcfg.COCOOP.CTX_INIT
 
     # ------------------------------------------------------------------ data
     def build_data_loader(self):
@@ -215,12 +217,12 @@ class PromptTrainer:
 
         print("Building custom CLIP")
         self.spec = self.build_spec(self.clip_cfg, classnames)
-        coop_init = self.ctx_init()
+        coop_init, cocoop_init = self.ctx_inits()
         prompt_params = init_prompt_params(
             torch.Generator().manual_seed(max(cfg.SEED, 0)), self.spec, device=self.device,
-            clip_params=self.backbone, coop_ctx_init=coop_init)
+            clip_params=self.backbone, coop_ctx_init=coop_init, cocoop_ctx_init=cocoop_init)
         self.consts = build_prompt_consts(classnames, self.spec, self.backbone, compute_dtype,
-                                          ctx_init=coop_init)
+                                          ctx_init=coop_init or cocoop_init)
         print("Current Context Length is:", self.spec.context_length)
 
         self.task_ranges = None
@@ -262,7 +264,8 @@ class PromptTrainer:
         self.train_step_multi = None  # built on first use (TRAIN.STEPS_PER_DISPATCH)
         self.eval_step = make_eval_step(self.model, self.task_ranges, normalize=self._normalize)
         # Cached-text eval: prompts are frozen during eval, so test()
-        # computes the text features once a call instead of per batch.
+        # computes the text features once a call instead of per batch
+        # (None for CoCoOp: its text features depend on the image).
         self._eval_text_fn, self.eval_step_cached = make_cached_text_eval(
             self.model, self.task_ranges, normalize=self._normalize)
         self._eval_text = None
@@ -464,9 +467,10 @@ class PromptTrainer:
                          for t in self.dm._task_names}
 
         t0 = time.perf_counter()
-        # one text-tower pass for the whole split (prompts frozen)
-        self._eval_text = self._eval_text_fn(self.backbone, self.state.prompt_params,
-                                             self.consts)
+        if self._eval_text_fn is not None:
+            # one text-tower pass for the whole split (prompts frozen)
+            self._eval_text = self._eval_text_fn(self.backbone, self.state.prompt_params,
+                                                 self.consts)
         try:
             images = 0
             for logits_full, batch in pipelined_inference(loader, self.model_inference):
@@ -647,14 +651,39 @@ class CoOp(PromptTrainer):
             text_width=clip_cfg.transformer_width, embed_dim=clip_cfg.embed_dim,
             vision_patch_size=clip_cfg.vision_patch_size)
 
-    def ctx_init(self) -> str:
-        return self.cfg.TRAINER.COOP.CTX_INIT
+    def ctx_inits(self) -> tuple[str, str]:
+        return self.cfg.TRAINER.COOP.CTX_INIT, ""
+
+
+@TRAINER_REGISTRY.register()
+class CoCoOp(PromptTrainer):
+    """Conditional prompt tuning (the reference's cocoop.py:197); spec from
+    TRAINER.COCOOP."""
+
+    trainer_cfg_key = "COCOOP"
+
+    def build_spec(self, clip_cfg, classnames):
+        t = self.cfg.TRAINER.COCOOP
+        n_ctx = t.N_CTX
+        if t.CTX_INIT:
+            n_ctx = len(t.CTX_INIT.replace("_", " ").split(" "))
+        context_length = clip_cfg.context_length
+        if self.cfg.TRAINER.CUT_CONTEXTLEN:
+            context_length = compute_cut_context_length(
+                classnames, n_ctx, clip_cfg.context_length, ctx_init=t.CTX_INIT)
+        return PromptSpec(
+            n_cls=len(classnames), cocoop_n_ctx=n_ctx, context_length=context_length,
+            vision_layers=clip_cfg.vision_layers, vision_width=clip_cfg.vision_width,
+            text_width=clip_cfg.transformer_width, embed_dim=clip_cfg.embed_dim,
+            vision_patch_size=clip_cfg.vision_patch_size)
+
+    def ctx_inits(self) -> tuple[str, str]:
+        return "", self.cfg.TRAINER.COCOOP.CTX_INIT
 
 
 # The JAX package's other trainers, not ported yet: the ROADMAP.md item
 # that brings each.
 NOT_PORTED = {
-    "CoCoOp": "Queue 1, item 6",
     "FinetuneCLIP": "Queue 1, item 10",
 }
 

@@ -10,6 +10,7 @@ import pytest
 import yaml
 
 from mvlpt_tpu.config import get_cfg_default as j_defaults
+from mvlpt_tpu.config.defaults import validate_support as j_validate
 from mvlpt_tpu.config.config import _coerce as j_coerce
 
 from mvlpt_torch.config import dump_yaml, get_cfg_default, load_yaml, validate_support
@@ -122,8 +123,6 @@ def test_frozen_and_unknown_keys_raise(make, tmp_path):
 
 
 @pytest.mark.parametrize("opts,item", [
-    (["TRAINER.NAME", "CoCoOp"], "item 6"),
-    (["TRAINER.MVLPT.COCOOP.N_CTX", "4"], "item 6"),
     (["OPTIM.NAME", "adam"], "item 11"),
     (["TRAINER.MVLPT.VPT.DROPOUT", "0.1"], "item 11"),
     (["OPTIM.NAME", "adamw"], "item 11"),
@@ -137,6 +136,20 @@ def test_validate_support_names_the_roadmap_item(opts, item):
     cfg.merge_from_list(["TRAINER.NAME", "MVLPT", "DATASET.COOP", "True"] + opts)
     with pytest.raises(NotImplementedError, match=item):
         validate_support(cfg)
+
+
+@pytest.mark.parametrize("opts", [["TRAINER.NAME", "CoCoOp"],
+                                  ["TRAINER.MVLPT.COCOOP.N_CTX", "4"]],
+                         ids=["cocoop-trainer", "mvlpt-cocoop-ctx"])
+def test_validate_support_passes_cocoop(opts):
+    """CoCoOp runs (Queue 1 item 6): the CoCoOp trainer and the MVLPT
+    trainer with a conditioned context pass, as in the JAX package."""
+    cfg = get_cfg_default()
+    cfg.merge_from_list(["TRAINER.NAME", "MVLPT", "DATASET.COOP", "True"] + opts)
+    validate_support(cfg)
+    j_cfg = j_defaults()
+    j_cfg.merge_from_list(["TRAINER.NAME", "MVLPT", "DATASET.COOP", "True"] + opts)
+    j_validate(j_cfg)
 
 
 def test_validate_support_passes_the_flagship_and_keeps_jax_checks():

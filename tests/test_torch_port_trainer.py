@@ -229,7 +229,7 @@ def test_last_step_checkpoint_val_result_is_none(env, tmp_path, monkeypatch):
 def test_trainers_the_port_lacks_raise(env, tmp_path, monkeypatch):
     from mvlpt_torch.cli.train import build_parser, main
 
-    for name, item in (("FinetuneCLIP", "item 10"), ("CoCoOp", "item 6")):
+    for name, item in (("FinetuneCLIP", "item 10"),):
         argv = _argv(env, tmp_path / name)
         argv[argv.index("MVLPT")] = name
         with pytest.raises(NotImplementedError, match=item):

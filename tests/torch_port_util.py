@@ -88,8 +88,9 @@ def two_sides(n_cls: int, **spec):
 
     classnames = [f"c{i}" for i in range(n_cls)]
     spec = dict(UPT_SPEC, **spec)
-    s = jcut(classnames, spec["coop_n_ctx"])
-    assert compute_cut_context_length(classnames, spec["coop_n_ctx"]) == s
+    n_ctx = max(spec["coop_n_ctx"], spec.get("cocoop_n_ctx", 0))
+    s = jcut(classnames, n_ctx)
+    assert compute_cut_context_length(classnames, n_ctx) == s
     spec_kw = dict(spec, n_cls=n_cls, context_length=s, vision_layers=2, vision_width=64,
                    text_width=64, embed_dim=32, vision_patch_size=8)
 
