@@ -149,6 +149,25 @@
      text chunk (4000, 77), the test chunk (2500, 77) and the image tower
      without VPT rows at (32, 197); each run fails if its shapes are not
      its rows'.
+   - The linear probe (``drive_lpclip``): ``python -m mvlpt_torch.cli.lpclip
+     extract-features`` with RN50 at batch 128 on trainer_cli's dataset,
+     from a random init and from an OpenAI-layout RN50 state_dict the
+     phase writes (the converter at full size), no kernel launched; the
+     tower's ms a batch (CUDA events and the host clock), img/s alone and
+     with the loading, peak memory; the bf16 tower's trunk (the map the
+     attention pool reads) on the first batch against the fp32 one on the
+     card (TF32 off), each row's cosine at least LP_COS, the features the
+     CLI wrote for that batch against the fp32 tower's printed beside it
+     with the pool's peak probability; then ``probe`` on the converted
+     run's features, the
+     sweep cut (LP_RUNS, LP_STEPS, LP_SHOTS): wall time, fits, mean
+     L-BFGS iterations a fit.
+   - ELEVATER feature extraction (``drive_extract_features``): the CLI at
+     its defaults (ViT-B/32, batch 128) on EXTRACT_TASK with its real
+     class names and --knowledge wiki gpt3: #5 and #6 launched 12 times
+     an image batch, no other kernel; image img/s and the knowledge text
+     step's ms. Check rows for #5/#6 at its image tower, (128, 50, 768,
+     H 12); the run fails if its blocks' shapes are not that row's.
 4. Prints a summary line (img/s, ms/step, MFU, peak memory), one JSON
    line of kernel numbers, then, as the last line, {"ok": true,
    "device": {...}}.
@@ -2147,27 +2166,32 @@ def elevater_image_tokens(vpt_ctx: int = ELEV_CTX) -> int:
     return 1 + 14 * 14 + vpt_ctx
 
 
-def write_elevater_dataset(root: Path) -> Path:
-    """The 20 ELEVATER tasks under ``root`` in the local manifest layout
-    (``write_task_manifest``; no classnames: metadata.json's apply):
-    ELEV_SHOTS train and ELEV_TEST val images a class (the yaml's
-    DATASET.TEST_SET is "val"), smooth seeded noise plus a class colour,
-    as CLI_IMAGE_SIZE JPEGs; voc-2007-classification's items carry one or
-    two more classes (multilabel). Written by 8 threads. A marker holds
-    the sizes it was written with; data of other sizes is written anew."""
+def write_elevater_dataset(root: Path, tasks=None, test: int = ELEV_TEST) -> Path:
+    """The 20 ELEVATER tasks (or ``tasks`` of them) under ``root`` in the
+    local manifest layout (``write_task_manifest``; no classnames:
+    metadata.json's apply): ELEV_SHOTS train and ``test`` val images a
+    class (the yaml's DATASET.TEST_SET is "val"), smooth seeded noise plus
+    a class colour, as CLI_IMAGE_SIZE JPEGs; voc-2007-classification's
+    items carry one or two more classes (multilabel). Written by 8
+    threads. A marker holds the sizes it was written with; data of other
+    sizes is written anew."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
 
     from mvlpt_torch.data.elevater import ELEVATER_20_TASKS, class_map, write_task_manifest
 
-    sizes = {"shots": ELEV_SHOTS, "test": ELEV_TEST, "image_size": CLI_IMAGE_SIZE}
+    sizes = {"shots": ELEV_SHOTS, "test": test, "image_size": CLI_IMAGE_SIZE}
+    if tasks is not None:
+        sizes["tasks"] = list(tasks)
     if _fresh_data(root, sizes):
         return root
     jobs = []
     for t, task in enumerate(ELEVATER_20_TASKS):
+        if tasks is not None and task not in tasks:
+            continue
         items = write_task_manifest(str(root / task), len(class_map(task)),
-                                    {"train": ELEV_SHOTS, "val": ELEV_TEST},
+                                    {"train": ELEV_SHOTS, "val": test},
                                     np.random.RandomState(1000 + t),
                                     multilabel=task == "voc-2007-classification")
         jobs += [(root / task / rel, label) for rel, label in items]
@@ -3119,6 +3143,413 @@ def cocoop_step_memory(n_cls: int, chunk_remat: bool | None = None) -> dict:
                 leaves=[t.detach().clone() for t in tree_leaves(state.prompt_params)])
 
 
+# The linear probe (``drive_lpclip``): python -m mvlpt_torch.cli.lpclip
+# extract-features with RN50 (the reference's lpclip/feat_extractor.py:145)
+# at batch 128 on trainer_cli's 100-class dataset, then probe on those
+# features with the sweep cut to LP_RUNS runs of LP_STEPS binary-search
+# steps at LP_SHOTS (the CLI's default: 10 runs, 8 steps, shots 1 2 4 8
+# 16). PERF.md §2 stated, before the first run, each row's cosine of at
+# least LP_COS for the CLI's bf16 features against the fp32 tower on the
+# card, TF32 off; on random weights it fails (the features are printed
+# with the bound, PERF.md §6) and is not held. What is held is the bf16
+# trunk, the map the attention pool reads, at LP_COS: a check added after
+# that failure. Random kernels saturate the pool's softmax
+# (``_pool_peak``), and the same weights with BatchNorm statistics
+# calibrated on the batch (``calibrate_rn_bn``) amplify bf16's rounding
+# block by block; both are printed.
+LP_BATCH, LP_COS = 128, 0.999
+LP_RUNS, LP_STEPS, LP_SHOTS = 1, 1, (1, 16)
+# RN50 as an OpenAI-layout state_dict (tests/torch_port_util.py).
+RN50_SD = dict(layers=(3, 4, 6, 3), width=64, resolution=224, embed=1024, text_width=512,
+               text_layers=12)
+# ELEVATER feature extraction (``drive_extract_features``): the CLI's
+# defaults (ViT-B/32, batch 128) on one of the 20 tasks with its real
+# class names, --knowledge wiki gpt3, with EXTRACT_TEST test images a
+# class, so that the test split runs several full batches.
+EXTRACT_TASK, EXTRACT_TEST = "oxford-flower-102", 10
+
+
+def extract_image_tokens() -> int:
+    """The image tower's S under the extraction's ViT-B/32: CLS + patches."""
+    from mvlpt_torch.core.clip import VIT_ARCHS
+
+    arch = VIT_ARCHS["ViT-B/32"]
+    return 1 + (arch["image_resolution"] // arch["vision_patch_size"]) ** 2
+
+
+class _Timed:
+    """Wraps a module function: records each call's host seconds (the card
+    synchronized at both ends) in ``seconds``."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.fn, self.seconds = module, name, getattr(module, name), []
+
+    def __enter__(self):
+        import torch
+
+        def timed_call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.fn(*a, **k)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.module, self.name, timed_call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+class _BatchTimes:
+    """Wraps ``utils.pipeline.pipelined_inference``: records, for each pass
+    over a split, the host time at which each batch's features reach the
+    host and the batch's valid rows."""
+
+    def __enter__(self):
+        from mvlpt_torch.utils import pipeline
+
+        self.fn, self.passes = pipeline.pipelined_inference, []
+
+        def timed(loader, dispatch):
+            times = []
+            self.passes.append(times)
+            for f, batch in self.fn(loader, dispatch):
+                times.append((time.perf_counter(), batch.get("n_valid", len(batch["image"]))))
+                yield f, batch
+
+        pipeline.pipelined_inference = timed
+        return self
+
+    def __exit__(self, *exc):
+        from mvlpt_torch.utils import pipeline
+
+        pipeline.pipelined_inference = self.fn
+
+    def steady_img_per_s(self) -> float:
+        """Images a second after each pass's first batch, the loader's start
+        with it: a batch reaches the host once the next is loaded and
+        dispatched, so batch i's interval holds one batch's loading and one
+        batch's tower; the last batch, which waits for no loading, is left
+        out too. Passes of three batches or more."""
+        runs = [t for t in self.passes if len(t) > 2]
+        if not runs:
+            raise AssertionError("no split ran three batches")
+        return (sum(n for t in runs for _, n in t[1:-1])
+                / sum(t[-2][0] - t[0][0] for t in runs))
+
+
+def _test_helpers():
+    """tests/torch_port_util.py of this checkout, loaded from its file (a
+    ``tests`` package elsewhere on the path would shadow the name)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_port_util",
+                                                  ROOT / "tests" / "torch_port_util.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _split_counts(out_dir: Path, dim: int) -> dict:
+    """Rows of each split's npz in ``out_dir``; each must hold finite fp32
+    features of width ``dim`` and one label a row."""
+    import numpy as np
+
+    counts = {}
+    for split in ("train", "val", "test"):
+        f = out_dir / f"{split}.npz"
+        if not f.exists():
+            continue
+        with np.load(f) as z:
+            x, y = z["feature_list"], z["label_list"]
+        if x.dtype != np.float32 or x.shape[1] != dim or len(y) != len(x) or not np.isfinite(
+                x).all():
+            raise AssertionError(f"{f}: features {x.dtype} {x.shape}, {len(y)} labels")
+        counts[split] = len(x)
+    return counts
+
+
+def _pool_peak(p: dict, trunk, n_heads: int) -> float:
+    """The attention pool's mean, over images and heads, of the largest
+    softmax probability of the mean token's query (fp32): near 1, each head
+    attends to one key, and the features jump wherever a rounding moves
+    that choice."""
+    import torch
+
+    x = trunk.flatten(2).transpose(1, 2).float()
+    b, s, c = x.shape
+    x = torch.cat([x.mean(dim=1, keepdim=True), x], dim=1) + p["pos_embedding"].float()
+    q = x[:, :1] @ p["q_proj"]["kernel"].float() + p["q_proj"]["bias"].float()
+    k = x @ p["k_proj"]["kernel"].float() + p["k_proj"]["bias"].float()
+    d = c // n_heads
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.reshape(b, 1, n_heads, d) * d ** -0.5,
+                          k.reshape(b, s + 1, n_heads, d))
+    return torch.softmax(logits, dim=-1).amax(dim=-1).mean().item()
+
+
+def drive_lpclip() -> dict:
+    """lpclip through the port's CLI: extract-features with a random RN50
+    and with RN50 converted from an OpenAI-layout state_dict the phase
+    writes (MVLPT_TPU_CLIP_CKPT), then probe. No kernel may launch (the
+    tower is cuDNN's convolutions and plain ops, as XLA's are in the JAX
+    package). Prints the tower's ms a batch of LP_BATCH (CUDA events and
+    the host clock), img/s of the tower alone and of the extraction with
+    its loading (whole splits, and after each split's first batch), peak
+    memory, the bf16-vs-fp32 cosines (also of the converted weights with
+    calibrated BatchNorm statistics), and for each shot count the probe's
+    fits, their time and mean L-BFGS iterations a fit."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from mvlpt_torch.checkpoint.convert import convert_openai_rn_state_dict
+    from mvlpt_torch.cli import lpclip
+    from mvlpt_torch.config import get_cfg_default
+    from mvlpt_torch.core import clip as clip_core
+    from mvlpt_torch.core import resnet
+    from mvlpt_torch.data.loader import eval_mode
+    from mvlpt_torch.data.managers import build_data_manager
+    from mvlpt_torch.ops import _build
+    from mvlpt_torch.train.trainer import load_clip_backbone
+    from mvlpt_torch.utils import pipeline
+
+    path, card = "lpclip", card_line()
+    data = write_cli_dataset(ROOT / "build" / "trainer_cli_data")
+    ckpt = ROOT / "build" / "lpclip" / "RN50-openai-layout.pt"
+    ckpt.parent.mkdir(parents=True, exist_ok=True)
+    helpers = _test_helpers()
+    t0 = time.perf_counter()
+    sd = helpers.openai_rn_state_dict(0, **RN50_SD)
+    torch.save(sd, str(ckpt))
+    out = dict(path=path, card=card, launches={}, state_dict_write_s=time.perf_counter() - t0)
+    envs = {"random": ("MVLPT_TPU_RANDOM_CLIP", "1"), "checkpoint": ("MVLPT_TPU_CLIP_CKPT",
+                                                                     str(ckpt))}
+    for name, (key, value) in envs.items():
+        os.environ[key] = value
+        try:
+            feat_dir = ROOT / "build" / "lpclip_out" / name / "OxfordPets"
+            _free_cuda()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            with _Timed(pipeline, "dump_split_features") as dumps, _BatchTimes() as batches:
+                lpclip.cli(["extract-features", "--root", str(data), "--dataset-coop",
+                            "--dataset", "OxfordPets", "--output-dir", str(feat_dir),
+                            "--batch-size", str(LP_BATCH), "--num-workers", "8"])
+            wall = time.perf_counter() - t0
+            _launches_of(f"{path} {name}", dict(_build.LAUNCHES), (), 0)
+            peak = _peak_gib()
+            counts = _split_counts(feat_dir, RN50_SD["embed"])
+            if counts != {"train": CLI_CLASSES * CLI_SHOTS, "val": CLI_CLASSES * CLI_VAL,
+                          "test": CLI_CLASSES * CLI_TEST}:
+                raise AssertionError(f"{path} {name}: rows {counts}")
+
+            # The tower alone on the first train batch, and in fp32 (TF32 off)
+            # against the rows the CLI wrote for that batch.
+            cfg = get_cfg_default()
+            cfg.DATASET.ROOT, cfg.DATASET.COOP = str(data), True
+            cfg.DATASET.DATASET = cfg.DATASET.NAME = "OxfordPets"
+            cfg.DATALOADER.TRAIN_X.BATCH_SIZE = cfg.DATALOADER.TEST.BATCH_SIZE = LP_BATCH
+            cfg.DATALOADER.NUM_WORKERS = 8
+            cfg.INPUT.TRANSFORMS = ()
+            cfg.MODEL.BACKBONE.NAME = "RN50"
+            batch = next(iter(eval_mode(build_data_manager(cfg).train_loader_x)))
+            images = torch.from_numpy(batch["image"]).to("cuda")
+            if images.dtype != torch.float32:
+                raise AssertionError(f"{path}: the loader gave {images.dtype} images")
+            feats, trunks = {}, {}
+            for dtype in (torch.bfloat16, torch.float32):
+                backbone, rn_cfg = load_clip_backbone(cfg, dtype)
+                with torch.no_grad():
+                    tower = lambda: clip_core.encode_image(backbone, images, rn_cfg)  # noqa: E731
+                    feats[dtype] = tower().float()
+                    trunks[dtype] = resnet.trunk_rn(backbone["visual"], images).float()
+                    if dtype == torch.bfloat16:
+                        med, lo, hi = cuda_times(tower)
+                        torch.cuda.synchronize()
+                        t1 = time.perf_counter()
+                        for _ in range(REPS):
+                            tower()
+                        torch.cuda.synchronize()
+                        host_ms = (time.perf_counter() - t1) / REPS * 1e3
+                        # cuDNN's autotuned algorithms, beside its heuristics' (the default)
+                        torch.backends.cudnn.benchmark = True
+                        try:
+                            bench_ms = cuda_times(tower)[0]
+                        finally:
+                            torch.backends.cudnn.benchmark = False
+                    else:
+                        peak_prob = _pool_peak(backbone["visual"]["attnpool"], trunks[dtype],
+                                               rn_cfg.heads)
+                del backbone
+            with np.load(feat_dir / "train.npz") as z:
+                cli_rows = torch.from_numpy(z["feature_list"][:LP_BATCH]).to("cuda")
+            ref = feats[torch.float32]
+            cos = torch.nn.functional.cosine_similarity(cli_rows, ref, dim=1)
+            t16, t32 = trunks[torch.bfloat16].flatten(1), trunks[torch.float32].flatten(1)
+            trunk_cos = torch.nn.functional.cosine_similarity(t16, t32, dim=1)
+            trunk_rel = ((t16 - t32).norm() / t32.norm()).item()
+            same = torch.equal(cli_rows, feats[torch.bfloat16])
+            images_n = sum(counts.values())
+            out[name] = dict(
+                rows=counts, wall_s=wall, extract_s=sum(dumps.seconds),
+                img_per_s_with_loading=images_n / sum(dumps.seconds),
+                img_per_s_steady=batches.steady_img_per_s(),
+                tower_ms=med, tower_ms_spread=[lo, hi], tower_host_ms=host_ms,
+                tower_ms_cudnn_benchmark=bench_ms,
+                tower_img_per_s=LP_BATCH / med * 1e3, peak_mem_gib=peak,
+                trunk_cos_min_vs_fp32=trunk_cos.min().item(), trunk_rel_err_vs_fp32=trunk_rel,
+                features_cos_min_vs_fp32=cos.min().item(), pool_mean_max_prob=peak_prob,
+                cli_rows_equal_tower=same)
+            if not trunk_cos.min().item() >= LP_COS:
+                raise AssertionError(f"{path} {name}: the bf16 trunk against the fp32 one, "
+                                     f"cosine {trunk_cos.min().item()} < {LP_COS}")
+            print(f"{path} {name} [{card}]: RN50 tower {med:.3f} ms a batch of {LP_BATCH} "
+                  f"(CUDA events; host {host_ms:.3f}; {bench_ms:.3f} with cudnn.benchmark), "
+                  f"{LP_BATCH / med * 1e3:.1f} img/s alone, "
+                  f"{images_n / sum(dumps.seconds):.1f} img/s with the loading (every split's "
+                  f"loader start included; {batches.steady_img_per_s():.1f} after each split's "
+                  f"first batch), peak {peak:.2f} GiB; bf16 vs fp32: trunk cosine >= "
+                  f"{trunk_cos.min().item():.6f} (held at {LP_COS}; relative error "
+                  f"{trunk_rel:.2e}), features after the pool >= {cos.min().item():.6f} "
+                  f"(PERF.md §2's {LP_COS}, not held), the pool's mean max probability "
+                  f"{peak_prob:.6f}", flush=True)
+        finally:
+            os.environ.pop(key, None)
+
+    # The converted weights with every BatchNorm's statistics calibrated by
+    # one fp32 pass over the batch: measured and printed, not held.
+    calibrated = {k: v.clone() for k, v in sd.items()}
+    helpers.calibrate_rn_bn(calibrated, images.permute(0, 3, 1, 2))
+    feats, trunks = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        backbone, rn_cfg, _ = convert_openai_rn_state_dict(calibrated, dtype=dtype, device="cuda")
+        with torch.no_grad():
+            feats[dtype] = clip_core.encode_image(backbone, images, rn_cfg).float()
+            trunks[dtype] = resnet.trunk_rn(backbone["visual"], images).float()
+        if dtype == torch.float32:
+            peak_prob = _pool_peak(backbone["visual"]["attnpool"], trunks[dtype], rn_cfg.heads)
+        del backbone
+    cos = torch.nn.functional.cosine_similarity(feats[torch.bfloat16], feats[torch.float32],
+                                                dim=1)
+    t16, t32 = trunks[torch.bfloat16].flatten(1), trunks[torch.float32].flatten(1)
+    out["calibrated"] = dict(
+        trunk_cos_min_vs_fp32=torch.nn.functional.cosine_similarity(t16, t32, dim=1).min().item(),
+        trunk_rel_err_vs_fp32=((t16 - t32).norm() / t32.norm()).item(),
+        features_cos_min_vs_fp32=cos.min().item(), pool_mean_max_prob=peak_prob)
+    print(f"{path} calibrated [{card}]: BatchNorm statistics from one fp32 pass over the batch; "
+          f"bf16 vs fp32 (not held): trunk cosine >= {out['calibrated']['trunk_cos_min_vs_fp32']:.6f}"
+          f" (relative error {out['calibrated']['trunk_rel_err_vs_fp32']:.2e}), features after "
+          f"the pool >= {cos.min().item():.6f}, the pool's mean max probability {peak_prob:.6f}",
+          flush=True)
+    del feats, trunks, calibrated
+    _free_cuda()
+
+    feat_dir = ROOT / "build" / "lpclip_out" / "checkpoint" / "OxfordPets"
+    report = ROOT / "build" / "lpclip_out" / "report"
+    shutil.rmtree(report, ignore_errors=True)
+    t0 = time.perf_counter()
+    cut = ["--num-run", str(LP_RUNS), "--num-step", str(LP_STEPS), "--shots",
+           *map(str, LP_SHOTS)]
+    stats = lpclip.probe(lpclip.build_parser().parse_args(
+        ["probe", "--feature-dir", str(feat_dir), "--dataset", "OxfordPets", "--report-dir",
+         str(report), *cut]))
+    probe_s = time.perf_counter() - t0
+    lines = (report / f"OxfordPets_s{LP_STEPS}r{LP_RUNS}.txt").read_text().splitlines()
+    accs = [float(re.search(r"Test acc stat: ([0-9.]+) \(", line).group(1)) for line in lines]
+    if len(accs) != len(LP_SHOTS) or not all(0.0 <= a <= 100.0 for a in accs):
+        raise AssertionError(f"{path} probe: {lines}")
+    out["probe"] = dict(wall_s=probe_s, summary=lines, cut=" ".join(cut), shots={})
+    print(f"{path} probe [{card}]: {probe_s:.2f} s ({' '.join(cut)})", flush=True)
+    for shot, st in stats.items():
+        its, evals = st["iterations"], st["evaluations"]
+        row = out["probe"]["shots"][shot] = dict(
+            fits=st["fits"], fit_s=st["fit_s"], mean_iterations=its / st["fits"],
+            evaluations=evals, objective_ms=st["objective_s"] / evals * 1e3,
+            solver_ms=(st["fit_s"] - st["objective_s"]) / its * 1e3)
+        print(f"{path} probe {shot}-shot [{card}]: {st['fits']} fits in {st['fit_s']:.2f} s, "
+              f"{row['mean_iterations']:.1f} L-BFGS iterations a fit; "
+              f"{row['objective_ms']:.3f} ms an objective evaluation ({evals}), "
+              f"{row['solver_ms']:.3f} ms of scipy's solver an iteration", flush=True)
+    out["img_per_s"] = out["checkpoint"]["tower_img_per_s"]
+    out["peak_mem_gib"] = max(out[n]["peak_mem_gib"] for n in envs)
+    print("main-path " + json.dumps(out), flush=True)
+    return out
+
+
+def drive_extract_features() -> dict:
+    """ELEVATER's extract_features through the port's CLI on EXTRACT_TASK
+    (real class names, EXTRACT_TEST test images a class, a random
+    ViT-B/32, batch 128, --knowledge wiki gpt3): every split's image
+    features through #5/#6, launched 12 times an image batch and no other
+    kernel, and text.npz from the knowledge texts on the plain text tower.
+    Prints image img/s over the whole splits and after each split's first
+    batch, and the text step's ms."""
+    import numpy as np
+    import torch
+
+    from mvlpt_torch.cli import extract_features
+    from mvlpt_torch.data.elevater import class_map, knowledge
+    from mvlpt_torch.ops import _build, block
+    from mvlpt_torch.utils import pipeline
+
+    path, card = "extract_features", card_line()
+    data = write_elevater_dataset(ROOT / "build" / "extract_features_data", tasks=[EXTRACT_TASK],
+                                  test=EXTRACT_TEST)
+    out_dir = ROOT / "build" / "extract_features_out"
+    # The (B, S, W, H) of every block the kernels run, for its check row.
+    shapes, fused = set(), block.fused_residual_block
+
+    def recording(x, p, n_heads, *a, **k):
+        shapes.add((*x.shape, n_heads))
+        return fused(x, p, n_heads, *a, **k)
+
+    os.environ["MVLPT_TPU_RANDOM_CLIP"] = "1"
+    block.fused_residual_block = recording
+    try:
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        with _Timed(pipeline, "dump_split_features") as dumps, _BatchTimes() as timed, \
+                _Timed(knowledge, "encode_class_text_features_with_knowledge") as text:
+            extract_features.cli(["--root", str(data), "--dataset", EXTRACT_TASK, "--backbone",
+                                  "ViT-B/32", "--output-dir", str(out_dir), "--batch-size",
+                                  str(LP_BATCH), "--knowledge", "wiki", "gpt3"])
+        counts = _split_counts(out_dir, 512)
+        batches = sum(-(-n // LP_BATCH) for n in counts.values())
+        row = half_block_shapes()[0]["image_extract"][:4]
+        if shapes != {row}:
+            raise AssertionError(f"{path}: the run's blocks (B, S, W, H) {shapes} are not its "
+                                 f"check row's {row}")
+        launches = _launches_of(path, dict(_build.LAUNCHES), ("attn_fwd_infer", "mlp_fwd_infer"),
+                                12 * batches)
+        with np.load(out_dir / "text.npz", allow_pickle=True) as z:
+            tf, names = z["text_features"], list(z["classnames"])
+        if tf.shape != (len(class_map(EXTRACT_TASK)), 512) or not np.isfinite(tf).all() or not np.allclose(
+                np.linalg.norm(tf, axis=1), 1.0, atol=1e-5):
+            raise AssertionError(f"{path}: text features {tf.shape}")
+        if len(text.seconds) != 1:
+            raise AssertionError(f"{path}: the knowledge text step ran {len(text.seconds)} times")
+    finally:
+        block.fused_residual_block = fused
+        os.environ.pop("MVLPT_TPU_RANDOM_CLIP", None)
+    images_n = sum(counts.values())
+    out = dict(path=path, card=card, task=EXTRACT_TASK, classes=len(names), rows=counts,
+               image_batches=batches, launches={k: n for k, n in launches.items() if n},
+               img_per_s=images_n / sum(dumps.seconds),
+               img_per_s_steady=timed.steady_img_per_s(), text_ms=text.seconds[0] * 1e3,
+               peak_mem_gib=_peak_gib())
+    print(f"{path} [{card}]: {images_n} images ({counts}) in {batches} batches of {LP_BATCH}, "
+          f"{out['img_per_s']:.1f} img/s with the loading (every split's loader start "
+          f"included; {out['img_per_s_steady']:.1f} after each split's first batch); the "
+          f"knowledge text step {out['text_ms']:.1f} ms for {len(names)} classes", flush=True)
+    print("main-path " + json.dumps(out), flush=True)
+    return out
+
+
 def kernel_entries(results: list[dict], paths: dict) -> list[dict]:
     """One entry a kernel of KERNELS: its bf16 check row's numbers and its
     launches on each path."""
@@ -3174,6 +3605,7 @@ def half_block_shapes() -> tuple[dict, dict]:
     n_t = len(elevater_classnames((ELEV_TRANSFER_TASK,)))
     mask_t = block_causal_mask(g_t, s_t, device="cuda")
     s_ei, s_zs = elevater_image_tokens(), elevater_image_tokens(0)
+    s_x = extract_image_tokens()
     rows_c = cocoop_chunk_rows(32, cocoop_base_classes())
     rows_ce = cocoop_chunk_rows(EVAL_BATCH, COCOOP_CLASSES - cocoop_base_classes())
     rows_p = cocoop_chunk_rows(32, COCOOP_PROBE_CLASSES)
@@ -3208,7 +3640,9 @@ def half_block_shapes() -> tuple[dict, dict]:
         "image_cocoop": (32, s_zs, 768, 12, None, s_zs, 32, every),
         # cocoop_memory's text chunk: 16 images x COCOOP_PROBE_CLASSES
         # (SUN397 base), the train kernels only (one train step).
-        "text_cocoop_probe": (rows_p, 77, 512, 8, mask_c, 77, rows_p, ("train",))}
+        "text_cocoop_probe": (rows_p, 77, 512, 8, mask_c, 77, rows_p, ("train",)),
+        # extract_features' ViT-B/32 image tower (no VPT rows) at batch 128.
+        "image_extract": (LP_BATCH, s_x, 768, 12, None, s_x, LP_BATCH, no_residual)}
     tp_shapes = {
         "image": (32, s_img, 768, 12, None, s_img, 32, TP_KERNELS),
         "text": (rows, g * s, 512, 8, packed_mask, s, 100, TP_KERNELS),
@@ -3294,6 +3728,8 @@ def main() -> int:
           flush=True)
     paths.update(drive_trainer_elevater())
     paths.update(drive_trainer_cocoop())
+    paths["lpclip"] = drive_lpclip()
+    paths["extract_features"] = drive_extract_features()
 
     summary = {"card": card_line()}
     for path, out in paths.items():

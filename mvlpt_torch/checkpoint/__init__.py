@@ -1,7 +1,9 @@
 from mvlpt_torch.checkpoint.convert import (
     config_from_state_dict,
+    convert_openai_rn_state_dict,
     convert_openai_state_dict,
     load_clip,
+    rn_config_from_state_dict,
 )
 from mvlpt_torch.checkpoint.from_jax import backbone_from_jax, prompt_params_from_jax
 from mvlpt_torch.checkpoint.prompt_io import (

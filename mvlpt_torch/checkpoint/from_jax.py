@@ -5,7 +5,9 @@ arrays (``np.asarray`` of each leaf), follow the schema of
 ``mvlpt_tpu/core/clip.py:8-29``: linear kernels stored (in, out), block
 parameters stacked on a leading layer axis. The port keeps that schema,
 so the conversion is leaf for leaf and both sides compute the same
-thing from the same numbers.
+thing from the same numbers. A ModifiedResNet visual tree (``stem``,
+``layer1``-``layer4`` as lists of blocks, ``attnpool``) comes across with
+its HWIO conv kernels turned into ``core/resnet.py``'s (O, I, KH, KW).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mvlpt_torch.core.resnet import from_hwio
 from mvlpt_torch.utils.device import resolve_device
 from mvlpt_torch.utils.tree import tree_map
 
@@ -31,6 +34,8 @@ def backbone_from_jax(tree: dict, device="cuda") -> dict:
     bf16-cast backbone stays bf16; ``logit_scale`` is fp32."""
     device = resolve_device(device)
     out = tree_map(lambda a: _to_tensor(a, device), tree)
+    if "stem" in out["visual"]:
+        out["visual"] = from_hwio(out["visual"])
     out["logit_scale"] = out["logit_scale"].float()
     return out
 

@@ -34,6 +34,7 @@ import math
 import torch
 
 from mvlpt_torch.core import text as text_mod
+from mvlpt_torch.core.resnet import RNConfig, encode_image_rn
 from mvlpt_torch.core import vit as vit_mod
 from mvlpt_torch.utils.device import resolve_device
 from mvlpt_torch.utils.tree import tree_map
@@ -158,12 +159,14 @@ def cast_backbone(params: dict, dtype) -> dict:
     return out
 
 
-def encode_image(params: dict, images: torch.Tensor, cfg: CLIPConfig, **kw) -> torch.Tensor:
-    """Visual-tower dispatch. ViT only: the ModifiedResNet tower of the JAX
-    package (its ``RNConfig``) is not ported yet (ROADMAP.md Queue 1)."""
+def encode_image(params: dict, images: torch.Tensor, cfg, **kw) -> torch.Tensor:
+    """Visual-tower dispatch: ViT (``CLIPConfig``) or ModifiedResNet
+    (``RNConfig``, image features only; NHWC images, no kernels)."""
+    if isinstance(cfg, RNConfig):
+        return encode_image_rn(params["visual"], images, cfg)
     if not isinstance(cfg, CLIPConfig):
-        raise NotImplementedError(
-            f"visual tower for {type(cfg).__name__} is not ported; only ViT (CLIPConfig)")
+        raise NotImplementedError(f"no visual tower for {type(cfg).__name__}; only ViT "
+                                  "(CLIPConfig) and ModifiedResNet (RNConfig)")
     return vit_mod.encode_image(params["visual"], images, patch_size=cfg.vision_patch_size,
                                 n_heads=cfg.vision_heads, **kw)
 

@@ -9,6 +9,8 @@ runs under the ``USE_PALLAS`` selection in its no-grad form. The
 trainers (``ZeroshotCLIP``: one hand-crafted template a dataset;
 ``ZeroshotCLIP2``: the 7 select templates and the dataset's own) test on
 either universe's test split, through the classification evaluator.
+An RN backbone serves image features only (``make_image_encoder``'s RN
+branch); its text step raises, as the JAX package's fails (``text_config``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import torch
 from mvlpt_torch.core import clip as clip_core
 from mvlpt_torch.core import vit as vit_mod
 from mvlpt_torch.core.clip import CLIPConfig
+from mvlpt_torch.core.resnet import RNConfig
+from mvlpt_torch.data.transforms import device_normalize
 from mvlpt_torch.data.elevater import load_metadata, template_map
 from mvlpt_torch.evaluation import ClassificationEvaluator
 from mvlpt_torch.ops.attention import select_attn_fn
@@ -65,12 +69,26 @@ def imagenet_templates_full() -> list[str]:
     return list(template_map("imagenet-1k"))
 
 
+def text_config(clip_cfg) -> CLIPConfig:
+    """``clip_cfg`` where it configures a text tower. An RN backbone's
+    ``RNConfig`` has no text fields, in the JAX package as here: there its
+    text step fails on the missing attribute (``models/zsclip.py:72``,
+    ``core/clip.py:182-184``); here it raises this error at the same point."""
+    if isinstance(clip_cfg, RNConfig):
+        raise ValueError(
+            "an RN backbone gives image features only: its RNConfig has no text fields, as in "
+            "the JAX package, whose text step fails at the same point (ROADMAP.md Queue 3, "
+            "the reference-side RN text gap)")
+    return clip_cfg
+
+
 @torch.no_grad()
 def encode_class_text_features(backbone: dict, clip_cfg: CLIPConfig, classnames, templates,
                                batch_classes: int = 512) -> torch.Tensor:
     """(n_cls, embed_dim) fp32 class text features: each template's
     features L2-normalised, averaged over the templates, normalised
     again."""
+    clip_cfg = text_config(clip_cfg)
     device = backbone["text"]["token_embedding"].device
     mean_features = 0.0
     for temp in templates:
@@ -84,16 +102,24 @@ def encode_class_text_features(backbone: dict, clip_cfg: CLIPConfig, classnames,
     return mean_features / torch.linalg.norm(mean_features, dim=-1, keepdim=True)
 
 
-def make_image_encoder(clip_cfg: CLIPConfig, mean, std, use_pallas="auto"):
+def make_image_encoder(clip_cfg, mean, std, use_pallas="auto"):
     """``encode(backbone, images) -> image features`` for no-grad callers
-    (the encoder's output dtype, not normalised). A uint8 batch has
-    CLIP's normalisation folded into the patch embedding; a float batch
-    is taken as normalised already. The tower runs under the
-    ``use_pallas`` selection with the no-grad kernels."""
-    if not isinstance(clip_cfg, CLIPConfig):
-        raise NotImplementedError(
-            f"zero-shot for {type(clip_cfg).__name__} is not ported; only ViT (CLIPConfig)")
+    (the encoder's output dtype, not normalised). On a ViT a uint8 batch
+    has CLIP's normalisation folded into the patch embedding, a float
+    batch is taken as normalised already, and the tower runs under the
+    ``use_pallas`` selection with the no-grad kernels. An RN tower takes
+    ``device_normalize`` (a uint8 batch normalised, a float one as it is),
+    then its plain path: it has no kernels, in either package."""
     norm = (tuple(mean), tuple(std))
+    if isinstance(clip_cfg, RNConfig):
+        @torch.no_grad()
+        def encode_rn(backbone, images):
+            return clip_core.encode_image(backbone, device_normalize(images, *norm), clip_cfg)
+
+        return encode_rn
+    if not isinstance(clip_cfg, CLIPConfig):
+        raise NotImplementedError(f"no image encoder for {type(clip_cfg).__name__}; only ViT "
+                                  "(CLIPConfig) and ModifiedResNet (RNConfig)")
     kernels = select_attn_fn(use_pallas, inference=True)
     stems = vit_mod.FoldedStems()
 
@@ -110,7 +136,7 @@ def make_image_encoder(clip_cfg: CLIPConfig, mean, std, use_pallas="auto"):
     return encode
 
 
-def make_zs_infer(clip_cfg: CLIPConfig, mean, std, use_pallas="auto"):
+def make_zs_infer(clip_cfg, mean, std, use_pallas="auto"):
     """``infer(backbone, text_features, images) -> fp32 logits``: the
     zero-shot step, through :func:`make_image_encoder`."""
     encode = make_image_encoder(clip_cfg, mean, std, use_pallas)

@@ -43,6 +43,7 @@ from mvlpt_torch.checkpoint import convert as ckpt_convert
 from mvlpt_torch.checkpoint import prompt_io
 from mvlpt_torch.core import clip as clip_core
 from mvlpt_torch.core.clip import CLIPConfig
+from mvlpt_torch.core.resnet import RN_ARCHS, RNConfig, init_rn_params
 from mvlpt_torch.data.managers import build_data_manager
 from mvlpt_torch.evaluation import ClassificationEvaluator
 from mvlpt_torch.models.custom_clip import MVLPTModel, TaskClassRanges
@@ -69,17 +70,24 @@ from mvlpt_torch.utils.tree import tree_keys, tree_leaves
 
 
 def load_clip_backbone(cfg, dtype, device="cuda"):
-    """(backbone, CLIPConfig) for cfg.MODEL.BACKBONE.NAME, in the JAX
-    package's order: MVLPT_TPU_RANDOM_CLIP=1 gives a random init (seed 0;
-    MVLPT_TPU_RANDOM_CLIP_ARCH holds JSON CLIPConfig overrides), then the
-    local file MVLPT_TPU_CLIP_CKPT names, then ``~/.cache/clip``
-    (sha256-checked). Where the JAX package would download, this raises."""
+    """(backbone, config) for cfg.MODEL.BACKBONE.NAME, in the JAX
+    package's order: MVLPT_TPU_RANDOM_CLIP=1 gives a random init (a ViT at
+    seed 0, MVLPT_TPU_RANDOM_CLIP_ARCH holding JSON CLIPConfig overrides;
+    an RN name's tower from ``RN_ARCHS`` at seed 0 beside ViT-B/16's text
+    tower at seed 1), then the local file MVLPT_TPU_CLIP_CKPT names, then
+    ``~/.cache/clip`` (sha256-checked). A ViT gives its CLIPConfig, an RN
+    its RNConfig. Where the JAX package would download, this raises."""
     name = cfg.MODEL.BACKBONE.NAME
-    if name.startswith("RN"):
-        raise NotImplementedError(
-            f"{name}: ResNet backbones are not ported (ROADMAP.md Queue 1, item 10); prompt "
-            "tuning needs a ViT backbone (the reference asserts the same, mvlpt.py:47)")
     if os.environ.get("MVLPT_TPU_RANDOM_CLIP"):
+        if name.startswith("RN"):
+            rn_cfg = RN_ARCHS[name]
+            # RN50/101 share ViT-B's 512-wide, 12-layer text transformer.
+            full = clip_core.init_clip_params(torch.Generator().manual_seed(1),
+                                              CLIPConfig.for_backbone("ViT-B/16"), device=device)
+            params = {"visual": init_rn_params(torch.Generator().manual_seed(0), rn_cfg,
+                                               device=device),
+                      "text": full["text"], "logit_scale": full["logit_scale"]}
+            return clip_core.cast_backbone(params, dtype), rn_cfg
         clip_cfg = CLIPConfig.for_backbone(name)
         arch_env = os.environ.get("MVLPT_TPU_RANDOM_CLIP_ARCH")
         if arch_env:
@@ -214,6 +222,11 @@ class PromptTrainer:
 
         print(f"Loading CLIP (backbone: {cfg.MODEL.BACKBONE.NAME})")
         self.backbone, self.clip_cfg = load_clip_backbone(cfg, param_dtype, self.device)
+        if isinstance(self.clip_cfg, RNConfig):
+            raise ValueError(
+                "Prompt tuning requires a ViT backbone (the reference asserts the same, "
+                "mvlpt.py:47); RN* checkpoints serve the linear-probe / feature-extraction "
+                "path.")
 
         print("Building custom CLIP")
         self.spec = self.build_spec(self.clip_cfg, classnames)

@@ -128,3 +128,130 @@ def write_elevater_task(root, task: str, n_classes: int, seed: int, n_train: int
     for k, (rel, label) in enumerate(items):
         _write_image(os.path.join(task_dir, rel), seed=seed * 100003 + k, size=(size, size),
                      class_signal=label)
+
+
+def openai_rn_state_dict(seed: int, layers=(1, 1, 1, 1), width: int = 8,
+                         resolution: int = 64, embed: int = 32, text_width: int = 64,
+                         text_layers: int = 2, vocab: int = 49408, context: int = 77,
+                         scale: float = 0.05) -> dict:
+    """A random OpenAI-layout ModifiedResNet CLIP state_dict (torch
+    tensors, fp32), with the keys and shapes that the reference's
+    ModifiedResNet and text transformer give (clip/model.py) and that
+    ``convert_openai_rn_state_dict`` reads in both packages: a 3-conv stem,
+    ``layers`` Bottlenecks a stage at ``width`` (a downsample on each
+    stage's first), the attention pool at ``width`` x 32 channels for
+    ``resolution`` px, and a text tower of ``text_layers`` blocks at
+    ``text_width`` (one head per 64 wide). BatchNorm running statistics
+    are drawn away from identity. Every draw comes from ``seed``; the
+    defaults are a tiny tower, and RN50's are layers (3, 4, 6, 3), width
+    64, 224 px, embed 1024, a 512-wide 12-layer text tower."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+
+    def t(*shape, s=scale):
+        return torch.from_numpy((rng.randn(*shape) * s).astype(np.float32))
+
+    def conv(cout, cin, k):
+        return t(cout, cin, k, k, s=(2.0 / (cin * k * k)) ** 0.5)
+
+    def bn(prefix, c):
+        return {f"{prefix}.weight": 1 + t(c, s=0.1), f"{prefix}.bias": t(c),
+                f"{prefix}.running_mean": t(c, s=0.1),
+                f"{prefix}.running_var": torch.from_numpy(
+                    (0.5 + rng.rand(c)).astype(np.float32)),
+                f"{prefix}.num_batches_tracked": torch.tensor(0)}
+
+    sd = {}
+    for i, (cin, cout) in enumerate(((3, width // 2), (width // 2, width // 2),
+                                     (width // 2, width)), start=1):
+        sd[f"visual.conv{i}.weight"] = conv(cout, cin, 3)
+        sd.update(bn(f"visual.bn{i}", cout))
+    inplanes = width
+    for b, n in zip((1, 2, 3, 4), layers):
+        planes = width * 2 ** (b - 1)
+        for i in range(n):
+            p = f"visual.layer{b}.{i}"
+            cin = inplanes if i == 0 else planes * 4
+            sd[f"{p}.conv1.weight"] = conv(planes, cin, 1)
+            sd.update(bn(f"{p}.bn1", planes))
+            sd[f"{p}.conv2.weight"] = conv(planes, planes, 3)
+            sd.update(bn(f"{p}.bn2", planes))
+            sd[f"{p}.conv3.weight"] = conv(planes * 4, planes, 1)
+            sd.update(bn(f"{p}.bn3", planes * 4))
+            if i == 0:
+                sd[f"{p}.downsample.0.weight"] = conv(planes * 4, inplanes, 1)
+                sd.update(bn(f"{p}.downsample.1", planes * 4))
+        inplanes = planes * 4
+    c = width * 32
+    sd["visual.attnpool.positional_embedding"] = t((resolution // 32) ** 2 + 1, c,
+                                                   s=c ** -0.5)
+    for name, out in (("q_proj", c), ("k_proj", c), ("v_proj", c), ("c_proj", embed)):
+        sd[f"visual.attnpool.{name}.weight"] = t(out, c, s=c ** -0.5)
+        sd[f"visual.attnpool.{name}.bias"] = t(out)
+    w = text_width
+    for i in range(text_layers):
+        b = f"transformer.resblocks.{i}"
+        for ln in ("ln_1", "ln_2"):
+            sd[f"{b}.{ln}.weight"], sd[f"{b}.{ln}.bias"] = 1 + t(w, s=0.1), t(w)
+        sd.update({f"{b}.attn.in_proj_weight": t(3 * w, w), f"{b}.attn.in_proj_bias": t(3 * w),
+                   f"{b}.attn.out_proj.weight": t(w, w), f"{b}.attn.out_proj.bias": t(w),
+                   f"{b}.mlp.c_fc.weight": t(4 * w, w), f"{b}.mlp.c_fc.bias": t(4 * w),
+                   f"{b}.mlp.c_proj.weight": t(w, 4 * w), f"{b}.mlp.c_proj.bias": t(w)})
+    sd.update({"token_embedding.weight": t(vocab, w, s=0.02),
+               "positional_embedding": t(context, w, s=0.01),
+               "ln_final.weight": 1 + t(w, s=0.1), "ln_final.bias": t(w),
+               "text_projection": t(w, embed, s=w ** -0.5),
+               "logit_scale": torch.tensor(np.log(1 / 0.07), dtype=torch.float32)})
+    return sd
+
+
+def calibrate_rn_bn(sd: dict, images):
+    """Sets every BatchNorm's running statistics of the OpenAI-layout RN
+    state_dict ``sd``, in place, to the batch statistics (mean, biased
+    variance) of what reaches it in one fp32 pass over ``images`` (N, 3,
+    H, W, normalised), stage by stage, so that each BatchNorm normalises
+    its input as a trained network's statistics do: random kernels with
+    statistics left at their draw let the activations grow through the
+    blocks until the attention pool's softmax saturates. The pass follows
+    the reference's ModifiedResNet (clip/model.py:10-150) by hand, not the
+    port's tower, and runs on ``images``' device. Returns the map that the
+    attention pool reads, (N, 32 width, H/32, W/32)."""
+    import torch.nn.functional as F
+
+    def w(key):
+        return sd[key].to(images.device)
+
+    def conv(x, key, stride=1):
+        k = w(key)
+        return F.conv2d(x, k, stride=stride, padding=k.shape[-1] // 2)
+
+    def bn(x, prefix):
+        mean, var = x.mean(dim=(0, 2, 3)), x.var(dim=(0, 2, 3), unbiased=False)
+        sd[f"{prefix}.running_mean"].copy_(mean)
+        sd[f"{prefix}.running_var"].copy_(var)
+        return F.batch_norm(x, mean, var, w(f"{prefix}.weight"), w(f"{prefix}.bias"),
+                            eps=1e-5)
+
+    x = images.float()
+    for i, stride in ((1, 2), (2, 1), (3, 1)):
+        x = F.relu(bn(conv(x, f"visual.conv{i}.weight", stride), f"visual.bn{i}"))
+    x = F.avg_pool2d(x, 2)
+    stage = 1
+    while f"visual.layer{stage}.0.conv1.weight" in sd:
+        i = 0
+        while f"visual.layer{stage}.{i}.conv1.weight" in sd:
+            p, stride = f"visual.layer{stage}.{i}", 2 if stage > 1 and i == 0 else 1
+            out = F.relu(bn(conv(x, f"{p}.conv1.weight"), f"{p}.bn1"))
+            out = F.relu(bn(conv(out, f"{p}.conv2.weight"), f"{p}.bn2"))
+            if stride > 1:
+                out = F.avg_pool2d(out, stride)
+            out = bn(conv(out, f"{p}.conv3.weight"), f"{p}.bn3")
+            identity = x
+            if f"{p}.downsample.0.weight" in sd:
+                identity = F.avg_pool2d(x, stride) if stride > 1 else x
+                identity = bn(conv(identity, f"{p}.downsample.0.weight"), f"{p}.downsample.1")
+            x = F.relu(out + identity)
+            i += 1
+        stage += 1
+    return x
