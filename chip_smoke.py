@@ -168,6 +168,27 @@
      an image batch, no other kernel; image img/s and the knowledge text
      step's ms. Check rows for #5/#6 at its image tower, (128, 50, 768,
      H 12); the run fails if its blocks' shapes are not that row's.
+   - The rest of the training CLI (PR 15), after trainer_cli:
+     trainer_adamw_dropout (``drive_trainer_adamw_dropout``): trainer_cli's
+     run with AdamW and VPT dropout 0.1: the replayed window equal bit for
+     bit to the eager window, and that to one step a call, with dropout
+     live; two consecutive one-step replays of its graph drawing
+     different masks, each the counter's for its step, kept share within
+     5 sigma of 0.9; a second seed giving other losses; an Adam and an
+     RMSprop window each replayed from its own graph, equal to its eager
+     self; ms/step, img/s and peak memory beside the SGD window of
+     train_window_k120[auto]. debug_nans (``drive_debug_nans``): the CLI
+     with --debug-nans builds the trainer; a step with a NaN pixel raises
+     FloatingPointError naming step 1, the same step without it runs.
+     post_run (``drive_post_run``): avg_ckpt over trainer_cli's and
+     trainer_adamw_dropout's prompts, export_ckpt of the average,
+     --eval-only on it (#5 and #6 launched), parse_test_res over the
+     runs. finetune_cli (``drive_finetune_cli``): --trainer FinetuneCLIP
+     on cifar-10 at 224 px, batch 32, AdamW with STAGED_LR, two epochs,
+     best_val: no kernel of the repo launched (the plain path), the first
+     bf16 loss within 1e-2 of fp32 on the same batch and weights, an
+     --eval-only rerun's test logits bit-equal; ms/step, img/s, peak
+     memory and the parameter count.
 4. Prints a summary line (img/s, ms/step, MFU, peak memory), one JSON
    line of kernel numbers, then, as the last line, {"ok": true,
    "device": {...}}.
@@ -1670,7 +1691,7 @@ def drive_window(selection: str, ocfg, norm, text_shape: tuple[int, int]) -> dic
         if name.startswith("batch"):
             ws = [{n: t.roll(-1, 0) for n, t in w.items()} for w in windows]
         else:
-            st.sgd.lr_table.fill_(float(st.sgd.lr_table[0]))
+            st.opt.lr_table.fill_(float(st.opt.lr_table[0, 0]))
         ms = [eager(st, backbone, consts, w)[1] for w in ws]
         controls[name] = _window_gaps(per_step, ms, init, tree_leaves(st.prompt_params))
 
@@ -2166,10 +2187,11 @@ def elevater_image_tokens(vpt_ctx: int = ELEV_CTX) -> int:
     return 1 + 14 * 14 + vpt_ctx
 
 
-def write_elevater_dataset(root: Path, tasks=None, test: int = ELEV_TEST) -> Path:
+def write_elevater_dataset(root: Path, tasks=None, test: int = ELEV_TEST,
+                           shots: int = ELEV_SHOTS) -> Path:
     """The 20 ELEVATER tasks (or ``tasks`` of them) under ``root`` in the
     local manifest layout (``write_task_manifest``; no classnames:
-    metadata.json's apply): ELEV_SHOTS train and ``test`` val images a
+    metadata.json's apply): ``shots`` train and ``test`` val images a
     class (the yaml's DATASET.TEST_SET is "val"), smooth seeded noise plus
     a class colour, as CLI_IMAGE_SIZE JPEGs; voc-2007-classification's
     items carry one or two more classes (multilabel). Written by 8
@@ -2181,7 +2203,7 @@ def write_elevater_dataset(root: Path, tasks=None, test: int = ELEV_TEST) -> Pat
 
     from mvlpt_torch.data.elevater import ELEVATER_20_TASKS, class_map, write_task_manifest
 
-    sizes = {"shots": ELEV_SHOTS, "test": test, "image_size": CLI_IMAGE_SIZE}
+    sizes = {"shots": shots, "test": test, "image_size": CLI_IMAGE_SIZE}
     if tasks is not None:
         sizes["tasks"] = list(tasks)
     if _fresh_data(root, sizes):
@@ -2191,7 +2213,7 @@ def write_elevater_dataset(root: Path, tasks=None, test: int = ELEV_TEST) -> Pat
         if tasks is not None and task not in tasks:
             continue
         items = write_task_manifest(str(root / task), len(class_map(task)),
-                                    {"train": ELEV_SHOTS, "val": test},
+                                    {"train": shots, "val": test},
                                     np.random.RandomState(1000 + t),
                                     multilabel=task == "voc-2007-classification")
         jobs += [(root / task / rel, label) for rel, label in items]
@@ -2204,12 +2226,12 @@ def write_elevater_dataset(root: Path, tasks=None, test: int = ELEV_TEST) -> Pat
 
 
 def _state_copy(state) -> tuple:
-    """(prompt leaves, momentum buffers, update count) of a WindowState,
-    cloned."""
+    """(prompt leaves, optimizer slots and update count, dropout seed) of a
+    WindowState, cloned."""
     from mvlpt_torch.utils.tree import tree_leaves
 
     return ([t.detach().clone() for t in tree_leaves(state.prompt_params)],
-            [b.clone() for b in state.sgd.buffers], state.sgd.count.clone())
+            [b.clone() for b in state.opt.tensors()], state.seed.clone())
 
 
 def _restore(state, copy: tuple) -> None:
@@ -2218,13 +2240,13 @@ def _restore(state, copy: tuple) -> None:
 
     from mvlpt_torch.utils.tree import tree_leaves
 
-    leaves, buffers, count = copy
+    leaves, tensors, seed = copy
     with torch.no_grad():
         for dst, src in zip(tree_leaves(state.prompt_params), leaves):
             dst.copy_(src)
-        for dst, src in zip(state.sgd.buffers, buffers):
+        for dst, src in zip(state.opt.tensors(), tensors):
             dst.copy_(src)
-        state.sgd.count.copy_(count)
+        state.seed.copy_(seed)
 
 
 class _TimedWindowProbe(_WindowProbe):
@@ -2733,28 +2755,35 @@ def _cocoop_argv(data: Path, out: Path, sub: str, flags=(), opts=()) -> list:
 
 
 class _TimedStepProbe:
-    """Stands in for ``make_train_step`` in the trainer module for one CLI
+    """Stands in for a step factory (``make_train_step`` in the trainer
+    module, ``make_finetune_step`` in the finetune module) for one CLI
     run: makes the step as it does and records, for each call, its host ms
-    (a sync before and after) and its ms between CUDA events."""
+    (a sync before and after) and its ms between CUDA events, and its
+    metrics; keeps the first call's batch and the params before it."""
 
     def __init__(self, make):
-        self.make, self.timings = make, []
+        self.make, self.timings, self.metrics, self.first = make, [], [], None
 
     def __call__(self, *args, **kw):
         import torch
 
+        from mvlpt_torch.utils.tree import tree_map
+
         step = self.make(*args, **kw)
 
-        def call(*a, **k):
+        def call(state, backbone, consts, batch):
+            if self.first is None:
+                self.first = (batch, tree_map(lambda t: t.detach().clone(), state.prompt_params))
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             start.record()
-            out = step(*a, **k)
+            out = step(state, backbone, consts, batch)
             end.record()
             torch.cuda.synchronize()
             self.timings.append((1e3 * (time.perf_counter() - t0), start.elapsed_time(end)))
+            self.metrics.append(out[1])
             return out
         return call
 
@@ -3550,6 +3579,487 @@ def drive_extract_features() -> dict:
     return out
 
 
+# The phases of the optimizers, VPT dropout, FinetuneCLIP, --debug-nans and
+# the post-run CLIs. trainer_adamw_dropout runs trainer_cli's flags with
+# AdamW and VPT dropout; ADAM_RMS_K is the length of the Adam and RMSprop
+# windows checked beside it.
+DROPOUT_RATE = 0.1
+DROPOUT_OPTS = ["OPTIM.NAME", "adamw", "TRAINER.MVLPT.VPT.DROPOUT", str(DROPOUT_RATE)]
+ADAM_RMS_K = 8
+# finetune_cli: FinetuneCLIP on one ELEVATER task (cifar-10, 10 classes),
+# FT_SHOTS train images a class (a fifth of them carved out as val), FT_TEST
+# test images a class, at 224 px, batch 32.
+FT_TASK, FT_SHOTS, FT_TEST = "cifar-10", 20, 10
+FT_OPTS = ["OPTIM.NAME", "adamw", "OPTIM.STAGED_LR", "True", "OPTIM.BASE_LR_MULT", "0.1",
+           "OPTIM.LR", "1e-5", "OPTIM.WARMUP_EPOCH", "0", "OPTIM.MAX_EPOCH", "2",
+           "TEST.FINAL_MODEL", "best_val", "DATALOADER.TRAIN_X.BATCH_SIZE", "32"]
+
+
+class _MaskProbe:
+    """Stands in for ``core.layers.keep_mask`` while installed: draws the
+    mask as it does and keeps the mask tensors drawn while a CUDA graph is
+    being captured, by stream; a replay of that graph rewrites them."""
+
+    def __init__(self):
+        from mvlpt_torch.core import layers
+
+        self.layers, self.real, self.captured = layers, layers.keep_mask, {}
+
+    def __call__(self, key, stream, shape, keep):
+        import torch
+
+        mask = self.real(key, stream, shape, keep)
+        if torch.cuda.is_current_stream_capturing():
+            self.captured[stream] = mask
+        return mask
+
+    def __enter__(self):
+        self.layers.keep_mask = self
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.keep_mask = self.real
+
+
+def _kept_share_ok(mask, keep: float) -> bool:
+    """Whether the kept share of ``mask`` lies within 5 sigma of ``keep``."""
+    n = mask.numel()
+    return abs(mask.float().mean().item() - keep) <= 5 * (keep * (1 - keep) / n) ** 0.5
+
+
+def _window_numbers(timings: list, batch: int = 32) -> dict:
+    """The replayed windows' ms a step (host clock and CUDA events, over
+    the full-length windows after the first, which captures), img/s, and
+    the capture window's peak memory."""
+    full = max(t["steps"] for t in timings)
+    replayed = [t for t in timings[1:] if t["steps"] == full]
+    steps = sum(t["steps"] for t in replayed)
+    host = sum(t["host_ms"] for t in replayed) / steps
+    dev = sum(t["device_ms"] for t in replayed) / steps
+    return dict(ms_per_step=host, device_ms_per_step=dev, img_per_s=batch * 1e3 / host,
+                timed_windows=len(replayed), timed_steps=steps,
+                peak_mem_gib=timings[0]["peak_gib"])
+
+
+def drive_trainer_adamw_dropout(sgd_window: dict | None) -> dict:
+    """trainer_adamw_dropout: trainer_cli's CLI run (the flagship MVLPT UPT
+    at full width on its dataset, windows of 20 and a tail window of 10
+    under 'auto', two epochs, best_val) with DROPOUT_OPTS: OPTIM.NAME
+    adamw and TRAINER.MVLPT.VPT.DROPOUT 0.1. Holds: one capture, #1-#6
+    launched and no other kernel; (a) epoch 2's first window, replayed,
+    equal bit for bit to the same window run eagerly (capture=False) from
+    the state before it, dropout live; (b) that eager window equal bit for
+    bit to one make_train_step call a batch on the window's pre-embedded
+    tokens (losses, accuracies, grad norms, prompt leaves); (c) two
+    consecutive one-step replays of the run's graph drew different masks,
+    each the counter's mask for its step (``layers.keep_mask`` at the
+    state's seed and count), each kept share within 5 sigma of 0.9; (d)
+    the same eager window under the next seed gives other losses. Then an
+    Adam and an RMSprop window of ADAM_RMS_K steps each, replayed from
+    their own graphs, held by (a), and timed on a second replay. Prints
+    ms/step (host and CUDA events), img/s and peak memory of the AdamW
+    windows and of the Adam and RMSprop ones, beside the SGD window of
+    train_window_k120[auto] (``sgd_window``), with the card's name and
+    power limit."""
+    import torch
+
+    from mvlpt_torch.core.layers import dropout_key
+    from mvlpt_torch.ops import _build
+    from mvlpt_torch.train import init_train_state, make_train_step, make_train_step_multi
+    from mvlpt_torch.train.train_step import WINDOW_METRICS
+    from mvlpt_torch.utils.tree import tree_leaves
+
+    path, card = "trainer_adamw_dropout", card_line()
+    data = write_cli_dataset(ROOT / "build" / "trainer_cli_data")
+    out_dir = ROOT / "build" / "trainer_adamw_dropout_out"
+    common = ["--root", str(data), "--trainer", "MVLPT", "--dataset-coop",
+              "--dataset", "OxfordPets", "--shots", str(CLI_SHOTS), "--seed", "1",
+              "--cut-contextlen",
+              "--config-file", str(ROOT / "configs/trainers/MVLPT/vit_b16_tpu_fast.yaml")]
+    os.environ["MVLPT_TPU_RANDOM_CLIP"] = "1"
+    os.environ.pop("MVLPT_TPU_RANDOM_CLIP_ARCH", None)
+    os.environ.pop("MVLPT_TPU_CLIP_CKPT", None)
+    try:
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        # windows 0-2 are epoch 1's, 3 epoch 2's first (replayed, kept)
+        probe = _TimedWindowProbe(make_train_step_multi, keep=3, copies=(3,))
+        t0 = time.perf_counter()
+        with _MaskProbe() as masks:
+            trainer = _cli_probed([*common, "--output-dir", str(out_dir / "train"), *CLI_OPTS,
+                                   *DROPOUT_OPTS, "OPTIM.MAX_EPOCH", "2"], probe)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    finally:
+        os.environ.pop("MVLPT_TPU_RANDOM_CLIP", None)
+
+    sizes = [int(m["loss"].shape[0]) for m in probe.windows]
+    if len(probe.steps) != 1 or probe.steps[0].captures != 1 or sizes != [20, 20, 10] * 2:
+        raise AssertionError(f"{path}: {[s.captures for s in probe.steps]} captures, windows "
+                             f"{sizes}: want one capture and [20, 20, 10] an epoch")
+    want = ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd", "attn_fwd_infer", "mlp_fwd_infer")
+    missing = [name for name in want if not launches.get(name)]
+    others = {name: n for name, n in launches.items() if n and name not in want}
+    if missing or others:
+        raise AssertionError(f"{path}: launches {launches}: {missing} not launched, "
+                             f"{others} launched")
+    if trainer.state.opt.kind != "adam" or trainer.spec.vpt_dropout != DROPOUT_RATE:
+        raise AssertionError(f"{path}: optimizer {trainer.state.opt.kind}, dropout "
+                             f"{trainer.spec.vpt_dropout}")
+    model, backbone, consts = trainer.model, trainer.backbone, trainer.consts
+    norm, ocfg, spe = trainer._normalize, trainer.cfg.OPTIM, trainer.steps_per_epoch
+    before, after = probe.states[3]
+    kept = probe.kept
+    k = int(kept["label"].shape[0])
+
+    def state_at(copy, opt_cfg=None):
+        """A new state holding ``copy``: all of it, or under another
+        optimizer ``opt_cfg`` its prompt leaves and seed, the optimizer
+        fresh."""
+        st = init_train_state(trainer.state.prompt_params, opt_cfg or ocfg, spe)
+        if opt_cfg is None:
+            _restore(st, copy)
+            return st
+        with torch.no_grad():
+            for dst, src in zip(tree_leaves(st.prompt_params), copy[0]):
+                dst.copy_(src)
+            st.seed.copy_(copy[2])
+        return st
+
+    # (a) the replayed window against the same window run eagerly
+    eager = make_train_step_multi(model, trainer.task_ranges, pre_embed=True, normalize=norm,
+                                  capture=False)
+    eager_state = state_at(before)
+    _, eager_m = eager(eager_state, backbone, consts, kept)
+    _equal_windows(path, "(a) the replayed window against the eager window", probe.windows[3],
+                   eager_m, after[0], tree_leaves(eager_state.prompt_params))
+    # (b) the eager window against one step a call on its pre-embedded tokens
+    step_state = state_at(before)
+    step = make_train_step(model, trainer.task_ranges, pre_embedded=True)
+    with torch.no_grad():
+        tokens = model.embed_image(backbone, kept["image"].flatten(0, 1), normalize=norm)
+    tokens = tokens.unflatten(0, kept["image"].shape[:2])
+    per_step = [step(step_state, backbone, consts, {"image": tokens[i], "label": kept["label"][i]})
+                [1] for i in range(k)]
+    stacked = {name: torch.stack([m[name] for m in per_step]) for name in WINDOW_METRICS}
+    _equal_windows(path, "(b) the eager window against one step a call", eager_m, stacked,
+                   tree_leaves(eager_state.prompt_params), tree_leaves(step_state.prompt_params))
+    # (d) the next seed: other losses
+    seed_state = state_at(before)
+    seed_state.seed.add_(1)
+    _, seed_m = eager(seed_state, backbone, consts, kept)
+    if torch.equal(seed_m["loss"], eager_m["loss"]):
+        raise AssertionError(f"{path}: (d) a second seed gave the same losses")
+    del eager_state, step_state, seed_state, tokens
+
+    # (c) two consecutive one-step replays of the run's graph, their masks
+    if sorted(masks.captured) != [0, 1]:
+        raise AssertionError(f"{path}: the capture drew masks of streams {sorted(masks.captured)}")
+    graph_step, graph_state = probe.steps[0], probe.state
+    _restore(graph_state, before)
+    drawn = []
+    for i in range(2):
+        seed, count = graph_state.seed.clone(), graph_state.opt.count.clone()
+        replays = graph_step.replays
+        with masks:  # a replay draws in the graph, past the probe
+            graph_step(graph_state, backbone, consts, {n: t[i:i + 1] for n, t in kept.items()})
+        if graph_step.replays != replays + 1 or graph_step.captures != 1:
+            raise AssertionError(f"{path}: (c) a one-step window did not replay the graph")
+        got = {s: m.clone() for s, m in masks.captured.items()}
+        key = dropout_key(seed, count)
+        for s, m in got.items():
+            want_m = masks.real(key, s, tuple(m.shape), 1 - DROPOUT_RATE)
+            if not torch.equal(m, want_m):
+                raise AssertionError(f"{path}: (c) replay {i}'s stream-{s} mask is not the "
+                                     f"counter's mask of its step")
+            if not _kept_share_ok(m, 1 - DROPOUT_RATE):
+                raise AssertionError(f"{path}: (c) replay {i}'s stream-{s} kept share "
+                                     f"{m.float().mean().item()} outside 5 sigma of 0.9")
+        drawn.append(got)
+    if any(torch.equal(drawn[0][s], drawn[1][s]) for s in (0, 1)):
+        raise AssertionError(f"{path}: (c) two consecutive replayed steps drew the same mask")
+    shares = [[round(m.float().mean().item(), 4) for m in d.values()] for d in drawn]
+
+    # Adam and RMSprop: a window each from its own graph against its eager self
+    other = {}
+    for name in ("adam", "rmsprop"):
+        opt_cfg = ocfg.clone()
+        opt_cfg.NAME = name
+        window = {n: t[:ADAM_RMS_K] for n, t in kept.items()}
+        graph = make_train_step_multi(model, trainer.task_ranges, pre_embed=True, normalize=norm)
+        g_state = state_at(before, opt_cfg)
+        e_state = state_at(before, opt_cfg)
+        timings = []
+        for _ in range(2):
+            g0 = [t.detach().clone() for t in tree_leaves(g_state.prompt_params)]
+            host, dev, g_m = _timed_window(graph, g_state, backbone, consts, window)
+            timings.append(dict(steps=ADAM_RMS_K, host_ms=host, device_ms=dev,
+                                peak_gib=_peak_gib()))
+            _, e_m = eager(e_state, backbone, consts, window)
+            _equal_windows(f"{path}[{name}]", "(a) the replayed window against the eager window",
+                           g_m, e_m, tree_leaves(g_state.prompt_params),
+                           tree_leaves(e_state.prompt_params))
+            if all(torch.equal(a, b) for a, b in zip(g0, tree_leaves(g_state.prompt_params))):
+                raise AssertionError(f"{path}[{name}]: the window moved no prompt leaf")
+        if graph.captures != 1:
+            raise AssertionError(f"{path}[{name}]: {graph.captures} captures")
+        other[name] = dict(_window_numbers(timings), losses=e_m["loss"].tolist())
+        del graph, g_state, e_state
+        _free_cuda()
+
+    results = _results_of(out_dir / "train" / "log.txt")
+    losses = torch.cat([m["loss"] for m in probe.windows])
+    if not bool(torch.isfinite(losses).all()) or not results or "accuracy" not in results[-1]:
+        raise AssertionError(f"{path}: a loss not finite, or no results line")
+    adamw = _window_numbers(probe.timings)
+    sgd = {key: sgd_window[key] for key in ("ms_per_step", "device_ms_per_step", "img_per_s",
+                                            "peak_mem_gib")} if sgd_window else None
+    out = dict(path=path, card=card, run_s=run_s, windows=sizes,
+               captures=probe.steps[0].captures, replays=probe.steps[0].replays,
+               launches={key: v for key, v in launches.items() if v}, **adamw,
+               adam=other["adam"], rmsprop=other["rmsprop"], sgd_window_k120=sgd,
+               replay_equals_eager=True, eager_equals_per_step=True,
+               replayed_mask_kept_shares=shares, second_seed_differs=True,
+               first_losses=probe.windows[0]["loss"][:4].tolist(), results=results[-1])
+    print(f"{path} [{card}]: AdamW + dropout {adamw['ms_per_step']:.2f} ms/step host, "
+          f"{adamw['device_ms_per_step']:.2f} device, {adamw['img_per_s']:.1f} img/s, peak "
+          f"{adamw['peak_mem_gib']:.2f} GiB; Adam {other['adam']['ms_per_step']:.2f}, RMSprop "
+          f"{other['rmsprop']['ms_per_step']:.2f} ms/step (windows of {ADAM_RMS_K}); SGD "
+          f"k120 {sgd and sgd['ms_per_step']}", flush=True)
+    print("main-path " + json.dumps(out), flush=True)
+    return out
+
+
+def drive_debug_nans() -> dict:
+    """debug_nans: the CLI's --debug-nans on trainer_cli's flags (--no-train,
+    so the CLI builds the trainer and turns the checks on), then its
+    per-step train step on a float batch of 32 with one NaN pixel: it must
+    raise FloatingPointError naming the step, and leave the state; the same
+    batch without the NaN then runs, to a finite loss. The mode is turned
+    off after."""
+    import numpy as np
+    import torch
+
+    from mvlpt_torch.ops import _build
+    from mvlpt_torch.utils import profiler
+
+    path, card = "debug_nans", card_line()
+    data = write_cli_dataset(ROOT / "build" / "trainer_cli_data")
+    os.environ["MVLPT_TPU_RANDOM_CLIP"] = "1"
+    try:
+        _free_cuda()
+        trainer, _ = _cli_run(["--debug-nans", "--no-train", "--root", str(data), "--trainer",
+                               "MVLPT", "--dataset-coop", "--dataset", "OxfordPets", "--shots",
+                               str(CLI_SHOTS), "--seed", "1", "--cut-contextlen",
+                               "--output-dir", str(ROOT / "build" / "debug_nans_out"),
+                               "--config-file",
+                               str(ROOT / "configs/trainers/MVLPT/vit_b16_tpu_fast.yaml"),
+                               *CLI_OPTS])
+        if not (profiler.nan_debugging() and torch.is_anomaly_enabled()):
+            raise AssertionError(f"{path}: --debug-nans did not turn the checks on")
+        rng = np.random.RandomState(5)
+        size = trainer.cfg.INPUT.SIZE[0]
+        image = rng.randn(32, size, size, 3).astype(np.float32)
+        batch = {"image": torch.from_numpy(image).cuda(),
+                 "label": torch.from_numpy(rng.randint(0, CLI_CLASSES, 32)).cuda()}
+        nan_batch = dict(batch, image=batch["image"].clone())
+        nan_batch["image"][7, size // 2, size // 4, 1] = float("nan")
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        raised = None
+        try:
+            trainer.train_step(trainer.state, trainer.backbone, trainer.consts, nan_batch)
+        except FloatingPointError as e:
+            raised = str(e)
+        if raised is None or not raised.startswith("step 1:") or trainer.state.step != 0:
+            raise AssertionError(f"{path}: the NaN step raised {raised!r}, state at step "
+                                 f"{trainer.state.step}")
+        _, metrics = trainer.train_step(trainer.state, trainer.backbone, trainer.consts, batch)
+        loss = metrics["loss"].item()
+        step_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        if not math.isfinite(loss) or trainer.state.step != 1:
+            raise AssertionError(f"{path}: the clean step's loss {loss}, step {trainer.state.step}")
+    finally:
+        profiler.enable_nan_debugging(False)
+        os.environ.pop("MVLPT_TPU_RANDOM_CLIP", None)
+    out = dict(path=path, card=card, raised=raised, clean_loss=loss, steps_s=step_s,
+               launches={k: v for k, v in launches.items() if v})
+    print(f"{path} [{card}]: the NaN step raised FloatingPointError ({raised}); the clean step "
+          f"ran, loss {loss:.4f}", flush=True)
+    print("main-path " + json.dumps(out), flush=True)
+    return out
+
+
+def drive_post_run() -> dict:
+    """post_run: the post-run CLIs on the phases' output directories:
+    ``avg_ckpt`` over trainer_cli's and trainer_adamw_dropout's prompt
+    directories (the same prompt tree) into build/post_run_out/avg,
+    ``export_ckpt`` of the average to a torch archive (every leaf equal to
+    the average's, transposed where the reference's names take it so, and
+    the mean of the two runs' leaves), an ``--eval-only`` run of the CLI on
+    the average (#5 and #6 launched, no other kernel, a finite results
+    line), and ``parse_test_res`` over the runs' directories (its mean of
+    their final results, n of them)."""
+    import numpy as np
+    import torch
+
+    from mvlpt_torch.checkpoint import prompt_io
+    from mvlpt_torch.cli import avg_ckpt, export_ckpt, parse_test_res
+    from mvlpt_torch.ops import _build
+
+    path, card = "post_run", card_line()
+    runs = [ROOT / "build" / "trainer_cli_out" / "train",
+            ROOT / "build" / "trainer_adamw_dropout_out" / "train"]
+    out_dir = ROOT / "build" / "post_run_out"
+    t0 = time.perf_counter()
+    avg_ckpt.cli(["--dirs", *map(str, runs), "--output-dir", str(out_dir / "avg")])
+    avg = prompt_io.load_prompt_checkpoint(prompt_io.checkpoint_path(str(out_dir / "avg")))
+    sources = [prompt_io.load_prompt_checkpoint(prompt_io.checkpoint_path(str(r))) for r in runs]
+    for key, value in avg["state_dict"].items():
+        mean = np.mean([s["state_dict"][key].astype(np.float64) for s in sources], axis=0)
+        if not np.array_equal(value, mean.astype(value.dtype)):
+            raise AssertionError(f"{path}: the average's {key} is not the runs' mean")
+    archive = out_dir / "avg.pth.tar"
+    export_ckpt.cli(["--input", str(out_dir / "avg"), "--output", str(archive)])
+    exported = prompt_io.load_prompt_checkpoint(str(archive))["state_dict"]
+    if exported.keys() != avg["state_dict"].keys() or any(
+            not np.array_equal(exported[k], avg["state_dict"][k]) for k in exported):
+        raise AssertionError(f"{path}: the exported archive does not read back as the average")
+    cli_s = time.perf_counter() - t0
+    data = write_cli_dataset(ROOT / "build" / "trainer_cli_data")
+    os.environ["MVLPT_TPU_RANDOM_CLIP"] = "1"
+    try:
+        _free_cuda()
+        _build.reset_launch_counts()
+        t1 = time.perf_counter()
+        evaluated, _ = _cli_run(["--root", str(data), "--trainer", "MVLPT", "--dataset-coop",
+                                 "--dataset", "OxfordPets", "--shots", str(CLI_SHOTS), "--seed",
+                                 "1", "--cut-contextlen", "--config-file",
+                                 str(ROOT / "configs/trainers/MVLPT/vit_b16_tpu_fast.yaml"),
+                                 "--output-dir", str(out_dir / "eval"), "--eval-only",
+                                 "--model-dir", str(out_dir / "avg"), *CLI_OPTS])
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t1
+        launches = dict(_build.LAUNCHES)
+    finally:
+        os.environ.pop("MVLPT_TPU_RANDOM_CLIP", None)
+    if not launches.get("attn_fwd_infer"):
+        raise AssertionError(f"{path}: the --eval-only run launched {launches}")
+    _launches_of(path, launches, ("attn_fwd_infer", "mlp_fwd_infer"), launches["attn_fwd_infer"])
+    loaded = prompt_io.flatten_params(evaluated.state.prompt_params)
+    if any(not np.array_equal(loaded[k], avg["state_dict"][k]) for k in avg["state_dict"]):
+        raise AssertionError(f"{path}: the --eval-only run did not load the average")
+    eval_results = _results_of(out_dir / "eval" / "log.txt")
+    dirs = [str(d) for d in (*runs, out_dir / "eval")]
+    summary = parse_test_res.aggregate(dirs)
+    finals = [parse_test_res.final_metrics(d) for d in dirs]
+    if (not eval_results or not all(math.isfinite(v) for v in eval_results[-1].values())
+            or summary.get("accuracy", {}).get("n") != len(dirs)
+            or not math.isclose(summary["accuracy"]["mean"],
+                                sum(f["accuracy"] for f in finals) / len(dirs))):
+        raise AssertionError(f"{path}: results {eval_results[-1:]}, parse_test_res {summary}")
+    out = dict(path=path, card=card, averaged=[str(r) for r in runs], cli_s=cli_s,
+               eval_s=eval_s, eval_results=eval_results[-1], parse_test_res=summary,
+               launches={k: v for k, v in launches.items() if v}, peak_mem_gib=_peak_gib())
+    print(f"{path} [{card}]: avg_ckpt + export_ckpt {cli_s:.2f} s; --eval-only on the average "
+          f"{eval_s:.2f} s ({eval_results[-1]}); parse_test_res {summary}", flush=True)
+    print("main-path " + json.dumps(out), flush=True)
+    return out
+
+
+def drive_finetune_cli() -> dict:
+    """finetune_cli: ``--trainer FinetuneCLIP`` through the port's CLI on
+    FT_TASK (written by ``write_elevater_dataset``), a random ViT-B/16 at
+    full width, configs/trainers/MVLPT/vit_b16_tpu_fast.yaml with FT_OPTS
+    (224 px, batch 32, AdamW, STAGED_LR with BASE_LR_MULT 0.1, two epochs,
+    best_val). Holds: per-batch steps (the windowed-dispatch message
+    printed), none of the repo's kernels launched (the plain path, as in
+    the JAX package), a finite loss every step, the first step's bf16 loss
+    within 1e-2 of an fp32 step's on the same batch and weights, the
+    checkpoints written, and an --eval-only rerun's test logits bit-equal
+    to the run's own. Prints ms/step (host and CUDA events, the first
+    step left out), img/s, peak memory and the parameter count."""
+    import torch
+
+    from mvlpt_torch.ops import _build
+    from mvlpt_torch.train import finetune
+    from mvlpt_torch.train.train_step import soft_cross_entropy
+    from mvlpt_torch.utils.tree import tree_leaves
+
+    path, card = "finetune_cli", card_line()
+    data = write_elevater_dataset(ROOT / "build" / "finetune_data", tasks=[FT_TASK],
+                                  test=FT_TEST, shots=FT_SHOTS)
+    out_dir = ROOT / "build" / "finetune_out"
+    common = ["--root", str(data), "--trainer", "FinetuneCLIP", "--dataset", FT_TASK,
+              "--shots", str(FT_SHOTS), "--seed", "1", "--config-file",
+              str(ROOT / "configs/trainers/MVLPT/vit_b16_tpu_fast.yaml")]
+    probe = _TimedStepProbe(finetune.make_finetune_step)
+    os.environ["MVLPT_TPU_RANDOM_CLIP"] = "1"
+    finetune.make_finetune_step = probe
+    try:
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer, _ = _cli_run([*common, "--output-dir", str(out_dir / "train"), *FT_OPTS])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        peak = _peak_gib()
+        logits = _test_logits(trainer)
+        # the first step's bf16 loss against fp32 on the same batch and weights
+        batch, params = probe.first
+        model32 = finetune.FinetuneModel(trainer.clip_cfg, torch.float32,
+                                         trainer.model.normalize)
+        with torch.no_grad():
+            loss32 = soft_cross_entropy(model32({}, params, None, batch["image"]),
+                                        batch["label"]).item()
+        del trainer, params, batch
+        probe.first = None
+        _free_cuda()
+        evaluated, _ = _cli_run([*common, "--output-dir", str(out_dir / "eval"), "--eval-only",
+                                 "--model-dir", str(out_dir / "train"), *FT_OPTS])
+        logits_again = _test_logits(evaluated)
+        n_params = sum(t.numel() for t in tree_leaves(evaluated.state.prompt_params))
+        del evaluated
+    finally:
+        finetune.make_finetune_step = probe.make
+        os.environ.pop("MVLPT_TPU_RANDOM_CLIP", None)
+    if launches:
+        raise AssertionError(f"{path}: launched {launches}: the fine-tune path is plain")
+    log = (out_dir / "train" / "log.txt").read_text()
+    if "FinetuneCLIP: TRAIN.STEPS_PER_DISPATCH=120 ignored" not in log:
+        raise AssertionError(f"{path}: no windowed-dispatch message in log.txt")
+    losses = [m["loss"].item() for m in probe.metrics]
+    if len(losses) < 4 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{path}: losses {losses}")
+    _near(path, "first bf16 loss against fp32", losses[0], loss32)
+    for name in ("model-best.pth.tar", "model.pth.tar-2"):
+        if not (out_dir / "train" / "prompt_learner" / name).is_file():
+            raise AssertionError(f"{path}: no prompt_learner/{name}")
+    results = _results_of(out_dir / "train" / "log.txt")
+    if not torch.equal(logits, logits_again) or not results:
+        raise AssertionError(f"{path}: the --eval-only rerun's test logits differ")
+    if logits.shape != (10 * FT_TEST, 10) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{path}: test logits {tuple(logits.shape)}, or not finite")
+    timed = probe.timings[1:]
+    host = sum(t[0] for t in timed) / len(timed)
+    dev = sum(t[1] for t in timed) / len(timed)
+    out = dict(path=path, card=card, run_s=run_s, steps=len(losses), params=n_params,
+               ms_per_step=host, device_ms_per_step=dev, img_per_s=32e3 / host,
+               peak_mem_gib=peak, first_loss=losses[0], first_loss_fp32=loss32,
+               losses=losses, results=results[-1], launches=launches,
+               eval_only_logits_equal=True)
+    print(f"{path} [{card}]: {n_params / 1e6:.1f}M params, {len(losses)} steps, {host:.2f} "
+          f"ms/step host, {dev:.2f} device, {out['img_per_s']:.1f} img/s, peak {peak:.2f} "
+          f"GiB; first loss {losses[0]:.5f} (fp32 {loss32:.5f})", flush=True)
+    print("main-path " + json.dumps(out), flush=True)
+    return out
+
+
 def kernel_entries(results: list[dict], paths: dict) -> list[dict]:
     """One entry a kernel of KERNELS: its bf16 check row's numbers and its
     launches on each path."""
@@ -3724,6 +4234,11 @@ def main() -> int:
     paths = drive_paths({"visual": (32, s_img, None), "text": (rows, g * s, packed_mask)},
                         (s, g))
     paths["trainer_cli"] = drive_trainer_cli()
+    paths["trainer_adamw_dropout"] = drive_trainer_adamw_dropout(
+        paths.get("train_window_k120[auto]"))
+    paths["debug_nans"] = drive_debug_nans()
+    paths["post_run"] = drive_post_run()
+    paths["finetune_cli"] = drive_finetune_cli()
     print(f"ELEVATER-20 text tower: s={s_e}, G={g_e}, {rows_e} rows of {g_e * s_e} tokens",
           flush=True)
     paths.update(drive_trainer_elevater())

@@ -5,7 +5,11 @@ from mvlpt_torch.checkpoint.convert import (
     load_clip,
     rn_config_from_state_dict,
 )
-from mvlpt_torch.checkpoint.from_jax import backbone_from_jax, prompt_params_from_jax
+from mvlpt_torch.checkpoint.from_jax import (
+    backbone_from_jax,
+    finetune_params_from_jax,
+    prompt_params_from_jax,
+)
 from mvlpt_torch.checkpoint.prompt_io import (
     apply_state_dict,
     average_checkpoints,

@@ -45,3 +45,13 @@ def prompt_params_from_jax(tree: dict, device="cuda") -> dict:
     (coop, vpt, mvlpt_proj, and cocoop's ctx and meta_net)."""
     device = resolve_device(device)
     return tree_map(lambda a: _to_tensor(a, device, torch.float32), tree)
+
+
+def finetune_params_from_jax(tree: dict, device="cuda") -> dict:
+    """A JAX ``FinetuneCLIP`` params tree ({"visual": the ViT tower in fp32,
+    "head": {"kernel", "bias"}}) -> the port's trainable fp32 tree. The ViT
+    tower keeps the JAX schema, so the conversion is leaf for leaf."""
+    if "stem" in tree["visual"]:
+        raise ValueError("FinetuneCLIP finetunes the ViT tower; this tree holds a ResNet")
+    device = resolve_device(device)
+    return tree_map(lambda a: _to_tensor(a, device, torch.float32), tree)

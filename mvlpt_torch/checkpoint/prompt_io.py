@@ -264,16 +264,28 @@ _TORCH_LEGACY_MAGIC = 0x1950A86A20F9469CFC6C
 class ForeignState(tuple):
     """What a JAX-written payload's optimizer state (``opt_state``: optax's
     NamedTuples, the JAX package's own states) unpickles to here, where
-    neither package is imported: each state a plain tuple of its fields."""
+    neither package is imported: each state a plain tuple of its fields,
+    of a subclass named as the state's class (``ScaleByAdamState``,
+    ``TraceState``, ``MaskedNode``, ...)."""
 
     def __new__(cls, *fields):
         return tuple.__new__(cls, fields)
 
 
+_FOREIGN_CLASSES: dict = {}
+
+
+def _foreign_class(name: str) -> type:
+    cls = _FOREIGN_CLASSES.get(name)
+    if cls is None:
+        cls = _FOREIGN_CLASSES[name] = type(name, (ForeignState,), {})
+    return cls
+
+
 class _PayloadUnpickler(pickle.Unpickler):
     def find_class(self, module, name):
         if module.split(".")[0] in ("optax", "mvlpt_tpu", "jax", "jaxlib"):
-            return ForeignState
+            return _foreign_class(name)
         return super().find_class(module, name)
 
 

@@ -12,9 +12,10 @@ merge order (the reference's train.py:222-295), so run scripts translate
 
 Config merge order: dataset-yaml < trainer-yaml < CLI flags < opts
 (train.py:171-191). Runs on the card; ``main(args, device="cpu")`` runs
-on the CPU. CoOp and ELEVATER datasets, CoCoOp, ``--act-ckpt``, and the
-zero-shot trainers run; what the port does not run yet (the fine-tune
-trainer, optimizers other than SGD, VPT dropout, a mesh) raises, naming
+on the CPU. CoOp and ELEVATER datasets, CoCoOp, ``--act-ckpt``, the
+zero-shot trainers, the fine-tune trainer (FinetuneCLIP), SGD, Adam, AdamW
+and RMSprop, VPT dropout and ``--debug-nans`` run; what the port does not
+run yet (a mesh, the data backends other than "python") raises, naming
 its ROADMAP.md item.
 """
 
@@ -139,8 +140,9 @@ def main(args, device="cuda"):
     setup_logger(cfg.OUTPUT_DIR)
     print(cfg.dump())
     if args.debug_nans:
-        raise NotImplementedError("--debug-nans (utils/profiler.py) is not ported yet "
-                                  "(ROADMAP.md Queue 1, item 9)")
+        from mvlpt_torch.utils.profiler import enable_nan_debugging
+
+        enable_nan_debugging()
 
     if device.type == "cuda":
         print(f"torch device: {device} ({torch.cuda.get_device_name(device)})")

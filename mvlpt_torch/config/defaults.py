@@ -229,8 +229,8 @@ def validate_support(cfg) -> None:
 
     As in the JAX package: the Dassl DataLoader features MVLPT never
     exercises. Besides, what the port has not ported yet, each naming
-    its ROADMAP.md item: optimizers other than SGD, VPT dropout, a mesh
-    of more than one device, and the data backends other than "python"."""
+    its ROADMAP.md item: a mesh of more than one device, and the data
+    backends other than "python"."""
     problems = []
     if cfg.DATALOADER.K_TRANSFORMS != 1:
         problems.append("DATALOADER.K_TRANSFORMS != 1 (multi-view "
@@ -252,11 +252,6 @@ def validate_support(cfg) -> None:
         raise NotImplementedError("; ".join(problems))
 
     missing = []
-    if cfg.OPTIM.NAME.lower() != "sgd":
-        missing.append(f"OPTIM.NAME {cfg.OPTIM.NAME!r}: only SGD "
-                       "(ROADMAP.md Queue 1, item 11)")
-    if cfg.TRAINER.MVLPT.VPT.DROPOUT > 0:
-        missing.append("TRAINER.MVLPT.VPT.DROPOUT > 0 (ROADMAP.md Queue 1, item 11)")
     mesh = (cfg.TPU.MESH_DATA, cfg.TPU.MESH_MODEL)
     if cfg.TPU.MESH_DATA not in (-1, 1) or cfg.TPU.MESH_MODEL != 1:
         missing.append(f"TPU.MESH_DATA/MESH_MODEL {mesh}: the trainer runs on one "

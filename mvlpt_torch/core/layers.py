@@ -26,6 +26,8 @@ products; None keeps the plain path.
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -149,3 +151,55 @@ def causal_mask(size: int, device=None) -> torch.Tensor:
     mask = torch.full((size, size), torch.finfo(torch.float32).min,
                       dtype=torch.float32, device=device)
     return torch.triu(mask, diagonal=1)
+
+
+# The dropout masks are counter-based: a hash of (the step's key, the
+# stream, the element's index), computed in int64 tensor arithmetic on the
+# key's device. No generator state is read or advanced, so a step draws
+# the same mask eagerly, in a window and in a CUDA graph's replay, and a
+# checkpointed recompute would draw it again unchanged.
+_M32 = 0xFFFFFFFF
+# Odd multipliers below 2^31, so that every product of a 32-bit value
+# fits in int64.
+_MIX = (0x7FEB352D, 0x2C1B3C6D, 0x297A2D39)
+_STREAM = 0x5BD1E995
+_WEYL = 0x61C88647
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash of int64 values in [0, 2^32)."""
+    for mult in _MIX:
+        x = x ^ (x >> 16)
+        x = (x * mult) & _M32
+    return x ^ (x >> 16)
+
+
+def dropout_key(seed: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """The () int64 key of one train step, from the epoch's seed and the
+    update count, both tensors on the device."""
+    return _mix32((_mix32(seed & _M32) + (count & _M32)) & _M32)
+
+
+def keep_mask(key: torch.Tensor, stream: int, shape, keep: float) -> torch.Tensor:
+    """A bool mask of ``shape`` on the key's device, each element kept with
+    probability ``keep``: element i is kept when the hash of (key, stream,
+    i) falls below keep x 2^32. ``stream`` separates the draws one key
+    serves (VPT's shallow and deep rows)."""
+    n = math.prod(shape)
+    base = _mix32((key + stream * _STREAM) & _M32)
+    idx = torch.arange(n, dtype=torch.int64, device=key.device)
+    u = _mix32((base + idx * _WEYL) & _M32)
+    return (u < int(keep * 2 ** 32)).reshape(shape)
+
+
+def dropout(x: torch.Tensor, rate: float, key: torch.Tensor | None,
+            stream: int = 0) -> torch.Tensor:
+    """Inverted dropout as the JAX package's: each element kept with
+    probability 1 - rate and scaled by 1 / (1 - rate), else 0. The mask is
+    ``keep_mask(key, stream, ...)``; no key (eval) or rate 0 is the
+    identity."""
+    if rate <= 0.0 or key is None:
+        return x
+    keep = 1.0 - rate
+    mask = keep_mask(key, stream, tuple(x.shape), keep)
+    return torch.where(mask, x / keep, torch.zeros_like(x))

@@ -90,8 +90,8 @@ class MVLPTModel(nn.Module):
                                    normalize=normalize, stems=self.stems)
 
     def encode_image(self, backbone, prompt_params, images, vpt_shallow=None,
-                     vpt_deep=None, pre_embedded=False):
-        vpt_shallow, vpt_deep = vpt_prepare(prompt_params, self.spec, vpt_shallow, vpt_deep)
+                     vpt_deep=None, pre_embedded=False, rng=None):
+        vpt_shallow, vpt_deep = vpt_prepare(prompt_params, self.spec, vpt_shallow, vpt_deep, rng)
         if vpt_shallow is not None:
             vpt_shallow = vpt_shallow.to(self.compute_dtype)
         if vpt_deep is not None:
@@ -119,24 +119,27 @@ class MVLPTModel(nn.Module):
     def forward_with_text(self, backbone: dict, prompt_params: dict, images: torch.Tensor,
                           text_features: torch.Tensor, tasks: torch.Tensor | None = None,
                           task_ranges: TaskClassRanges | None = None,
-                          pre_embedded: bool = False) -> torch.Tensor:
-        """Forward with precomputed text features (the eval fast path):
-        the image tower and the logits only."""
+                          pre_embedded: bool = False, rng=None) -> torch.Tensor:
+        """Forward with precomputed text features: the image tower and the
+        logits only (the eval fast path with ``rng`` None, and a pure-VPT
+        window's train steps)."""
         _, vpt_sh, vpt_dp = upt_couple(prompt_params, self.spec)
         image_features = self.encode_image(backbone, prompt_params, images, vpt_sh, vpt_dp,
-                                           pre_embedded=pre_embedded)
+                                           pre_embedded=pre_embedded, rng=rng)
         logits = clip_core.clip_logits(image_features, text_features, backbone["logit_scale"])
         return _apply_task_mask(logits, tasks, task_ranges)
 
     def forward(self, backbone: dict, prompt_params: dict, consts: PromptConsts,
                 images: torch.Tensor, tasks: torch.Tensor | None = None,
                 task_ranges: TaskClassRanges | None = None,
-                pre_embedded: bool = False) -> torch.Tensor:
+                pre_embedded: bool = False, rng=None) -> torch.Tensor:
         """Full forward -> (B, n_cls) fp32 logits. ``pre_embedded``:
-        ``images`` is the (B, 1+N, width) output of :meth:`embed_image`."""
+        ``images`` is the (B, 1+N, width) output of :meth:`embed_image`.
+        ``rng``: the train step's VPT dropout key (``layers.dropout_key``),
+        None at eval."""
         coop_ctx, vpt_sh, vpt_dp = upt_couple(prompt_params, self.spec)
         image_features = self.encode_image(backbone, prompt_params, images, vpt_sh, vpt_dp,
-                                           pre_embedded=pre_embedded)
+                                           pre_embedded=pre_embedded, rng=rng)
         if self.spec.has_cocoop:
             logits = self._cocoop_logits(backbone, prompt_params, consts, image_features)
         else:

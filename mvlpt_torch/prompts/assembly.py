@@ -82,13 +82,16 @@ def upt_couple(prompt_params: dict, spec: PromptSpec):
     return c, v[:1], v_deep
 
 
-def vpt_prepare(prompt_params: dict, spec: PromptSpec, vpt_shallow, vpt_deep):
-    """Apply the optional VPT projection to the shallow and deep prompts.
-    VPT dropout is held at 0 on this path (the JAX package's default)."""
+def vpt_prepare(prompt_params: dict, spec: PromptSpec, vpt_shallow, vpt_deep, rng=None):
+    """Apply the optional VPT projection and dropout to the shallow and
+    deep prompts (the reference's mvlpt.py:424, 77-79), as the JAX package
+    does. ``rng`` is the train step's () int64 key (``layers.dropout_key``),
+    None at eval: the shallow and deep rows take separate draws (streams 0
+    and 1, the JAX package's k1 and k2). As there, one mask a step is
+    shared across the batch (dropout before the broadcast), where the
+    reference draws one per image."""
     if not spec.has_vpt:
         return None, None
-    if spec.vpt_dropout > 0:
-        raise NotImplementedError("VPT dropout > 0 is not ported yet")
     vpt = prompt_params["vpt"]
     if vpt_shallow is None:
         vpt_shallow = vpt["embeddings"]
@@ -99,6 +102,10 @@ def vpt_prepare(prompt_params: dict, spec: PromptSpec, vpt_shallow, vpt_deep):
         vpt_shallow = _linear(vpt_shallow.float(), proj)
         if vpt_deep is not None:
             vpt_deep = _linear(vpt_deep.float(), proj)
+    if rng is not None and spec.vpt_dropout > 0:
+        vpt_shallow = layers.dropout(vpt_shallow, spec.vpt_dropout, rng, stream=0)
+        if vpt_deep is not None:
+            vpt_deep = layers.dropout(vpt_deep, spec.vpt_dropout, rng, stream=1)
     return vpt_shallow, vpt_deep
 
 

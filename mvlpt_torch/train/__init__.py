@@ -1,4 +1,9 @@
-from mvlpt_torch.train.optim import build_device_sgd, build_lr_schedule, device_sgd_update_
+from mvlpt_torch.train.optim import (
+    DeviceOptimizer,
+    build_device_optimizer,
+    build_lr_schedule,
+    device_update_,
+)
 from mvlpt_torch.train.train_step import (
     WindowState,
     accuracy,

@@ -1,9 +1,10 @@
 """Optimizer + LR schedule factory.
 
-The counterpart of ``mvlpt_tpu/train/optim.py`` for SGD: Dassl's
-per-epoch schedules (cosine, single/multi-step, constant) with a
-constant or linear warmup, looked up from a per-epoch table by the
-optimizer step count.
+The counterpart of ``mvlpt_tpu/train/optim.py``: Dassl's per-epoch
+schedules (cosine, single/multi-step, constant) with a constant or
+linear warmup, looked up from a per-epoch table by the optimizer step
+count, and SGD, Adam, AdamW and RMSprop with the JAX package's optax
+semantics, their whole state on the device (``DeviceOptimizer``).
 """
 
 from __future__ import annotations
@@ -66,73 +67,135 @@ def build_lr_schedule(ocfg, steps_per_epoch: int) -> Callable[[int], float]:
     return schedule
 
 
-def _sgd_dampening(ocfg) -> float:
-    """SGD_DAMPNING, once the config is checked to name SGD with a valid
-    dampening and nesterov pair. Adam, AdamW and RMSprop are not ported
-    yet (ROADMAP.md Queue 1, item 11)."""
+# The state slots of each optimizer kind, one tensor a parameter each.
+SLOTS = {"sgd": ("momentum",), "adam": ("mu", "nu"), "rmsprop": ("nu",)}
+# optax's defaults, which the JAX package's chains keep.
+ADAM_EPS = 1e-8
+RMS_EPS = 1e-8
+
+
+def optimizer_kind(ocfg) -> str:
+    """The update rule OPTIM.NAME names: "sgd", "adam" (adam and adamw, one
+    optax chain: scale_by_adam, add_decayed_weights, -lr) or "rmsprop"."""
     name = ocfg.NAME.lower()
-    if name != "sgd":
-        raise NotImplementedError(f"optimizer {name!r} is not ported yet (SGD only)")
-    damp = float(getattr(ocfg, "SGD_DAMPNING", 0.0))
-    if damp and bool(ocfg.SGD_NESTEROV):
-        raise ValueError("SGD_DAMPNING > 0 with nesterov is invalid")
-    return damp
+    if name == "sgd":
+        if float(getattr(ocfg, "SGD_DAMPNING", 0.0)) and bool(ocfg.SGD_NESTEROV):
+            raise ValueError("SGD_DAMPNING > 0 with nesterov is invalid")
+        return "sgd"
+    if name in ("adam", "adamw"):
+        return "adam"
+    if name == "rmsprop":
+        return "rmsprop"
+    raise ValueError(f"unknown optimizer {name!r}")
 
 
 @dataclasses.dataclass
-class DeviceSGD:
-    """SGD whose whole state lives on the device, so that its update can
-    be captured in a CUDA graph (``device_sgd_update_``): the momentum
-    buffers, the count of updates made, and the per-epoch lr table that
-    the count indexes. ``torch.optim.SGD`` takes its lr as a host float,
-    which a captured step would freeze at one step's value."""
+class DeviceOptimizer:
+    """An optimizer whose whole state lives on the device, so that its
+    update (``device_update_``) can be captured in a CUDA graph: the slots
+    of its kind (SGD's momentum buffers, Adam's mu and nu, RMSprop's nu),
+    the count of updates made, and the per-epoch lr tables that the count
+    indexes, one row a parameter group. ``torch.optim``'s optimizers take
+    their lr as a host float, which a captured step would freeze at one
+    step's value, and torch Adam's weight decay is an L2 term where the
+    JAX package's chain decays after the moments."""
 
-    lr_table: torch.Tensor       # (MAX_EPOCH + 1,) fp32
+    kind: str                    # optimizer_kind
+    lr_table: torch.Tensor       # (groups, MAX_EPOCH + 1) fp32
+    group: tuple                 # each parameter's row of lr_table
     steps_per_epoch: int
-    momentum: float
-    dampening: float
-    nesterov: bool
     weight_decay: float
-    buffers: list                # one fp32 momentum buffer a parameter
+    momentum: float              # SGD
+    dampening: float             # SGD
+    nesterov: bool               # SGD
+    b1: float                    # Adam
+    b2: float                    # Adam
+    alpha: float                 # RMSprop's decay
+    slots: dict                  # SLOTS[kind] -> one fp32 tensor a parameter
     count: torch.Tensor          # () int64, the updates made so far
 
+    def tensors(self) -> list:
+        """Every tensor of the state, which a captured update reads or
+        writes in place."""
+        return [t for name in SLOTS[self.kind] for t in self.slots[name]] + [self.count,
+                                                                              self.lr_table]
 
-def build_device_sgd(params, ocfg, steps_per_epoch: int) -> DeviceSGD:
-    """A ``DeviceSGD`` over ``params`` (a list of tensors), with its state
-    on their device."""
-    damp = _sgd_dampening(ocfg)
+
+def build_device_optimizer(params, ocfg, steps_per_epoch: int, group=None) -> DeviceOptimizer:
+    """A ``DeviceOptimizer`` over ``params`` (a list of tensors), with its
+    state on their device. ``ocfg`` is one OPTIM config, or a list of them
+    that differ in their LR only (parameter groups, FinetuneCLIP's
+    STAGED_LR); ``group[i]`` is parameter i's index in that list."""
+    ocfgs = list(ocfg) if isinstance(ocfg, (list, tuple)) else [ocfg]
+    group = tuple(group) if group is not None else (0,) * len(params)
+    first = ocfgs[0]
+    kind = optimizer_kind(first)
     device = params[0].device
-    return DeviceSGD(
-        lr_table=torch.tensor(lr_table(ocfg), dtype=torch.float32, device=device),
-        steps_per_epoch=int(steps_per_epoch), momentum=float(ocfg.MOMENTUM), dampening=damp,
-        nesterov=bool(ocfg.SGD_NESTEROV), weight_decay=float(ocfg.WEIGHT_DECAY),
-        buffers=[torch.zeros_like(p, memory_format=torch.contiguous_format) for p in params],
+    table = torch.tensor([lr_table(c) for c in ocfgs], dtype=torch.float32, device=device)
+    return DeviceOptimizer(
+        kind=kind, lr_table=table, group=group, steps_per_epoch=int(steps_per_epoch),
+        weight_decay=float(first.WEIGHT_DECAY), momentum=float(first.MOMENTUM),
+        dampening=float(getattr(first, "SGD_DAMPNING", 0.0)),
+        nesterov=bool(first.SGD_NESTEROV), b1=float(first.ADAM_BETA1),
+        b2=float(first.ADAM_BETA2), alpha=float(first.RMSPROP_ALPHA),
+        slots={name: [torch.zeros_like(p, dtype=torch.float32,
+                                       memory_format=torch.contiguous_format) for p in params]
+               for name in SLOTS[kind]},
         count=torch.zeros((), dtype=torch.int64, device=device))
 
 
 @torch.no_grad()
-def device_sgd_update_(params, grads, opt: DeviceSGD) -> None:
-    """One SGD update of ``params`` in place, with no host value read:
-    g += wd p (coupled weight decay); buf = g on the first update, then
-    momentum buf + (1 - dampening) g; the Nesterov form g + momentum buf
-    where asked; p += -lr(count) x that, with lr(count) the table's entry
-    for epoch count // steps_per_epoch. The same arithmetic as the JAX
-    package's optax chain: add_decayed_weights(wd) makes g + wd p;
-    optax.trace keeps buf = g on the first step, then momentum buf + g,
-    and its dampened trace (optim.py:71-92) momentum buf + (1 - damp) g;
-    scale_by_learning_rate makes the update -lr(count) buf with count the
-    number of earlier updates. It is also torch.optim.SGD's update with
-    the lr set to lr(count) before each step (the tests' reference)."""
+def device_update_(params, grads, opt: DeviceOptimizer) -> None:
+    """One update of ``params`` in place, with no host value read, by the
+    JAX package's optax chain for OPTIM.NAME; lr(count) is the table's
+    entry of the parameter's group for epoch count // steps_per_epoch,
+    with count the number of earlier updates (scale_by_learning_rate).
+
+    SGD: g += wd p (add_decayed_weights before the trace); buf = g on the
+    first update, then momentum buf + (1 - dampening) g (optax.trace, and
+    the JAX package's dampened trace); the Nesterov form g + momentum buf
+    where asked; p -= lr buf. It is also torch.optim.SGD's update with the
+    lr set to lr(count) before each step.
+
+    Adam and AdamW (scale_by_adam with eps 1e-8 and eps_root 0, then
+    add_decayed_weights, then -lr): mu = b1 mu + (1 - b1) g, nu = b2 nu +
+    (1 - b2) g^2, u = (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps) with
+    t = count + 1, u += wd p, p -= lr u.
+
+    RMSprop (scale_by_rms with decay RMSPROP_ALPHA, eps 1e-8 inside the
+    square root, initial scale 0, no bias correction, no momentum; then
+    add_decayed_weights, then -lr): nu = alpha nu + (1 - alpha) g^2,
+    u = g / sqrt(nu + eps), u += wd p, p -= lr u."""
     epoch = torch.clamp(torch.div(opt.count, opt.steps_per_epoch, rounding_mode="floor"),
-                        0, opt.lr_table.shape[0] - 1)
+                        0, opt.lr_table.shape[1] - 1)
     # index_select, not indexing: a 0-dim index tensor would be read back
     # to the host.
-    neg_lr = -opt.lr_table.index_select(0, epoch.reshape(1)).reshape(())
-    scale = torch.where(opt.count == 0, 1.0, 1.0 - opt.dampening).to(torch.float32)
-    for p, g, buf in zip(params, grads, opt.buffers):
-        if opt.weight_decay:
-            g = g + opt.weight_decay * p
-        buf.copy_(opt.momentum * buf + scale * g)
-        step = g + opt.momentum * buf if opt.nesterov else buf
-        p.add_(step * neg_lr)
+    neg_lr = -opt.lr_table.index_select(1, epoch.reshape(1))[:, 0]
+    wd = opt.weight_decay
+    if opt.kind == "sgd":
+        scale = torch.where(opt.count == 0, 1.0, 1.0 - opt.dampening).to(torch.float32)
+    elif opt.kind == "adam":
+        t = (opt.count + 1).to(torch.float32)
+        c1, c2 = 1.0 - torch.pow(opt.b1, t), 1.0 - torch.pow(opt.b2, t)
+    for i, (p, g) in enumerate(zip(params, grads)):
+        if opt.kind == "sgd":
+            buf = opt.slots["momentum"][i]
+            if wd:
+                g = g + wd * p
+            buf.copy_(opt.momentum * buf + scale * g)
+            u = g + opt.momentum * buf if opt.nesterov else buf
+        elif opt.kind == "adam":
+            mu, nu = opt.slots["mu"][i], opt.slots["nu"][i]
+            mu.copy_((1.0 - opt.b1) * g + opt.b1 * mu)
+            nu.copy_((1.0 - opt.b2) * g.square() + opt.b2 * nu)
+            u = (mu / c1) / (torch.sqrt(nu / c2) + ADAM_EPS)
+            if wd:
+                u = u + wd * p
+        else:
+            nu = opt.slots["nu"][i]
+            nu.copy_((1.0 - opt.alpha) * g.square() + opt.alpha * nu)
+            u = torch.rsqrt(nu + RMS_EPS) * g
+            if wd:
+                u = u + wd * p
+        p.add_(u * neg_lr[opt.group[i]])
     opt.count.add_(1)

@@ -1,5 +1,6 @@
 """The train step (forward both towers, soft-label cross-entropy,
-backward into the prompt params only, SGD update) and the eval steps.
+backward into the prompt params only, the device optimizer's update)
+and the eval steps.
 
 The counterpart of ``make_train_step``, ``make_eval_step`` and
 ``make_cached_text_eval`` in ``mvlpt_tpu/train/train_step.py``.
@@ -22,11 +23,13 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
+from mvlpt_torch.core.layers import dropout_key
+from mvlpt_torch.data.transforms import device_constant
 from mvlpt_torch.models.custom_clip import MVLPTModel, TaskClassRanges
 from mvlpt_torch.ops.block import BlockKernels
 from mvlpt_torch.parallel.mesh import local_batch
-from mvlpt_torch.data.transforms import device_constant
-from mvlpt_torch.train.optim import DeviceSGD, build_device_sgd, device_sgd_update_
+from mvlpt_torch.train.optim import DeviceOptimizer, build_device_optimizer, device_update_
+from mvlpt_torch.utils import profiler
 from mvlpt_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -74,6 +77,55 @@ def _data_mean(tensors, mesh) -> None:
         t.div_(mesh.n_data)
 
 
+def step_rng(model, state) -> torch.Tensor | None:
+    """The VPT dropout key of the step ``state`` is about to make (a
+    function of the epoch's seed and the update count, both on the
+    device), or None when the model drops nothing."""
+    spec = getattr(model, "spec", None)
+    if spec is None or spec.vpt_dropout <= 0:
+        return None
+    return dropout_key(state.seed, state.opt.count)
+
+
+def _grads(loss, leaves, step: int | None):
+    """d loss / d leaves. Under ``profiler.enable_nan_debugging`` (``step``
+    given) a backward that anomaly mode stops at a NaN raises
+    FloatingPointError naming the step and the op."""
+    if step is None:
+        return torch.autograd.grad(loss, leaves)
+    try:
+        return torch.autograd.grad(loss, leaves)
+    except RuntimeError as e:
+        if "nan" not in str(e):
+            raise
+        raise FloatingPointError(f"step {step}: {e}") from e
+
+
+def apply_gradients(state, loss, logits, labels, mesh=None) -> tuple:
+    """The backward of ``loss`` into the state's params and the device
+    optimizer's update, in place; returns the 0-dim (loss, acc, grad_norm)
+    tensors. Under a mesh the gradients, loss and accuracy are averaged
+    over the data group first. Under ``profiler.enable_nan_debugging`` the
+    loss, the gradients and the updated params are checked (reading the
+    device), and the first non-finite one raises FloatingPointError naming
+    the step."""
+    leaves = tree_leaves(state.prompt_params)
+    step = state.step + 1 if profiler.nan_debugging() else None
+    if step is not None:
+        profiler.check_finite(step, "loss", [loss])
+    grads = _grads(loss, leaves, step)
+    with torch.no_grad():
+        loss, acc = loss.detach(), accuracy(logits, labels)
+        _data_mean(grads + (loss, acc), mesh)
+        grad_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        if step is not None:
+            profiler.check_finite(step, "gradient", grads)
+        device_update_(leaves, grads, state.opt)
+        if step is not None:
+            profiler.check_finite(step, "updated parameter", leaves)
+    return loss, acc, grad_norm
+
+
 def make_train_step(model: MVLPTModel, task_ranges: TaskClassRanges | None = None,
                     normalize: tuple | None = None, mesh=None,
                     pre_embedded: bool = False) -> Callable:
@@ -82,13 +134,14 @@ def make_train_step(model: MVLPTModel, task_ranges: TaskClassRanges | None = Non
     batch = {"image": (B,H,W,3) float (or uint8 with ``normalize``),
     "label": (B,) int or (B,C), and optionally "task": (B,) int}.
     ``state`` is a ``WindowState`` (``init_train_state``), the same state
-    the windowed step takes: its params and its device SGD are updated in
-    place, with the lr read from the per-epoch table by the update count
-    on the device. Metrics are 0-dim tensors (loss, acc, grad_norm);
-    reading them waits for the device. Under ``mesh`` the batch is the
-    global one and must divide over the data ranks; ``backbone`` is this
-    rank's shard (``parallel.shard_backbone``) and the model's kernels
-    carry the mesh. ``pre_embedded``: batch["image"] holds the (B, 1+N,
+    the windowed step takes: its params and its device optimizer are
+    updated in place, with the lr read from the per-epoch table by the
+    update count on the device, and VPT dropout drawn from the state's
+    seed and that count (``step_rng``). Metrics are 0-dim tensors (loss,
+    acc, grad_norm); reading them waits for the device. Under ``mesh`` the
+    batch is the global one and must divide over the data ranks;
+    ``backbone`` is this rank's shard (``parallel.shard_backbone``) and the
+    model's kernels carry the mesh. ``pre_embedded``: batch["image"] holds the (B, 1+N,
     width) tokens of ``model.embed_image``, as a window's steps read them
     (``make_train_step_multi(..., pre_embed=True)``)."""
 
@@ -97,21 +150,13 @@ def make_train_step(model: MVLPTModel, task_ranges: TaskClassRanges | None = Non
         if mesh is not None:
             batch = local_batch(batch, mesh)
         task_ranges = _ranges_on(task_ranges, batch["image"].device)
-        params = state.prompt_params
-        leaves = tree_leaves(params)
         imgs, pre = ((batch["image"], True) if pre_embedded
                      else _prep_images(model, backbone, batch["image"], normalize))
-        logits = model(backbone, params, consts, imgs, tasks=batch.get("task"),
-                       task_ranges=task_ranges, pre_embedded=pre)
+        logits = model(backbone, state.prompt_params, consts, imgs, tasks=batch.get("task"),
+                       task_ranges=task_ranges, pre_embedded=pre, rng=step_rng(model, state))
         loss = soft_cross_entropy(logits, batch["label"])
-        grads = torch.autograd.grad(loss, leaves)
-        with torch.no_grad():
-            loss, acc = loss.detach(), accuracy(logits, batch["label"])
-            _data_mean(grads + (loss, acc), mesh)
-            grad_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
-            device_sgd_update_(leaves, grads, state.sgd)
-            metrics = {"loss": loss, "acc": acc, "grad_norm": grad_norm}
-        return state, metrics
+        values = apply_gradients(state, loss, logits, batch["label"], mesh)
+        return state, dict(zip(WINDOW_METRICS, values))
 
     return step_fn
 
@@ -120,24 +165,31 @@ def make_train_step(model: MVLPTModel, task_ranges: TaskClassRanges | None = Non
 class WindowState:
     """The train state of both train steps (``make_train_step`` and
     ``make_train_step_multi``), all on the device and updated in place:
-    the prompt params (fp32 leaves that require grad) and the SGD state
-    (``optim.DeviceSGD``). Rebind none of its tensors: a captured window
-    reads them where they lie."""
+    the prompt params (fp32 leaves that require grad), the optimizer state
+    (``optim.DeviceOptimizer``), and the seed of VPT dropout's draws, a ()
+    int64 tensor that the trainer sets each epoch (``step_rng``). Rebind
+    none of its tensors: a captured window reads them where they lie."""
 
     prompt_params: dict
-    sgd: DeviceSGD
+    opt: DeviceOptimizer
+    seed: torch.Tensor
 
     @property
     def step(self) -> int:
         """The updates made so far (reads the device)."""
-        return int(self.sgd.count)
+        return int(self.opt.count)
 
 
-def init_train_state(prompt_params: dict, ocfg, steps_per_epoch: int) -> WindowState:
+def init_train_state(prompt_params: dict, ocfg, steps_per_epoch: int,
+                     group=None) -> WindowState:
     """Copy ``prompt_params`` into trainable leaves and build the device
-    SGD over them, from the OPTIM config ``ocfg``."""
+    optimizer over them, from the OPTIM config ``ocfg`` (or a list of
+    them, one a parameter group, with ``group`` each leaf's index in it;
+    ``optim.build_device_optimizer``); the dropout seed starts at 0."""
     params = tree_map(lambda t: t.detach().clone().requires_grad_(True), prompt_params)
-    return WindowState(params, build_device_sgd(tree_leaves(params), ocfg, steps_per_epoch))
+    leaves = tree_leaves(params)
+    opt = build_device_optimizer(leaves, ocfg, steps_per_epoch, group)
+    return WindowState(params, opt, torch.zeros((), dtype=torch.int64, device=leaves[0].device))
 
 
 WINDOW_METRICS = ("loss", "acc", "grad_norm")
@@ -164,9 +216,8 @@ def _served(state: WindowState, backbone, consts) -> tuple:
     """The objects a captured step reads or writes in place, which a later
     window must pass again for the graph to serve it: the backbone, the
     consts, and every tensor of the state."""
-    sgd = state.sgd
-    return (backbone, consts, *tree_leaves(state.prompt_params), *sgd.buffers, sgd.count,
-            sgd.lr_table)
+    return (backbone, consts, *tree_leaves(state.prompt_params), *state.opt.tensors(),
+            state.seed)
 
 
 class WindowStep:
@@ -191,7 +242,7 @@ class WindowStep:
             with torch.no_grad():
                 text = self.model.compute_text_features(backbone, state.prompt_params, consts)
         k = inputs["image"].shape[0]
-        if device.type == "cuda" and self.capture:
+        if device.type == "cuda" and self.capture and not profiler.nan_debugging():
             out = self._replayed(state, backbone, consts, inputs, text, k)
         else:
             index = torch.zeros(1, dtype=torch.int64, device=device)
@@ -222,26 +273,25 @@ class WindowStep:
 
     def _step(self, state, backbone, consts, inputs, text, index, out) -> None:
         """Step ``index`` of the window: its batch picked on the device,
-        forward, backward into the prompt params, the device SGD update,
-        its metrics written to slot ``index`` of ``out``, and ``index``
-        advanced. It reads nothing back to the host."""
+        forward (VPT dropout keyed by the state's seed and update count),
+        backward into the prompt params, the device optimizer's update, its
+        metrics written to slot ``index`` of ``out``, and ``index``
+        advanced. It reads nothing back to the host (but under
+        ``profiler.enable_nan_debugging``, which runs the window eagerly)."""
         model, params = self.model, state.prompt_params
-        leaves = tree_leaves(params)
         batch = {name: t.index_select(0, index)[0] for name, t in inputs.items()}
+        rng = step_rng(model, state)
         if text is not None:
             logits = model.forward_with_text(backbone, params, batch["image"], text,
                                              tasks=batch.get("task"),
                                              task_ranges=self.task_ranges,
-                                             pre_embedded=self.pre_embed)
+                                             pre_embedded=self.pre_embed, rng=rng)
         else:
             logits = model(backbone, params, consts, batch["image"], tasks=batch.get("task"),
-                           task_ranges=self.task_ranges, pre_embedded=self.pre_embed)
+                           task_ranges=self.task_ranges, pre_embedded=self.pre_embed, rng=rng)
         loss = soft_cross_entropy(logits, batch["label"])
-        grads = torch.autograd.grad(loss, leaves)
+        values = apply_gradients(state, loss, logits, batch["label"])
         with torch.no_grad():
-            values = (loss.detach(), accuracy(logits, batch["label"]),
-                      torch.sqrt(sum(g.float().square().sum() for g in grads)))
-            device_sgd_update_(leaves, grads, state.sgd)
             for name, v in zip(WINDOW_METRICS, values):
                 out[name].index_copy_(0, index, v.reshape(1))
             index.add_(1)
@@ -306,8 +356,8 @@ def make_train_step_multi(model: MVLPTModel, task_ranges: TaskClassRanges | None
     (K, B, C), optionally "task" (K, B)); the metrics ``loss``, ``acc`` and
     ``grad_norm`` come back as (K,) fp32 tensors on the device. ``state``
     is a ``WindowState`` (``init_train_state``), updated in place; its
-    SGD reads the lr from the per-epoch table by its update count on the
-    device, so a window may cross an epoch boundary.
+    optimizer reads the lr from the per-epoch table by its update count on
+    the device, so a window may cross an epoch boundary.
 
     ``pre_embed``: the frozen stem runs once over all K x B images before
     the steps; with uint8 images and ``normalize=(mean, std)`` the CLIP
@@ -318,8 +368,11 @@ def make_train_step_multi(model: MVLPTModel, task_ranges: TaskClassRanges | None
     ``forward_with_text``: exact, since the text tower reads no trained
     parameter. The JAX package also hoists its weight preparation out of
     the window (``prepare_backbone``); the port has no such work, since
-    ``core.layers.layer_params`` takes each layer's weights as views. No
-    rng: the port raises on VPT dropout > 0 (``prompts.vpt_prepare``).
+    ``core.layers.layer_params`` takes each layer's weights as views. VPT
+    dropout's key is a function of the state's seed and update count
+    (``step_rng``), so a step draws the same mask in a window, in its
+    graph's replay and one step a call; the JAX package folds a step
+    index into the window's key instead.
 
     On the card (``capture=True``) the steps run from a CUDA graph of one
     step. The design replays that one graph K times, its batch picked by
@@ -337,7 +390,9 @@ def make_train_step_multi(model: MVLPTModel, task_ranges: TaskClassRanges | None
     replays K times. A capture that fails raises: there is no fallback
     to eager steps on the card. ``capture=False`` runs the window's
     steps eagerly on the card, the same program without the graph.
-    On the CPU the steps always run eagerly.
+    On the CPU the steps always run eagerly, and so do they under
+    ``utils.profiler.enable_nan_debugging`` (``--debug-nans``), whose
+    checks read the device every step, which a graph cannot capture.
 
     Under a ``mesh`` it raises NotImplementedError: the data group's
     all-reduces go through gloo on the host, which a graph cannot

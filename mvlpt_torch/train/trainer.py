@@ -22,10 +22,13 @@ mvlpt.py:827-1125):
     k-hot targets (the argmax for "accuracy"); overall = average or
     MULTITASK_EVALKEY, and `results {...}` prints;
   * per-layer activation checkpointing for TRAINER.ACT_CKPT > 1;
+  * SGD, Adam, AdamW and RMSprop on the device (``optim.DeviceOptimizer``),
+    their state in the checkpoints; VPT dropout seeded each epoch by
+    max(SEED, 0) * 131 + epoch, as the JAX trainer seeds its keys;
   * scalar logging to <OUTPUT_DIR>/tb/scalars.jsonl.
 
-The fine-tune trainer is not ported yet (ROADMAP.md Queue 1); the
-zero-shot trainers live in ``models/zsclip.py``.
+The fine-tune trainer lives in ``train/finetune.py``, the zero-shot
+trainers in ``models/zsclip.py``.
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ from mvlpt_torch.prompts import (
     init_prompt_params,
     spec_from_cfg,
 )
-from mvlpt_torch.train.optim import build_lr_schedule
+from mvlpt_torch.train.optim import SLOTS, build_lr_schedule
 from mvlpt_torch.train.train_step import (
     init_train_state,
     make_cached_text_eval,
@@ -138,21 +141,65 @@ class ScalarWriter:
         self._f.close()
 
 
-def _foreign_trace(opt_state, keys: set):
-    """The momentum tree in a JAX-written ``opt_state`` (optax's trace: a
-    nested dict whose leaves' dotted keys are the prompt params'), or
-    None."""
+# Where each slot of a DeviceOptimizer lies in a JAX-written ``opt_state``:
+# the optax state class and the field that holds the slot's tree.
+_FOREIGN_SLOTS = {("sgd", "momentum"): ("TraceState", 0),
+                  ("adam", "mu"): ("ScaleByAdamState", 1),
+                  ("adam", "nu"): ("ScaleByAdamState", 2),
+                  ("rmsprop", "nu"): ("ScaleByRmsState", 0)}
+
+
+def _payload_key(kind: str, slot: str) -> str:
+    """A slot's key in the port's checkpoint payload ("momentum" for SGD,
+    as before the other optimizers, else "<kind>_<slot>")."""
+    return "momentum" if kind == "sgd" else f"{kind}_{slot}"
+
+
+def _flat_leaves(tree, prefix: str = "") -> dict:
+    """A state tree's leaves by dotted key, leaving out optax's MaskedNode
+    (an empty state: a parameter another group of multi_transform owns)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_leaves(v, f"{prefix}{k}."))
+        return out
+    if isinstance(tree, prompt_io.ForeignState) and not tree:
+        return {}
+    return {prefix[:-1]: np.asarray(tree)}
+
+
+def _foreign_states(opt_state, name: str) -> list:
+    """Every state of optax class ``name`` in a JAX-written ``opt_state``
+    (one a parameter group under optax.multi_transform); the JAX package's
+    dampened SGD trace, a dict with "count" and "trace", stands as a
+    TraceState."""
+    if isinstance(opt_state, prompt_io.ForeignState):
+        if type(opt_state).__name__ == name:
+            return [opt_state]
+        return [s for item in opt_state for s in _foreign_states(item, name)]
     if isinstance(opt_state, dict):
-        flat = prompt_io.flatten_params(opt_state) if opt_state else {}
-        if set(flat) == keys:
-            return flat
-        return None
+        if name == "TraceState" and set(opt_state) == {"count", "trace"}:
+            return [(opt_state["trace"],)]
+        return [s for v in opt_state.values() for s in _foreign_states(v, name)]
     if isinstance(opt_state, (tuple, list)):
-        for item in opt_state:
-            found = _foreign_trace(item, keys)
-            if found is not None:
-                return found
-    return None
+        return [s for item in opt_state for s in _foreign_states(item, name)]
+    return []
+
+
+def _foreign_slots(opt_state, kind: str, keys: set) -> dict | None:
+    """The slots of a ``kind`` optimizer in a JAX-written ``opt_state``, by
+    the params' dotted keys, or None when it holds no such state over
+    exactly these params."""
+    slots = {}
+    for slot in SLOTS[kind]:
+        cls, field = _FOREIGN_SLOTS[(kind, slot)]
+        flat = {}
+        for state in _foreign_states(opt_state, cls):
+            flat.update(_flat_leaves(state[field]))
+        if set(flat) != keys:
+            return None
+        slots[slot] = flat
+    return slots
 
 
 class PromptTrainer:
@@ -268,7 +315,7 @@ class PromptTrainer:
 
         self.steps_per_epoch = max(1, len(self.train_loader_x))
         self.lr_schedule = build_lr_schedule(cfg.OPTIM, self.steps_per_epoch)
-        self.state = init_train_state(prompt_params, cfg.OPTIM, self.steps_per_epoch)
+        self.state = self._init_state(prompt_params)
         # TPU.DEVICE_NORMALIZE: loaders yield raw uint8; the steps fold
         # CLIP normalization into the frozen patch-embed product
         self._normalize = (tuple(cfg.INPUT.PIXEL_MEAN), tuple(cfg.INPUT.PIXEL_STD)) \
@@ -283,6 +330,11 @@ class PromptTrainer:
             self.model, self.task_ranges, normalize=self._normalize)
         self._eval_text = None
         self.evaluator = ClassificationEvaluator(self.lab2cname)
+
+    def _init_state(self, params: dict):
+        """A fresh train state over ``params`` (the device optimizer of
+        cfg.OPTIM, update count 0)."""
+        return init_train_state(params, self.cfg.OPTIM, self.steps_per_epoch)
 
     def _device_batch(self, batch: dict) -> dict:
         """One host batch on the device (tasks as int64 indices)."""
@@ -324,10 +376,17 @@ class PromptTrainer:
             record["images"] += len(batch["image"])
             yield batch
 
+    def _dispatch_window(self) -> int:
+        """The steps a windowed call takes (TRAIN.STEPS_PER_DISPATCH)."""
+        return max(1, int(self.cfg.TRAIN.STEPS_PER_DISPATCH))
+
     def run_epoch(self):
         record = {"epoch": self.epoch + 1, "loader_s": 0.0, "images": 0}
         t0 = time.perf_counter()
-        window = max(1, int(self.cfg.TRAIN.STEPS_PER_DISPATCH))
+        # The epoch's dropout seed, as the JAX trainer's PRNGKey: written
+        # into the state's tensor, which a captured window reads.
+        self.state.seed.fill_(max(self.cfg.SEED, 0) * 131 + self.epoch)
+        window = self._dispatch_window()
         batches = self._timed_batches(record)
         if window > 1:
             self._run_epoch_windowed(window, batches)
@@ -554,10 +613,16 @@ class PromptTrainer:
         return float(list(results.values())[0])
 
     # ------------------------------------------------------------ checkpoint
-    def _momentum(self) -> dict:
-        """The SGD momentum buffers by the prompt params' dotted keys."""
+    def _opt_payload(self) -> dict:
+        """The optimizer's kind and its slots (SGD's momentum, Adam's mu and
+        nu, RMSprop's nu), each by the params' dotted keys."""
         keys = tree_keys(self.state.prompt_params)
-        return {k: buf.detach().cpu().numpy() for k, buf in zip(keys, self.state.sgd.buffers)}
+        opt = self.state.opt
+        out = {"optimizer": opt.kind}
+        for slot in SLOTS[opt.kind]:
+            out[_payload_key(opt.kind, slot)] = {
+                k: t.detach().cpu().numpy() for k, t in zip(keys, opt.slots[slot])}
+        return out
 
     def save_checkpoint(self, best: bool = False, val_result=None):
         if val_result is not None and not np.isfinite(val_result):
@@ -566,10 +631,10 @@ class PromptTrainer:
             val_result = None
         path = prompt_io.checkpoint_path(self.output_dir,
                                          epoch=None if best else self.epoch + 1)
-        # the step and the momentum ride along for an exact resume (the
-        # JAX package keeps optax's state as "opt_state", which it reads
-        # and this package reads too)
-        extra = {"momentum": self._momentum(), "step": self.state.step}
+        # the step and the optimizer's slots ride along for an exact resume
+        # (the JAX package keeps optax's state as "opt_state", which it
+        # reads and this package reads too)
+        extra = {**self._opt_payload(), "step": self.state.step}
         prompt_io.save_prompt_checkpoint(path, self.state.prompt_params, self.epoch + 1,
                                          val_result, extra=extra)
         print(f"Checkpoint saved to {path}")
@@ -591,7 +656,7 @@ class PromptTrainer:
                                                         payload["state_dict"])
         if skipped:
             print(f"  skipped keys: {skipped}")
-        self.state = init_train_state(params, self.cfg.OPTIM, self.steps_per_epoch)
+        self.state = self._init_state(params)
 
     def resume_from_checkpoint(self, directory):
         epochs = prompt_io.list_epoch_checkpoints(directory)
@@ -600,7 +665,7 @@ class PromptTrainer:
             return
         payload = prompt_io.load_prompt_checkpoint(prompt_io.checkpoint_path(directory, epochs[-1]))
         params, _, _ = prompt_io.apply_state_dict(self.state.prompt_params, payload["state_dict"])
-        self.state = init_train_state(params, self.cfg.OPTIM, self.steps_per_epoch)
+        self.state = self._init_state(params)
         self.epoch = payload["epoch"]
         # Restore the best-val watermark (the epoch checkpoint's
         # val_result, and model-best.pth.tar's, which is newer when
@@ -614,23 +679,33 @@ class PromptTrainer:
             best_val = prompt_io.load_prompt_checkpoint(best_path).get("val_result")
             if best_val is not None and np.isfinite(best_val):
                 self.best_result = max(self.best_result, float(best_val))
-        # The step (the lr table's position) and the momentum: this
-        # package writes "momentum", the JAX package optax's trace inside
+        # The step (the lr table's position) and the optimizer's slots:
+        # this package writes them by kind ("optimizer", "momentum",
+        # "adam_mu", ...), the JAX package optax's states inside
         # "opt_state"; a reference-written checkpoint has neither, and
-        # resumes with fresh momentum at the epoch's first step.
+        # resumes with fresh state at the epoch's first step, as does a
+        # checkpoint of another optimizer (with the JAX package's note).
         step = int(payload.get("step", self.epoch * self.steps_per_epoch))
         keys = tree_keys(self.state.prompt_params)
-        momentum = payload.get("momentum")
-        if momentum is None and payload.get("opt_state") is not None:
-            momentum = _foreign_trace(payload["opt_state"], set(keys))
-            if momentum is None:
-                print("  (optimizer state in checkpoint incompatible; "
-                      "resuming with fresh momentum)")
+        opt = self.state.opt
+        slots, offered = None, False
+        own = [_payload_key(opt.kind, slot) for slot in SLOTS[opt.kind]]
+        if payload.get("optimizer") is not None or "momentum" in payload:
+            offered = True
+            if payload.get("optimizer", "sgd") == opt.kind and all(
+                    k in payload and set(payload[k]) == set(keys) for k in own):
+                slots = {slot: payload[k] for slot, k in zip(SLOTS[opt.kind], own)}
+        elif payload.get("opt_state") is not None:
+            offered = True
+            slots = _foreign_slots(payload["opt_state"], opt.kind, set(keys))
+        if offered and slots is None:
+            print("  (optimizer state in checkpoint incompatible; resuming with fresh momentum)")
         with torch.no_grad():
-            if momentum is not None:
-                for k, buf in zip(keys, self.state.sgd.buffers):
-                    buf.copy_(torch.from_numpy(np.array(momentum[k], np.float32)))
-            self.state.sgd.count.fill_(step)
+            if slots is not None:
+                for slot, flat in slots.items():
+                    for k, t in zip(keys, opt.slots[slot]):
+                        t.copy_(torch.from_numpy(np.array(flat[k], np.float32)))
+            opt.count.fill_(step)
         print(f"Resumed from epoch {self.epoch} (step {step})")
 
 
@@ -694,18 +769,8 @@ class CoCoOp(PromptTrainer):
         return "", self.cfg.TRAINER.COCOOP.CTX_INIT
 
 
-# The JAX package's other trainers, not ported yet: the ROADMAP.md item
-# that brings each.
-NOT_PORTED = {
-    "FinetuneCLIP": "Queue 1, item 10",
-}
-
-
 def build_trainer(cfg, device="cuda"):
     from mvlpt_torch.models import zsclip  # noqa: F401  (registers the zero-shot trainers)
+    from mvlpt_torch.train import finetune  # noqa: F401  (registers FinetuneCLIP)
 
-    name = cfg.TRAINER.NAME
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"trainer {name!r} is not ported yet (ROADMAP.md "
-                                  f"{NOT_PORTED[name]})")
-    return TRAINER_REGISTRY.get(name)(cfg, device=device)
+    return TRAINER_REGISTRY.get(cfg.TRAINER.NAME)(cfg, device=device)

@@ -2,8 +2,8 @@
 """Where the time of the port's flagship train step, or of its eval, goes,
 on one card.
 
-    python3 scripts/torch_port_profile.py [--path train|eval|window|rn50|logreg] [--steps 3]
-                                          [--k 120] [--out DIR]
+    python3 scripts/torch_port_profile.py [--path train|eval|window|rn50|logreg|finetune]
+                                          [--steps 3] [--k 120] [--out DIR]
 
 Runs the flagship MVLPT UPT train step (ViT-B/16, batch 32, 100
 classes, bf16, fused half-block kernels on both towers), or with
@@ -19,7 +19,10 @@ fit of the lpclip probe's logistic regression at its 16-shot shape
 (``evaluation.logreg.LogisticRegression``, C = 1, on seeded features of
 100 classes x 16 shots, 1024 wide, as RN50 gives them; a step is a fit,
 and the untraced warm-up fit's host time is split into the objective's
-and scipy's solver's), for two warm-up steps (windows), then traces
+and scipy's solver's), or with ``--path finetune`` FinetuneCLIP's step
+(a random ViT-B/16 tower in fp32 masters and a 10-way head, bf16
+compute on the plain path, AdamW with STAGED_LR, a batch of 32 uint8
+images with normalize), for two warm-up steps (windows), then traces
 ``--steps`` steps (windows) with torch.profiler. Prints the
 card (nvidia-smi name and power limit), ms/step on the host clock, the
 device time a step summed over kernels, the device's idle share, the
@@ -46,7 +49,8 @@ LOGREG_CLASSES, LOGREG_SHOTS, LOGREG_DIM, LOGREG_C = 100, 16, 1024, 1.0
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("train", "eval", "window", "rn50", "logreg"), default="train")
+    ap.add_argument("--path", choices=("train", "eval", "window", "rn50", "logreg", "finetune"),
+                    default="train")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--k", type=int, default=120, help="steps a window (--path window)")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "torch_port_profile"))
@@ -97,6 +101,27 @@ def main() -> int:
 
         def step():
             fits.append(LogisticRegression(C=LOGREG_C, device="cuda").fit(feats, labels))
+    elif args.path == "finetune":
+        from mvlpt_torch.core.clip import CLIPConfig, init_clip_params
+        from mvlpt_torch.train.finetune import (
+            FinetuneModel, build_finetune_optimizer, make_finetune_step)
+
+        clip_cfg = CLIPConfig.for_backbone("ViT-B/16")
+        gen = torch.Generator().manual_seed(0)
+        visual = init_clip_params(gen, clip_cfg, device="cuda")["visual"]
+        params = {"visual": visual, "head": {
+            "kernel": (torch.randn((clip_cfg.embed_dim, 10), generator=gen) * 0.01).cuda(),
+            "bias": torch.zeros(10, device="cuda")}}
+        state, _ = build_finetune_optimizer(
+            params, optim_config(NAME="adamw", LR=1e-5, STAGED_LR=True, BASE_LR_MULT=0.1,
+                                 MAX_EPOCH=2), 100)
+        ft_step = make_finetune_step(FinetuneModel(clip_cfg, torch.bfloat16, norm))
+        batch = {"image": torch.from_numpy(rng.randint(0, 256, (32, 224, 224, 3)).astype(
+                     np.uint8)).cuda(),
+                 "label": torch.from_numpy(rng.randint(0, 10, 32)).cuda()}
+
+        def step():
+            ft_step(state, {}, None, batch)
     else:
         model, backbone, pp, consts, _, clip_cfg = flagship(device="cuda", kernels="auto")
         size = 100 if args.path == "eval" else 32

@@ -123,12 +123,8 @@ def test_frozen_and_unknown_keys_raise(make, tmp_path):
 
 
 @pytest.mark.parametrize("opts,item", [
-    (["OPTIM.NAME", "adam"], "item 11"),
-    (["TRAINER.MVLPT.VPT.DROPOUT", "0.1"], "item 11"),
-    (["OPTIM.NAME", "adamw"], "item 11"),
     (["TPU.MESH_MODEL", "2"], "item 8"),
     (["TPU.MESH_DATA", "4"], "item 8"),
-    (["OPTIM.NAME", "rmsprop"], "item 11"),
     (["DATALOADER.BACKEND", "native"], "item 9"),
 ])
 def test_validate_support_names_the_roadmap_item(opts, item):
@@ -136,6 +132,23 @@ def test_validate_support_names_the_roadmap_item(opts, item):
     cfg.merge_from_list(["TRAINER.NAME", "MVLPT", "DATASET.COOP", "True"] + opts)
     with pytest.raises(NotImplementedError, match=item):
         validate_support(cfg)
+
+
+@pytest.mark.parametrize("opts", [
+    ["OPTIM.NAME", "adam"],
+    ["TRAINER.MVLPT.VPT.DROPOUT", "0.1"],
+    ["OPTIM.NAME", "adamw"],
+    ["OPTIM.NAME", "rmsprop"],
+], ids=["adam", "vpt-dropout", "adamw", "rmsprop"])
+def test_validate_support_passes_item_11(opts):
+    """The optimizers and VPT dropout of Queue 1 item 11 run: both packages
+    pass them, as they pass the flagship."""
+    cfg = get_cfg_default()
+    cfg.merge_from_list(["TRAINER.NAME", "MVLPT", "DATASET.COOP", "True"] + opts)
+    validate_support(cfg)
+    j_cfg = j_defaults()
+    j_cfg.merge_from_list(["TRAINER.NAME", "MVLPT", "DATASET.COOP", "True"] + opts)
+    j_validate(j_cfg)
 
 
 @pytest.mark.parametrize("opts", [["TRAINER.NAME", "CoCoOp"],

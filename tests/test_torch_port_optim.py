@@ -1,4 +1,4 @@
-"""The port's LR table and SGD (``device_sgd_update_``) against
+"""The port's LR table and SGD (``device_update_``) against
 mvlpt_tpu/train/optim.py (optax) on fixed gradient sequences."""
 
 import jax
@@ -13,7 +13,7 @@ from mvlpt_tpu.train.optim import build_lr_schedule as j_schedule
 from mvlpt_tpu.train.optim import build_optimizer as j_optimizer
 
 from mvlpt_torch.config import optim_config
-from mvlpt_torch.train.optim import build_device_sgd, build_lr_schedule, device_sgd_update_
+from mvlpt_torch.train.optim import build_device_optimizer, build_lr_schedule, device_update_
 
 SCHEDULES = [
     dict(LR_SCHEDULER="cosine", MAX_EPOCH=6),
@@ -71,15 +71,22 @@ def test_sgd_matches_optax_chain(opt):
         jp = optax.apply_updates(jp, updates)
 
     tp = [torch.from_numpy(params[k].copy()) for k in ("a", "b")]
-    opt_t = build_device_sgd(tp, ocfg, steps_per_epoch=2)
+    opt_t = build_device_optimizer(tp, ocfg, steps_per_epoch=2)
     for g in grads:
-        device_sgd_update_(tp, [torch.from_numpy(g[k]) for k in ("a", "b")], opt_t)
+        device_update_(tp, [torch.from_numpy(g[k]) for k in ("a", "b")], opt_t)
     for p, k in zip(tp, ("a", "b")):
         np.testing.assert_allclose(p.numpy(), np.asarray(jp[k]), atol=1e-6)
 
 
 def test_unsupported_optimizers_raise():
-    with pytest.raises(NotImplementedError):
-        build_device_sgd([torch.zeros(1)], optim_config(NAME="adam"), 1)
-    with pytest.raises(ValueError):
-        build_device_sgd([torch.zeros(1)], optim_config(SGD_DAMPNING=0.1, SGD_NESTEROV=True), 1)
+    """A name neither package knows raises ValueError in both, as does
+    dampening with nesterov; Adam, AdamW and RMSprop build (their updates
+    are held in tests/test_torch_port_optimizers.py)."""
+    for bad in (dict(NAME="lamb"), dict(SGD_DAMPNING=0.1, SGD_NESTEROV=True)):
+        with pytest.raises(ValueError):
+            build_device_optimizer([torch.zeros(1)], optim_config(**bad), 1)
+        jcfg, _ = _configs(**bad)
+        with pytest.raises(ValueError):
+            j_optimizer(jcfg, steps_per_epoch=1)
+    for name in ("adam", "adamw", "rmsprop"):
+        assert build_device_optimizer([torch.zeros(1)], optim_config(NAME=name), 1).count == 0

@@ -227,14 +227,23 @@ def test_last_step_checkpoint_val_result_is_none(env, tmp_path, monkeypatch):
 
 
 def test_trainers_the_port_lacks_raise(env, tmp_path, monkeypatch):
+    """The port has every trainer the JAX package registers: FinetuneCLIP
+    builds through the CLI; a name no package registers raises KeyError."""
     from mvlpt_torch.cli.train import build_parser, main
+    from mvlpt_torch.train.finetune import FinetuneCLIP
 
-    for name, item in (("FinetuneCLIP", "item 10"),):
-        argv = _argv(env, tmp_path / name)
-        argv[argv.index("MVLPT")] = name
-        with pytest.raises(NotImplementedError, match=item):
+    saved = sys.stdout
+    try:
+        for name, cls in (("FinetuneCLIP", FinetuneCLIP),):
+            argv = _argv(env, tmp_path / name, "--no-train")
+            argv[argv.index("MVLPT")] = name
+            assert type(main(build_parser().parse_args(argv), device="cpu")) is cls
+        argv = _argv(env, tmp_path / "nope", "--no-train")
+        argv[argv.index("MVLPT")] = "NoSuchTrainer"
+        with pytest.raises(KeyError, match="NoSuchTrainer"):
             main(build_parser().parse_args(argv), device="cpu")
-    monkeypatch.setattr(sys, "stdout", sys.stdout)
+    finally:
+        sys.stdout = saved  # the logger tees stdout into log.txt
 
 
 @pytest.mark.parametrize("path", ["train", "cached_text_eval", "zeroshot"])

@@ -79,8 +79,8 @@ def test_resume_matches_jax(env, init_dir, tmp_path, monkeypatch):
     # JAX run's momentum, before any step
     trainer = resumed["port_from_jax"][0]
     payload = j_io.load_prompt_checkpoint(j_io.checkpoint_path(str(dirs["port_from_jax"]), 1))
-    trainer.state.sgd.count.zero_()
-    for buf in trainer.state.sgd.buffers:
+    trainer.state.opt.count.zero_()
+    for buf in trainer.state.opt.slots["momentum"]:
         buf.zero_()
     trainer.resume_from_checkpoint(str(dirs["port_from_jax"]))
     assert trainer.state.step == payload["step"] == 4
@@ -89,6 +89,6 @@ def test_resume_matches_jax(env, init_dir, tmp_path, monkeypatch):
     flat_trace = _flat(trace)
     from mvlpt_torch.utils.tree import tree_keys
 
-    for k, buf in zip(tree_keys(trainer.state.prompt_params), trainer.state.sgd.buffers):
+    for k, buf in zip(tree_keys(trainer.state.prompt_params), trainer.state.opt.slots["momentum"]):
         np.testing.assert_array_equal(buf.numpy(), flat_trace[k], err_msg=k)
     assert build_trainer  # the entry the CLI uses

@@ -231,7 +231,7 @@ def test_device_sgd_matches_torch_sgd_and_optax(opt):
     from mvlpt_tpu.train.optim import build_optimizer as j_optimizer
 
     from mvlpt_torch.config import optim_config
-    from mvlpt_torch.train.optim import build_device_sgd, build_lr_schedule, device_sgd_update_
+    from mvlpt_torch.train.optim import build_device_optimizer, build_lr_schedule, device_update_
 
     ocfg = optim_config(LR=0.01, LR_SCHEDULER="cosine", MAX_EPOCH=5, **opt)
     cfg = get_cfg_default()
@@ -250,7 +250,7 @@ def test_device_sgd_matches_torch_sgd_and_optax(opt):
                           weight_decay=ocfg.WEIGHT_DECAY, nesterov=ocfg.SGD_NESTEROV)
     schedule = build_lr_schedule(ocfg, steps_per_epoch=2)
     dev = [torch.from_numpy(params[k].copy()) for k in ("a", "b")]
-    opt_dev = build_device_sgd(dev, ocfg, steps_per_epoch=2)
+    opt_dev = build_device_optimizer(dev, ocfg, steps_per_epoch=2)
     for i, g in enumerate(grads):
         updates, j_state = tx.update({k: jnp.asarray(v) for k, v in g.items()}, j_state, jp)
         jp = optax.apply_updates(jp, updates)
@@ -259,7 +259,7 @@ def test_device_sgd_matches_torch_sgd_and_optax(opt):
         for group in sgd.param_groups:
             group["lr"] = schedule(i)
         sgd.step()
-        device_sgd_update_(dev, [torch.from_numpy(g[k]) for k in ("a", "b")], opt_dev)
+        device_update_(dev, [torch.from_numpy(g[k]) for k in ("a", "b")], opt_dev)
         for p, r, k in zip(dev, ref, ("a", "b")):
             np.testing.assert_allclose(p.numpy(), r.detach().numpy(), atol=1e-6, err_msg=k)
             np.testing.assert_allclose(p.numpy(), np.asarray(jp[k]), atol=1e-6, err_msg=k)
@@ -267,13 +267,17 @@ def test_device_sgd_matches_torch_sgd_and_optax(opt):
 
 
 def test_device_sgd_refuses_what_sgd_refuses():
+    """Dampening with nesterov raises (torch.optim.SGD refuses it too); the
+    other optimizers build on the same device state, each with its slots."""
     from mvlpt_torch.config import optim_config
-    from mvlpt_torch.train.optim import build_device_sgd
+    from mvlpt_torch.train.optim import build_device_optimizer
 
-    with pytest.raises(NotImplementedError):
-        build_device_sgd([torch.zeros(1)], optim_config(NAME="adam"), 1)
+    for name, slots in (("adam", ("mu", "nu")), ("adamw", ("mu", "nu")), ("rmsprop", ("nu",))):
+        opt = build_device_optimizer([torch.zeros(1)], optim_config(NAME=name), 1)
+        assert tuple(opt.slots) == slots and int(opt.count) == 0
     with pytest.raises(ValueError):
-        build_device_sgd([torch.zeros(1)], optim_config(SGD_DAMPNING=0.1, SGD_NESTEROV=True), 1)
+        build_device_optimizer([torch.zeros(1)],
+                               optim_config(SGD_DAMPNING=0.1, SGD_NESTEROV=True), 1)
 
 
 @pytest.mark.parametrize("kw", [
