@@ -189,6 +189,20 @@
      bf16 loss within 1e-2 of fp32 on the same batch and weights, an
      --eval-only rerun's test logits bit-equal; ms/step, img/s, peak
      memory and the parameter count.
+   - The data side (PR 16). trainer_cli stages its batches through
+     ``prefetch_to_device`` (pinned ring, side stream) and prints its
+     loader-wait and staging shares beside PR 15's figures.
+     trainer_cli_native (``drive_trainer_cli_native``, after
+     trainer_cli): its data, flags and cuts on DATALOADER.BACKEND
+     "native", one epoch: the C++ core built from the checkout's sources
+     (the toolchain line: g++, the route, the libjpeg and libpng it
+     resolves), every image on its fast path, the loaders' transforms the
+     native ones, the first window's staged images and labels hashing as
+     trainer_cli's and its step-0 loss equal bit for bit, the tokenizer's
+     native BPE live. lpclip_native (``drive_lpclip_native``, after
+     lpclip): lpclip's random-RN50 extraction with a --config-file on
+     "native", every split's features bit-equal to the python run's,
+     img/s by split beside it.
 4. Prints a summary line (img/s, ms/step, MFU, peak memory), one JSON
    line of kernel numbers, then, as the last line, {"ok": true,
    "device": {...}}.
@@ -1990,28 +2004,32 @@ def write_cli_dataset(root: Path) -> Path:
 
 class _WindowProbe:
     """Stands in for ``make_train_step_multi`` in the trainer module for one
-    CLI run: makes the windowed step as it does, keeps each step made, and
-    records the metrics of each window."""
+    CLI run: makes the windowed step as it does, keeps each step made,
+    records the metrics of each window, and with ``keep_first`` keeps a
+    copy, on the card, of the first window's staged batches (``first``)."""
 
-    def __init__(self, make):
+    def __init__(self, make, keep_first: bool = False):
         self.make, self.steps, self.windows = make, [], []
+        self.keep_first, self.first = keep_first, None
 
     def __call__(self, *args, **kw):
         step = self.make(*args, **kw)
         self.steps.append(step)
 
         def call(*a, **k):
+            if self.keep_first and self.first is None:
+                self.first = {name: t.clone() for name, t in a[3].items()}
             state, metrics = step(*a, **k)
             self.windows.append(metrics)
             return state, metrics
         return call
 
 
-def _cli_run(argv: list):
+def _cli_run(argv: list, keep_first: bool = False):
     """(trainer, window probe) of one in-process run of the port's CLI."""
     from mvlpt_torch.train import trainer as trainer_mod
 
-    probe = _WindowProbe(trainer_mod.make_train_step_multi)
+    probe = _WindowProbe(trainer_mod.make_train_step_multi, keep_first)
     return _cli_probed(argv, probe), probe
 
 
@@ -2049,8 +2067,11 @@ def drive_trainer_cli() -> dict:
     bit-equal test logits and the same accuracy; the first window's
     step-0 loss within 1e-2 of an 'off' run's (one epoch, TEST.NO_TEST).
     Prints each epoch's wall time, training img/s on the host clock with
-    the loading, the share of the epoch spent waiting on the loader,
-    test() img/s and peak memory, beside the card's name and power limit."""
+    the loading, the shares of the epoch spent waiting on the loader and
+    staging batches on the card (the batches go through
+    ``prefetch_to_device``), test() img/s and peak memory, beside the
+    card's name and power limit and PR 15's figures; records the first
+    window's digest and step-0 loss for ``drive_trainer_cli_native``."""
     import PIL
     import torch
 
@@ -2073,7 +2094,7 @@ def drive_trainer_cli() -> dict:
         _build.reset_launch_counts()
         t0 = time.perf_counter()
         trainer, probe = _cli_run([*common, "--output-dir", str(out_dir / "train"), *CLI_OPTS,
-                                   "OPTIM.MAX_EPOCH", "2"])
+                                   "OPTIM.MAX_EPOCH", "2"], keep_first=True)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
@@ -2123,21 +2144,149 @@ def drive_trainer_cli() -> dict:
     if plain.train_step_multi is None or plain_probe.steps[0].captures != 1:
         raise AssertionError(f"{path}: the 'off' run did not run its windows from a graph")
 
-    epochs = trainer.timings["epochs"]
-    tests = trainer.timings["tests"]
-    out = dict(
-        path=path, card=card, decoder=f"PIL {PIL.__version__}", run_s=run_s,
-        windows=sizes, captures=steps[0].captures, replays=steps[0].replays,
-        launches={k: v for k, v in launches.items() if v},
+    out = dict(path=path, card=card, decoder=f"PIL {PIL.__version__}", run_s=run_s,
+               windows=sizes, captures=steps[0].captures, replays=steps[0].replays,
+               launches={k: v for k, v in launches.items() if v}, **_cli_timings(trainer),
+               results=results[-1], first_losses=probe.windows[0]["loss"][:4].tolist(),
+               first_loss=loss0, first_loss_off=loss0_plain, peak_mem_gib=peak,
+               first_window_sha256=_window_digest(probe.first))
+    _print_cli_timings(path, card, out)
+    print("main-path " + json.dumps(out), flush=True)
+    return out
+
+
+# PR 15's trainer_cli on the same card, its range over the final proof's
+# and the earlier runs' epochs (PERF.md §5-6): the loader-wait share and
+# the training img/s with the loading, for comparison in this run's lines.
+PR15_TRAINER_CLI = {"loader_wait_share": (0.566, 0.691), "img_per_s": (525.1, 715.7)}
+
+
+def _cli_timings(trainer) -> dict:
+    """A CLI run's epochs and test() passes from ``trainer.timings``: each
+    epoch's wall, img/s with the loading, the share of its wall waiting on
+    the loader for host batches and the share staging them on the card
+    (pinned copies, waits for a pinned buffer); test() img/s."""
+    epochs, tests = trainer.timings["epochs"], trainer.timings["tests"]
+    return dict(
         epoch_wall_s=[e["wall_s"] for e in epochs],
         train_img_per_s=[e["images"] / e["wall_s"] for e in epochs],
         loader_wait_share=[e["loader_s"] / e["wall_s"] for e in epochs],
+        staging_share=[e["stage_s"] / e["wall_s"] for e in epochs],
         test_img_per_s={f"{t['split']}{i}": t["images"] / t["wall_s"]
                         for i, t in enumerate(tests)},
         test_wall_s=[t["wall_s"] for t in tests],
-        results=results[-1], first_losses=probe.windows[0]["loss"][:4].tolist(),
-        first_loss_off=loss0_plain, peak_mem_gib=peak,
         img_per_s=sum(e["images"] for e in epochs) / sum(e["wall_s"] for e in epochs))
+
+
+def _print_cli_timings(path: str, card: str, out: dict) -> None:
+    share, rate = PR15_TRAINER_CLI["loader_wait_share"], PR15_TRAINER_CLI["img_per_s"]
+    print(f"{path} [{card}]: epochs of {', '.join(f'{s:.2f}' for s in out['epoch_wall_s'])} s, "
+          f"{', '.join(f'{r:.1f}' for r in out['train_img_per_s'])} img/s with the loading, "
+          f"loader wait {', '.join(f'{100 * s:.1f}%' for s in out['loader_wait_share'])}, "
+          f"staging {', '.join(f'{100 * s:.2f}%' for s in out['staging_share'])} of each epoch "
+          f"(PR 15's trainer_cli: loader wait {100 * share[0]:.1f}-{100 * share[1]:.1f}%, "
+          f"{rate[0]}-{rate[1]} img/s); test() "
+          f"{', '.join(f'{k} {v:.1f}' for k, v in out['test_img_per_s'].items())} img/s",
+          flush=True)
+
+
+def _window_digest(batches: dict) -> str:
+    """sha256 over a staged window's images and labels, as the host reads
+    them."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for name in ("image", "label"):
+        t = batches[name].cpu().contiguous()
+        h.update(f"{name} {t.dtype} {tuple(t.shape)}".encode())
+        h.update(t.view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def drive_trainer_cli_native(cli: dict) -> dict:
+    """trainer_cli's data, flags and cuts on DATALOADER.BACKEND "native"
+    (trainer_cli_native), one epoch and the final test: the C++ core
+    built from the checkout's sources and loaded (its toolchain printed:
+    g++, the route, the libjpeg and libpng it resolves), every image of
+    the dataset on the core's fast path (``native.probe``), the loaders'
+    transforms the native ones, the first window's staged uint8 images
+    and labels the same digest as ``cli``'s (trainer_cli's) and its step-0
+    loss equal bit for bit, and the tokenizer's native BPE core live.
+    Prints the epoch's wall, img/s with the loading, loader-wait and
+    staging shares and test() img/s, beside trainer_cli's."""
+    import torch
+
+    from mvlpt_torch import native
+    from mvlpt_torch.data.native_transform import NativeEvalTransform, NativeTrainTransform
+    from mvlpt_torch.data.zipio import read_bytes
+    from mvlpt_torch.ops import _build
+    from mvlpt_torch.tokenizer import get_tokenizer
+
+    path, card = "trainer_cli_native", card_line()
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError(f"{path}: the native core did not build: {native.error()}")
+    tool = native.toolchain()
+    build_s = time.perf_counter() - t0
+    print(f"{path} toolchain: {tool['compiler']}; route {tool['route']}; linked "
+          f"{'; '.join(tool['linked'])}; {tool['library']} ({build_s:.1f} s to build or load)",
+          flush=True)
+    if not tool["linked"] or len(tool["linked"]) < 2:
+        raise AssertionError(f"{path}: the core resolves no libjpeg/libpng: {tool}")
+    tok = get_tokenizer()
+    if tok._native is None:
+        raise AssertionError(f"{path}: the tokenizer's native BPE is off: {tok.native_error}")
+    data = write_cli_dataset(ROOT / "build" / "trainer_cli_data")
+    images = sorted((data / "oxford_pets" / "images").glob("*.jpg"))
+    off_path = [p.name for p in images if native.probe(read_bytes(str(p))) is None]
+    if len(images) != CLI_CLASSES * (CLI_SHOTS + CLI_VAL + CLI_TEST) or off_path:
+        raise AssertionError(f"{path}: {len(off_path)} of {len(images)} images off the fast "
+                             f"path: {off_path[:5]}")
+    common = ["--root", str(data), "--trainer", "MVLPT", "--dataset-coop",
+              "--dataset", "OxfordPets", "--shots", str(CLI_SHOTS), "--seed", "1",
+              "--cut-contextlen",
+              "--config-file", str(ROOT / "configs/trainers/MVLPT/vit_b16_tpu_fast.yaml")]
+    os.environ["MVLPT_TPU_RANDOM_CLIP"] = "1"
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer, probe = _cli_run([*common, "--output-dir", str(ROOT / "build" / path),
+                                   *CLI_OPTS, "OPTIM.MAX_EPOCH", "1", "DATALOADER.BACKEND",
+                                   "native"], keep_first=True)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    finally:
+        os.environ.pop("MVLPT_TPU_RANDOM_CLIP", None)
+    if set(launches) != set(cli["launches"]):
+        raise AssertionError(f"{path}: launches {launches}, trainer_cli's {cli['launches']}")
+    transforms = {name: type(getattr(trainer, name).dataset.transform).__name__
+                  for name in ("train_loader_x", "val_loader", "test_loader")}
+    if not (isinstance(trainer.train_loader_x.dataset.transform, NativeTrainTransform) and
+            isinstance(trainer.test_loader.dataset.transform, NativeEvalTransform)):
+        raise AssertionError(f"{path}: the loaders run {transforms}, not the native core")
+    digest = _window_digest(probe.first)
+    loss0 = probe.windows[0]["loss"][0].item()
+    if digest != cli["first_window_sha256"] or loss0 != cli["first_loss"]:
+        raise AssertionError(f"{path}: the first window's digest {digest} and step-0 loss "
+                             f"{loss0!r} against trainer_cli's {cli['first_window_sha256']} and "
+                             f"{cli['first_loss']!r}")
+    out = dict(path=path, card=card, run_s=run_s, launches=launches, toolchain=tool,
+               native_bpe=True,
+               transforms=transforms, images_on_fast_path=len(images),
+               first_window_sha256=digest, first_loss=loss0, **_cli_timings(trainer),
+               peak_mem_gib=_peak_gib())
+    _print_cli_timings(path, card, out)
+    print(f"{path}: the first window's staged images and labels (sha256 {digest[:16]}) and "
+          f"step-0 loss {loss0!r} equal trainer_cli's; every one of {len(images)} images on "
+          f"the core's fast path; the tokenizer's native BPE live; transforms {transforms}; "
+          f"trainer_cli's epochs {', '.join(f'{r:.1f}' for r in cli['train_img_per_s'])} img/s "
+          f"with the loading, loader wait "
+          f"{', '.join(f'{100 * s:.1f}%' for s in cli['loader_wait_share'])}", flush=True)
     print("main-path " + json.dumps(out), flush=True)
     return out
 
@@ -3424,7 +3573,7 @@ def drive_lpclip() -> dict:
             same = torch.equal(cli_rows, feats[torch.bfloat16])
             images_n = sum(counts.values())
             out[name] = dict(
-                rows=counts, wall_s=wall, extract_s=sum(dumps.seconds),
+                rows=counts, wall_s=wall, extract_s=sum(dumps.seconds), split_s=dumps.seconds,
                 img_per_s_with_loading=images_n / sum(dumps.seconds),
                 img_per_s_steady=batches.steady_img_per_s(),
                 tower_ms=med, tower_ms_spread=[lo, hi], tower_host_ms=host_ms,
@@ -3505,6 +3654,85 @@ def drive_lpclip() -> dict:
               f"{row['solver_ms']:.3f} ms of scipy's solver an iteration", flush=True)
     out["img_per_s"] = out["checkpoint"]["tower_img_per_s"]
     out["peak_mem_gib"] = max(out[n]["peak_mem_gib"] for n in envs)
+    print("main-path " + json.dumps(out), flush=True)
+    return out
+
+
+def drive_lpclip_native(lp: dict) -> dict:
+    """lpclip extract-features (lpclip_native) as ``drive_lpclip``'s random
+    RN50 run, with a --config-file that sets DATALOADER.BACKEND "native":
+    every split's features and labels equal that run's bit for bit
+    (``lp``, the python backend in this call). Prints each split's img/s
+    with the loading beside the python run's, and the transform each
+    split ran: lpclip builds the eval transform for every split
+    (INPUT.TRANSFORMS = ()), so ``data.loader.eval_mode``, which swaps
+    only a training transform (NativeTrainTransform included) for PIL's
+    EvalTransform, leaves each split on the core."""
+    import numpy as np
+    import torch
+
+    from mvlpt_torch.cli import lpclip
+    from mvlpt_torch.ops import _build
+    from mvlpt_torch.utils import pipeline
+
+    path, card = "lpclip_native", card_line()
+    data = write_cli_dataset(ROOT / "build" / "trainer_cli_data")
+    config = ROOT / "build" / "lpclip_native.yaml"
+    config.write_text('DATALOADER:\n  BACKEND: "native"\n')
+    feat_dir = ROOT / "build" / "lpclip_out" / "native" / "OxfordPets"
+    python_dir = ROOT / "build" / "lpclip_out" / "random" / "OxfordPets"
+    dump, seconds, transforms = pipeline.dump_split_features, [], []
+
+    def timed_dump(loader, dispatch, out_path):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = dump(loader, dispatch, out_path)  # eval_mode(loader) first, as the CLI's
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        transforms.append(type(loader.dataset.transform).__name__)
+        return n
+
+    os.environ["MVLPT_TPU_RANDOM_CLIP"] = "1"
+    pipeline.dump_split_features = timed_dump
+    try:
+        _free_cuda()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        lpclip.cli(["extract-features", "--root", str(data), "--dataset-coop", "--dataset",
+                    "OxfordPets", "--output-dir", str(feat_dir), "--batch-size", str(LP_BATCH),
+                    "--num-workers", "8", "--config-file", str(config)])
+        wall = time.perf_counter() - t0
+    finally:
+        pipeline.dump_split_features = dump
+        os.environ.pop("MVLPT_TPU_RANDOM_CLIP", None)
+    _launches_of(path, dict(_build.LAUNCHES), (), 0)
+    splits = ("train", "val", "test")
+    counts = _split_counts(feat_dir, RN50_SD["embed"])
+    for split in splits:
+        with np.load(feat_dir / f"{split}.npz") as a, np.load(python_dir / f"{split}.npz") as b:
+            if not (np.array_equal(a["feature_list"], b["feature_list"])
+                    and np.array_equal(a["label_list"], b["label_list"])):
+                diff = np.abs(a["feature_list"] - b["feature_list"]).max()
+                raise AssertionError(f"{path}: {split} features differ from the python "
+                                     f"backend's by up to {diff}")
+    if not all(t == "NativeEvalTransform" for t in transforms):
+        raise AssertionError(f"{path}: the splits ran {transforms}")
+    rate = {s: counts[s] / t for s, t in zip(splits, seconds)}
+    py = lp["random"]
+    py_rate = {s: lp["random"]["rows"][s] / t for s, t in zip(splits, py["split_s"])}
+    out = dict(path=path, card=card, launches={}, wall_s=wall, rows=counts, split_s=seconds,
+               img_per_s_by_split=rate, python_img_per_s_by_split=py_rate,
+               img_per_s_with_loading=sum(counts.values()) / sum(seconds),
+               python_img_per_s_with_loading=py["img_per_s_with_loading"],
+               transforms=dict(zip(splits, transforms)), features_equal_python=True)
+    print(f"{path} [{card}]: img/s with the loading by split "
+          f"{', '.join(f'{s} {rate[s]:.1f}' for s in splits)} (the python backend's run in this "
+          f"call: {', '.join(f'{s} {py_rate[s]:.1f}' for s in splits)}); "
+          f"{out['img_per_s_with_loading']:.1f} over all against "
+          f"{py['img_per_s_with_loading']:.1f}; features and labels of every split equal the "
+          f"python backend's bit for bit; transforms {out['transforms']} (lpclip builds the eval "
+          f"transform for every split, so eval_mode, which would swap a training transform for "
+          f"PIL's EvalTransform, leaves the train split on the core)", flush=True)
     print("main-path " + json.dumps(out), flush=True)
     return out
 
@@ -4234,6 +4462,7 @@ def main() -> int:
     paths = drive_paths({"visual": (32, s_img, None), "text": (rows, g * s, packed_mask)},
                         (s, g))
     paths["trainer_cli"] = drive_trainer_cli()
+    paths["trainer_cli_native"] = drive_trainer_cli_native(paths["trainer_cli"])
     paths["trainer_adamw_dropout"] = drive_trainer_adamw_dropout(
         paths.get("train_window_k120[auto]"))
     paths["debug_nans"] = drive_debug_nans()
@@ -4244,6 +4473,7 @@ def main() -> int:
     paths.update(drive_trainer_elevater())
     paths.update(drive_trainer_cocoop())
     paths["lpclip"] = drive_lpclip()
+    paths["lpclip_native"] = drive_lpclip_native(paths["lpclip"])
     paths["extract_features"] = drive_extract_features()
 
     summary = {"card": card_line()}

@@ -14,8 +14,10 @@ A ModifiedResNet checkpoint (no ``visual.proj``) converts through
 ``core/resnet.py``'s schema, conv kernels kept (O, I, KH, KW) in
 channels_last memory, and its text tower converts as a ViT's does.
 
-``load_clip`` reads a local file only: nothing here fetches a file. The
-HuggingFace converter is not ported yet.
+``convert_hf_clip`` converts a transformers ``CLIPModel`` (q, k and v
+projections concatenated into the fused qkv kernel). ``load_clip``
+reads a local file, or an OpenAI model name from the local cache
+(``find_cached_clip``, sha256-checked): nothing here fetches a file.
 """
 
 from __future__ import annotations
@@ -160,6 +162,89 @@ def convert_openai_state_dict(sd: dict, dtype=torch.float32, device="cuda"):
     return _to_device(params, dtype, device), cfg
 
 
+def _stack_hf_blocks(sd: dict, prefix: str, n_layers: int) -> dict:
+    """``prefix.layers.{i}.*`` of a transformers CLIP tower -> the stacked
+    block tree of ``core.clip.init_block_stack`` (numpy, kernels (in, out),
+    q, k and v concatenated in that order)."""
+    def g(i, name):
+        return _np(sd[f"{prefix}.layers.{i}.{name}"])
+
+    def stack(fn):
+        return np.stack([fn(i) for i in range(n_layers)])
+
+    return {
+        "ln_1": {"scale": stack(lambda i: g(i, "layer_norm1.weight")),
+                 "bias": stack(lambda i: g(i, "layer_norm1.bias"))},
+        "attn": {
+            "qkv_w": stack(lambda i: np.concatenate(
+                [g(i, f"self_attn.{p}_proj.weight").T for p in ("q", "k", "v")], axis=1)),
+            "qkv_b": stack(lambda i: np.concatenate(
+                [g(i, f"self_attn.{p}_proj.bias") for p in ("q", "k", "v")])),
+            "out_w": stack(lambda i: g(i, "self_attn.out_proj.weight").T),
+            "out_b": stack(lambda i: g(i, "self_attn.out_proj.bias")),
+        },
+        "ln_2": {"scale": stack(lambda i: g(i, "layer_norm2.weight")),
+                 "bias": stack(lambda i: g(i, "layer_norm2.bias"))},
+        "mlp": {
+            "fc_w": stack(lambda i: g(i, "mlp.fc1.weight").T),
+            "fc_b": stack(lambda i: g(i, "mlp.fc1.bias")),
+            "proj_w": stack(lambda i: g(i, "mlp.fc2.weight").T),
+            "proj_b": stack(lambda i: g(i, "mlp.fc2.bias")),
+        },
+    }
+
+
+def convert_hf_clip(model_or_sd, dtype=torch.float32, device="cuda"):
+    """A transformers ``CLIPModel`` -> (backbone, CLIPConfig), the
+    counterpart of ``mvlpt_tpu/checkpoint/convert.py:convert_hf_clip``:
+    the backbone on ``device`` (the card unless the caller asks for the
+    CPU) in ``dtype``, ``logit_scale`` fp32. As there, only a model
+    instance is taken (its config names the shapes)."""
+    if not hasattr(model_or_sd, "state_dict"):
+        raise TypeError("pass a transformers CLIPModel instance")
+    device = resolve_device(device)
+    hf_cfg = model_or_sd.config
+    sd = model_or_sd.state_dict()
+    v, t = hf_cfg.vision_config, hf_cfg.text_config
+    cfg = CLIPConfig(
+        embed_dim=hf_cfg.projection_dim,
+        image_resolution=v.image_size,
+        vision_layers=v.num_hidden_layers,
+        vision_width=v.hidden_size,
+        vision_patch_size=v.patch_size,
+        context_length=t.max_position_embeddings,
+        vocab_size=t.vocab_size,
+        transformer_width=t.hidden_size,
+        transformer_heads=t.num_attention_heads,
+        transformer_layers=t.num_hidden_layers,
+        vision_heads_override=v.num_attention_heads,
+    )
+    conv = _np(sd["vision_model.embeddings.patch_embedding.weight"])
+    params = {
+        "visual": {
+            "patch_embed": {"kernel": conv.transpose(2, 3, 1, 0).reshape(-1, conv.shape[0])},
+            "class_embedding": _np(sd["vision_model.embeddings.class_embedding"]),
+            "pos_embedding": _np(sd["vision_model.embeddings.position_embedding.weight"]),
+            "ln_pre": {"scale": _np(sd["vision_model.pre_layrnorm.weight"]),
+                       "bias": _np(sd["vision_model.pre_layrnorm.bias"])},
+            "blocks": _stack_hf_blocks(sd, "vision_model.encoder", cfg.vision_layers),
+            "ln_post": {"scale": _np(sd["vision_model.post_layernorm.weight"]),
+                        "bias": _np(sd["vision_model.post_layernorm.bias"])},
+            "proj": _np(sd["visual_projection.weight"]).T,
+        },
+        "text": {
+            "token_embedding": _np(sd["text_model.embeddings.token_embedding.weight"]),
+            "pos_embedding": _np(sd["text_model.embeddings.position_embedding.weight"]),
+            "blocks": _stack_hf_blocks(sd, "text_model.encoder", cfg.transformer_layers),
+            "ln_final": {"scale": _np(sd["text_model.final_layer_norm.weight"]),
+                         "bias": _np(sd["text_model.final_layer_norm.bias"])},
+            "text_projection": _np(sd["text_projection.weight"]).T,
+        },
+        "logit_scale": _np(sd["logit_scale"]),
+    }
+    return _to_device(params, dtype, device), cfg
+
+
 def _bn_params(sd: dict, prefix: str) -> dict:
     return {"scale": _np(sd[f"{prefix}.weight"]), "bias": _np(sd[f"{prefix}.bias"]),
             "mean": _np(sd[f"{prefix}.running_mean"]), "var": _np(sd[f"{prefix}.running_var"])}
@@ -217,12 +302,17 @@ def convert_openai_rn_state_dict(sd: dict, dtype=torch.float32, device="cuda"):
     return params, rn_cfg, text_cfg
 
 
-def load_clip(path: str, dtype=torch.float32, device="cuda"):
-    """(backbone, config) from a local OpenAI CLIP ``.pt`` file: a
-    TorchScript archive or a plain state_dict (under ``state_dict`` or
-    bare). A ViT gives its ``CLIPConfig``, a ModifiedResNet (no
-    ``visual.proj``) its ``RNConfig``, as the JAX package's does. Nothing
-    is fetched: a model name or a missing file raises."""
+def load_clip(name_or_path: str, dtype=torch.float32, device="cuda"):
+    """(backbone, config) from an OpenAI CLIP ``.pt`` file: a TorchScript
+    archive or a plain state_dict (under ``state_dict`` or bare), given by
+    its path or by its OpenAI model name (``find_cached_clip``: the local
+    cache, sha256-checked). A ViT gives its ``CLIPConfig``, a
+    ModifiedResNet (no ``visual.proj``) its ``RNConfig``, as the JAX
+    package's does. Nothing is fetched: where the JAX package would
+    download a named model, and for a missing file, this raises."""
+    path = name_or_path
+    if name_or_path in {**OPENAI_RN_FILES, **OPENAI_VIT_FILES}:
+        path = find_cached_clip(name_or_path)
     if not os.path.isfile(path):
         raise FileNotFoundError(f"no CLIP checkpoint at {path!r}; give the path of a local "
                                 "OpenAI .pt file (nothing is downloaded)")
@@ -270,8 +360,9 @@ def find_cached_clip(name: str, root: str | None = None) -> str:
     path = os.path.join(root or os.path.expanduser("~/.cache/clip"), fname)
     if not os.path.isfile(path):
         raise FileNotFoundError(
-            f"{name}: no checkpoint at {path!r}. The port downloads nothing: put the OpenAI "
-            f"file there, or name a local file with MVLPT_TPU_CLIP_CKPT")
+            f"{name}: no checkpoint at {path!r}, and nothing is downloaded (the port downloads "
+            "nothing where the JAX package would fetch the file): put the OpenAI file there, "
+            "or name a local file with MVLPT_TPU_CLIP_CKPT")
     digest = hashlib.sha256()
     with open(path, "rb") as f:
         for chunk in iter(lambda: f.read(1 << 20), b""):

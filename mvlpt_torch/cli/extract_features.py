@@ -60,6 +60,7 @@ def cli(argv=None, device="cuda"):
 
     from mvlpt_torch.config import get_cfg_default
     from mvlpt_torch.data.elevater import first_classname, template_map
+    from mvlpt_torch.data.loader import DeviceStager
     from mvlpt_torch.data.managers import build_data_manager
     from mvlpt_torch.models.zsclip import encode_class_text_features, make_image_encoder
     from mvlpt_torch.train.trainer import load_clip_backbone
@@ -87,12 +88,13 @@ def cli(argv=None, device="cuda"):
     dm = build_data_manager(cfg, strict_classnames=True)
 
     os.makedirs(args.output_dir, exist_ok=True)
+    stage = DeviceStager(device)
     for split, loader in (("train", dm.train_loader_x), ("val", dm.val_loader),
                           ("test", dm.test_loader)):
         if loader is None:
             continue
         n = dump_split_features(
-            loader, lambda b: encode(backbone, torch.from_numpy(b["image"]).to(device)),
+            loader, lambda b: encode(backbone, stage({"image": b["image"]})["image"]),
             os.path.join(args.output_dir, f"{split}.npz"))
         print(f"{split}: {n} image features")
 

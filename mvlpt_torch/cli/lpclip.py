@@ -38,6 +38,7 @@ def extract_features(args, device="cuda"):
 
     from mvlpt_torch.config import get_cfg_default
     from mvlpt_torch.core import clip as clip_core
+    from mvlpt_torch.data.loader import DeviceStager
     from mvlpt_torch.data.managers import build_data_manager
     from mvlpt_torch.data.transforms import device_normalize
     from mvlpt_torch.train.trainer import load_clip_backbone
@@ -72,12 +73,13 @@ def extract_features(args, device="cuda"):
 
     os.makedirs(args.output_dir, exist_ok=True)
     splits = {"train": dm.train_loader_x, "val": dm.val_loader, "test": dm.test_loader}
+    stage = DeviceStager(device)
     for split, loader in splits.items():
         if loader is None:
             continue
         path = os.path.join(args.output_dir, f"{split}.npz")
         n = dump_split_features(
-            loader, lambda b: encode(torch.from_numpy(b["image"]).to(device)), path)
+            loader, lambda b: encode(stage({"image": b["image"]})["image"]), path)
         print(f"{split}: {n} features -> {path}")
 
 

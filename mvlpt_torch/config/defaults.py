@@ -36,8 +36,8 @@ def get_cfg_default() -> CN:
 
     # ------------------------------------------------------------- dataloader
     cfg.DATALOADER = CN()
-    # "python" (PIL threads) | "tf" (tf.data) | "native" (C++ decode/
-    # resample core, bit-identical to "python" — mvlpt_tpu/native/)
+    # "python" (PIL threads) | "tf" (tf.data; refused) | "native" (C++
+    # decode/resample core, bit-identical to "python": mvlpt_torch/native/)
     cfg.DATALOADER.BACKEND = "python"
     # native backend only: decode JPEGs at the smallest M/8 DCT scale
     # covering the output (large-photo speedup; not bit-identical)
@@ -229,8 +229,9 @@ def validate_support(cfg) -> None:
 
     As in the JAX package: the Dassl DataLoader features MVLPT never
     exercises. Besides, what the port has not ported yet, each naming
-    its ROADMAP.md item: a mesh of more than one device, and the data
-    backends other than "python"."""
+    its ROADMAP.md item: a mesh of more than one device, and the "tf"
+    data backend (``data/tfdata.py`` imports TensorFlow, which the port
+    does not use)."""
     problems = []
     if cfg.DATALOADER.K_TRANSFORMS != 1:
         problems.append("DATALOADER.K_TRANSFORMS != 1 (multi-view "
@@ -256,8 +257,8 @@ def validate_support(cfg) -> None:
     if cfg.TPU.MESH_DATA not in (-1, 1) or cfg.TPU.MESH_MODEL != 1:
         missing.append(f"TPU.MESH_DATA/MESH_MODEL {mesh}: the trainer runs on one "
                        "device (ROADMAP.md Queue 1, item 8)")
-    if cfg.DATALOADER.BACKEND != "python":
-        missing.append(f"DATALOADER.BACKEND {cfg.DATALOADER.BACKEND!r}: only 'python' "
-                       "(ROADMAP.md Queue 1, item 9)")
+    if cfg.DATALOADER.BACKEND not in ("python", "native"):
+        missing.append(f"DATALOADER.BACKEND {cfg.DATALOADER.BACKEND!r}: only 'python' and "
+                       "'native' (ROADMAP.md Queue 1: data/tfdata.py is not ported)")
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))

@@ -1,26 +1,32 @@
 """Host input pipeline: threaded decode/transform workers feeding
-fixed-shape numpy batches.
+fixed-shape numpy batches, and their staging on the device.
 
 The counterpart of ``mvlpt_tpu/data/loader.py`` (the reference's torch
 DataLoader + Dassl DatasetWrapper, mvlpt.py:661-720): seeded shuffling,
-worker threads for JPEG decode and PIL transforms (PIL releases the GIL
-for the heavy ops), static batch shapes (train loaders drop the tail,
-eval loaders pad the tail batch and report the pad so metrics can mask
-it). Batches are numpy; the trainer stages them on the device. The JAX
-package's multi-host row sharding and its ``prefetch_to_device`` are
-not ported (ROADMAP.md Queue 1, items 7-8).
+worker threads for JPEG decode and PIL transforms (PIL and the native
+core release the GIL for the heavy ops), static batch shapes (train
+loaders drop the tail, eval loaders pad the tail batch and report the
+pad so metrics can mask it). Batches are numpy. ``DeviceStager`` and
+``prefetch_to_device`` put them on the device: pinned host buffers from
+a ring, copied without blocking on a side stream, PyTorch's form of the
+JAX package's asynchronous ``jax.device_put``. The JAX package's
+multi-host row sharding is not ported (ROADMAP.md Queue 1, item 8).
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures as cf
 import random
+import time
 from typing import Callable, Iterator, Sequence
 
 import numpy as np
+import torch
 from PIL import Image
 
 from mvlpt_torch.data.datum import Datum
+from mvlpt_torch.utils.device import resolve_device
 
 
 def _load_image(impath: str) -> Image.Image:
@@ -57,7 +63,13 @@ class _TransformedDataset:
 
     def __getitem__(self, idx: int, rng: random.Random | None = None):
         d = self.items[idx]
-        img = _load_image(d.impath)
+        if getattr(self.transform, "wants_bytes", False):
+            # native backend: raw encoded bytes to the C core
+            from mvlpt_torch.data.zipio import read_bytes
+
+            img = read_bytes(d.impath)
+        else:
+            img = _load_image(d.impath)
         if rng is not None and self._transform_takes_rng():
             img = self.transform(img, rng=rng)
         else:
@@ -167,7 +179,10 @@ def build_data_loader(cfg, data_source, batch_size, tfm, is_train: bool,
 def eval_mode(loader):
     """Switch a loader to a deterministic full pass (no shuffle, no
     augmentation, keep tail batches), for feature extraction over loaders
-    built for training."""
+    built for training. A training transform, ``NativeTrainTransform``
+    too, becomes a plain (PIL) ``EvalTransform``, as in the JAX package:
+    a train split extracted this way decodes through PIL whatever
+    DATALOADER.BACKEND says."""
     loader.shuffle = False
     loader.drop_last = False
     # Swap a training transform for its eval counterpart so the "no
@@ -181,3 +196,126 @@ def eval_mode(loader):
             size=tfm.size, interpolation=tfm.interpolation, mean=tfm.mean,
             std=tfm.std, to_uint8=tfm.to_uint8)
     return loader
+
+
+class _Staged:
+    """One batch on its way to the device: the device tensors, the event
+    its copies recorded on the side stream (None on the CPU), and the
+    values that stay on the host."""
+
+    __slots__ = ("tensors", "event", "host")
+
+    def __init__(self, tensors: dict, event, host: dict):
+        self.tensors, self.event, self.host = tensors, event, host
+
+
+class DeviceStager:
+    """Stages host batches on ``device`` (the card unless the caller asks
+    for the CPU).
+
+    On the card each array is copied into a pinned host buffer, then to
+    a new device tensor with ``non_blocking=True`` on a side stream,
+    which records an event. ``ready`` makes the consuming (current)
+    stream wait on that event before first use and records the tensors
+    on it (``Tensor.record_stream``), so the caching allocator cannot
+    hand their memory back while the consumer's work is queued. The
+    pinned buffers come from a ring of ``depth`` a (shape, dtype); a
+    buffer is reused only after the event of the copy that last read it
+    has completed (``cudaHostAlloc`` costs milliseconds, so a buffer is
+    never allocated a batch). ``host_s`` adds up the host's time in
+    ``stage``: the copies into pinned memory and the waits for a
+    buffer. On the CPU the arrays become tensors with the same values.
+
+    Numpy arrays and tensors are staged, each keeping its dtype; any
+    other value (``n_valid``, Python numbers) stays on the host."""
+
+    def __init__(self, device=None, depth: int = 3):
+        self.device = resolve_device(device)
+        self.depth = max(1, int(depth))
+        self.stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+                       else None)
+        self._ring: dict[tuple, collections.deque] = {}
+        self.host_s = 0.0
+
+    def _pinned(self, arr: np.ndarray, taken: list) -> tuple[torch.Tensor, list]:
+        """A pinned buffer holding ``arr`` and the slot of its ring entry,
+        whose event the caller sets after the copy it enqueues; never one
+        of ``taken``, the slots of the batch being staged."""
+        ring = self._ring.setdefault((arr.shape, arr.dtype.str), collections.deque())
+        if len(ring) >= self.depth and not any(ring[0] is s for s in taken):
+            slot = ring.popleft()
+            if slot[1] is not None:
+                slot[1].synchronize()  # the copy that last read it is done
+        else:
+            dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
+            slot = [torch.empty(arr.shape, dtype=dtype, pin_memory=True), None]
+        ring.append(slot)
+        taken.append(slot)
+        np.copyto(slot[0].numpy(), arr, casting="no")
+        return slot[0], slot
+
+    def stage(self, batch: dict) -> _Staged:
+        """Enqueue ``batch``'s copies; ``ready`` hands it to the consumer."""
+        arrays = {k: v for k, v in batch.items() if isinstance(v, (np.ndarray, torch.Tensor))}
+        host = {k: v for k, v in batch.items() if k not in arrays}
+        if self.stream is None:
+            return _Staged({k: torch.as_tensor(v).to(self.device) for k, v in arrays.items()},
+                           None, host)
+        t0 = time.perf_counter()
+        pinned, taken = {}, []
+        for k, v in arrays.items():
+            if isinstance(v, torch.Tensor):
+                v = v.detach().cpu().numpy()
+            pinned[k] = self._pinned(np.ascontiguousarray(v), taken)
+        self.host_s += time.perf_counter() - t0
+        out = {}
+        with torch.cuda.stream(self.stream):
+            for k, (buf, _) in pinned.items():
+                out[k] = buf.to(self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        for _, slot in pinned.values():
+            slot[1] = event
+        return _Staged(out, event, host)
+
+    def ready(self, staged: _Staged) -> dict:
+        """The staged batch, safe to use on the current stream."""
+        if staged.event is not None:
+            consumer = torch.cuda.current_stream(self.device)
+            consumer.wait_event(staged.event)
+            for t in staged.tensors.values():
+                t.record_stream(consumer)
+        return {**staged.tensors, **staged.host}
+
+    def __call__(self, batch: dict) -> dict:
+        """``batch`` on the device, for use on the current stream now."""
+        return self.ready(self.stage(batch))
+
+
+def prefetch_to_device(iterator, size: int = 2, device=None, sharding=None,
+                       stager: DeviceStager | None = None):
+    """Keep ``size`` batches of ``iterator`` staged ahead on ``device``
+    (the card unless the caller asks for the CPU) and yield them in order,
+    the counterpart of ``mvlpt_tpu/data/loader.py:prefetch_to_device``.
+    ``n_valid`` stays a host int; every array keeps its dtype (uint8
+    images stay uint8 under TPU.DEVICE_NORMALIZE). ``stager`` (a
+    ``DeviceStager`` on ``device``) keeps its pinned ring across calls;
+    by default each call makes its own. A ``sharding`` raises: the port
+    runs on one device (ROADMAP.md Queue 1, item 8)."""
+    if sharding is not None:
+        raise NotImplementedError("prefetch_to_device with a sharding is not ported yet: the "
+                                  "port stages on one device (ROADMAP.md Queue 1, item 8)")
+    stager = stager or DeviceStager(device, depth=size + 1)
+    queue = collections.deque()
+    it = iter(iterator)
+    for batch in it:
+        queue.append(stager.stage(batch))
+        if len(queue) >= size:
+            break
+    while queue:
+        out = queue.popleft()
+        try:
+            queue.append(stager.stage(next(it)))
+        except StopIteration:
+            pass
+        yield stager.ready(out)

@@ -15,8 +15,8 @@ The counterpart of ``mvlpt_tpu/data/managers.py``:
     (feature.py:782-862): merged manifests, global contiguous class ids,
     k-hot targets over the global class space, a task id on every item.
 
-Only the "python" DATALOADER.BACKEND is ported (ROADMAP.md Queue 1,
-item 9).
+DATALOADER.BACKEND "python" and "native" run; "tf" raises (ROADMAP.md
+Queue 1: data/tfdata.py is not ported).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from mvlpt_torch.data import transforms as T
 from mvlpt_torch.data.coop import datasets as coop_datasets  # noqa: F401  (registers loaders)
 from mvlpt_torch.data.elevater import manifest as ev
 from mvlpt_torch.data.loader import DataLoader, _load_image, build_data_loader
+from mvlpt_torch.data.zipio import read_bytes
 from mvlpt_torch.evaluation.metrics import get_metric
 from mvlpt_torch.utils.registry import DATASET_REGISTRY
 
@@ -112,24 +113,29 @@ class _ElevaterDataset:
 
     def __getitem__(self, idx):
         it = self.items[idx]
-        return self.transform(_load_image(it.impath)), self.target_fn(it), it.task_id
+        if getattr(self.transform, "wants_bytes", False):
+            # native backend: raw encoded bytes to the C core
+            img = self.transform(read_bytes(it.impath))
+        else:
+            img = self.transform(_load_image(it.impath))
+        return img, self.target_fn(it), it.task_id
 
 
 def _elevater_transform(cfg):
     """ELEVATER preprocessing: Resize+CenterCrop when DATASET.CENTER_CROP
     else a plain warp; no train-time augmentation (feature.py:539-553).
-    Only the "python" DATALOADER.BACKEND is ported."""
-    if cfg.DATALOADER.BACKEND != "python":
-        raise NotImplementedError(
-            f"DATALOADER.BACKEND {cfg.DATALOADER.BACKEND!r} is not ported (ROADMAP.md "
-            "Queue 1, item 9); use 'python'")
+    On DATALOADER.BACKEND "native" the C++ core runs it."""
     size = cfg.INPUT.SIZE if not isinstance(cfg.INPUT.SIZE, int) else (
         cfg.INPUT.SIZE, cfg.INPUT.SIZE)
-    return T.EvalTransform(
+    _, eval_cls = T._transform_classes(cfg)
+    kw = {}
+    if cfg.DATALOADER.BACKEND == "native":
+        kw["fast_jpeg"] = bool(cfg.DATALOADER.NATIVE_FAST_JPEG)
+    return eval_cls(
         size=tuple(size), interpolation="bicubic",
         mean=tuple(cfg.INPUT.PIXEL_MEAN), std=tuple(cfg.INPUT.PIXEL_STD),
         center_crop_mode=bool(cfg.DATASET.CENTER_CROP),
-        to_uint8=bool(cfg.TPU.DEVICE_NORMALIZE))
+        to_uint8=bool(cfg.TPU.DEVICE_NORMALIZE), **kw)
 
 
 def _make_loader(cfg, items, transform, target_fn, batch_size, shuffle, multitask):

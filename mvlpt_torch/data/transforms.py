@@ -14,8 +14,9 @@ calls, so the arrays are the JAX package's bit for bit:
     Resize((H, W)) warp.
 
 Outputs are HWC float32, or HWC uint8 with ``to_uint8``
-(TPU.DEVICE_NORMALIZE), which the steps normalise on the device. The
-JAX package's native C++ backend is not ported.
+(TPU.DEVICE_NORMALIZE), which the steps normalise on the device.
+DATALOADER.BACKEND "native" swaps in ``data/native_transform.py``'s
+subclasses, which run the same geometry on the C++ core.
 """
 
 from __future__ import annotations
@@ -173,19 +174,40 @@ class TrainTransform:
         return _to_array(img, self.mean, self.std, self.to_uint8)
 
 
+def _transform_classes(cfg):
+    """(train_cls, eval_cls) for the configured DATALOADER.BACKEND.
+    "native" selects the C++ decode and resample core (bit-identical
+    outputs; data/native_transform.py) and raises when it cannot build."""
+    backend = cfg.DATALOADER.BACKEND
+    if backend not in ("python", "native"):
+        raise NotImplementedError(
+            f"DATALOADER.BACKEND {backend!r}: only 'python' and 'native' (ROADMAP.md Queue 1: "
+            "data/tfdata.py is not ported)")
+    if backend == "python":
+        return TrainTransform, EvalTransform
+    from mvlpt_torch import native
+    from mvlpt_torch.data import native_transform as NT
+
+    if not native.available():
+        raise RuntimeError(
+            "DATALOADER.BACKEND 'native' requested but the C++ imagepipe could not be "
+            "built or loaded on this host (needs g++, libjpeg, libpng). Use BACKEND "
+            f"'python' or fix the toolchain.\n{native.error()}")
+    return NT.NativeTrainTransform, NT.NativeEvalTransform
+
+
 def build_transform(cfg, is_train: bool):
     """Transform factory from an INPUT config subtree (Dassl
-    build_transform, the reference's mvlpt.py:650-658). Only the
-    "python" DATALOADER.BACKEND is ported (``config.validate_support``)."""
-    if cfg.DATALOADER.BACKEND != "python":
-        raise NotImplementedError(
-            f"DATALOADER.BACKEND {cfg.DATALOADER.BACKEND!r} is not ported (ROADMAP.md "
-            "Queue 1, item 9); use 'python'")
+    build_transform, the reference's mvlpt.py:650-658), on the "python"
+    or the "native" DATALOADER.BACKEND ("tf" raises)."""
     size = tuple(cfg.INPUT.SIZE) if not isinstance(cfg.INPUT.SIZE, int) else (
         cfg.INPUT.SIZE, cfg.INPUT.SIZE)
+    train_cls, eval_cls = _transform_classes(cfg)
     kw = dict(interpolation=cfg.INPUT.INTERPOLATION, mean=tuple(cfg.INPUT.PIXEL_MEAN),
               std=tuple(cfg.INPUT.PIXEL_STD), to_uint8=bool(cfg.TPU.DEVICE_NORMALIZE))
+    if cfg.DATALOADER.BACKEND == "native":
+        kw["fast_jpeg"] = bool(cfg.DATALOADER.NATIVE_FAST_JPEG)
     if is_train and not cfg.INPUT.NO_TRANSFORM and (
             "random_resized_crop" in cfg.INPUT.TRANSFORMS):
-        return TrainTransform(size=size[0], scale=tuple(cfg.INPUT.RRCROP_SCALE), **kw)
-    return EvalTransform(size=size[0], **kw)
+        return train_cls(size=size[0], scale=tuple(cfg.INPUT.RRCROP_SCALE), **kw)
+    return eval_cls(size=size[0], **kw)

@@ -24,6 +24,7 @@ from mvlpt_torch.core import clip as clip_core
 from mvlpt_torch.core import vit as vit_mod
 from mvlpt_torch.core.clip import CLIPConfig
 from mvlpt_torch.core.resnet import RNConfig
+from mvlpt_torch.data.loader import DeviceStager
 from mvlpt_torch.data.transforms import device_normalize
 from mvlpt_torch.data.elevater import load_metadata, template_map
 from mvlpt_torch.evaluation import ClassificationEvaluator
@@ -162,6 +163,7 @@ class _ZeroshotBase:
 
         self.cfg = cfg
         self.device = resolve_device(device)
+        self._stager = DeviceStager(self.device)
         self.dm = build_data_manager(cfg)
         self.test_loader = self.dm.test_loader
         self.timings = {"tests": []}
@@ -178,7 +180,7 @@ class _ZeroshotBase:
         raise NotImplementedError
 
     def model_inference(self, images) -> torch.Tensor:
-        images = torch.from_numpy(np.asarray(images)).to(self.device)
+        images = self._stager({"image": np.asarray(images)})["image"]
         return self._infer(self.backbone, self.text_features, images)
 
     def train(self):

@@ -12,7 +12,7 @@ zero-padded to ``context_length``. This is the port's own copy of
     construction. Elsewhere it can differ only where Python's Unicode
     database and the ``regex`` package's disagree on a character's
     category, since each follows its own Unicode version.
-  * No native fast path and no download function.
+  * No download function.
   * ``write_synthetic_vocab`` writes a merges file of the real file's
     size (a header plus 48,894 unique merges) built from pairs of
     byte-unicode symbols, so that hosts without the real
@@ -171,6 +171,27 @@ class ClipBpeTokenizer:
         self._cache: dict[str, str] = {SOT_TEXT: SOT_TEXT, EOT_TEXT: EOT_TEXT}
         self._word_pat = _word_pattern()
 
+        # The native core (native/bpetok.cpp) for cleaned lowercase ASCII,
+        # every benchmark classname and template: ids bit-identical to the
+        # Python path, which runs everything else. As in the JAX package,
+        # a host that cannot build it takes the Python path quietly
+        # (``native_error`` says why); MVLPT_TPU_NO_NATIVE_BPE opts out.
+        self._native = None
+        self.native_error: str | None = "MVLPT_TPU_NO_NATIVE_BPE is set"
+        if not os.environ.get("MVLPT_TPU_NO_NATIVE_BPE"):
+            from mvlpt_torch import native
+
+            try:
+                core = native.NativeBpe(raw.encode("utf-8"))
+            except (native.NativeUnavailable, OSError) as e:
+                self.native_error = str(e)
+            else:
+                if (core.sot, core.eot) == (self.sot_token, self.eot_token):
+                    self._native, self.native_error = core, None
+                else:
+                    self.native_error = (f"native specials {(core.sot, core.eot)} differ from "
+                                         f"{(self.sot_token, self.eot_token)}")
+
     @property
     def sot_token(self) -> int:
         return self.encoder[SOT_TEXT]
@@ -210,6 +231,10 @@ class ClipBpeTokenizer:
     def encode(self, text: str) -> list[int]:
         ids: list[int] = []
         text = _clean_text(text).lower()
+        if self._native is not None and text.isascii():
+            native_ids = self._native.encode(text)
+            if native_ids is not None:
+                return native_ids
         for word in self._word_pat.findall(text):
             word = "".join(self._byte_enc[b] for b in word.encode("utf-8"))
             ids.extend(self.encoder[t] for t in self._apply_bpe(word).split(" "))

@@ -47,6 +47,7 @@ from mvlpt_torch.checkpoint import prompt_io
 from mvlpt_torch.core import clip as clip_core
 from mvlpt_torch.core.clip import CLIPConfig
 from mvlpt_torch.core.resnet import RN_ARCHS, RNConfig, init_rn_params
+from mvlpt_torch.data.loader import DeviceStager, prefetch_to_device
 from mvlpt_torch.data.managers import build_data_manager
 from mvlpt_torch.evaluation import ClassificationEvaluator
 from mvlpt_torch.models.custom_clip import MVLPTModel, TaskClassRanges
@@ -208,7 +209,14 @@ class PromptTrainer:
 
     ``timings`` records what the host clock saw: each epoch's wall time
     (ending in a device synchronize), the part of it spent waiting on the
-    loader, and its images; each test() pass's wall time and images."""
+    loader for host batches (``loader_s``), the part spent staging them
+    on the device (``stage_s``: copies into pinned memory and waits for
+    a pinned buffer), and its images; each test() pass's wall time and
+    images.
+
+    Batches reach the device through one ``DeviceStager`` (pinned host
+    buffers, copies on a side stream): train batches through
+    ``prefetch_to_device``, eval batches in ``model_inference``."""
 
     trainer_cfg_key = "MVLPT"
 
@@ -222,6 +230,7 @@ class PromptTrainer:
         self.max_epoch = cfg.OPTIM.MAX_EPOCH
         self.best_result = -np.inf
         self.timings = {"epochs": [], "tests": []}
+        self._stager = DeviceStager(self.device)
 
         self.multi_task = cfg.DATASET.MULTITASK
         self.build_data_loader()
@@ -337,9 +346,12 @@ class PromptTrainer:
         return init_train_state(params, self.cfg.OPTIM, self.steps_per_epoch)
 
     def _device_batch(self, batch: dict) -> dict:
-        """One host batch on the device (tasks as int64 indices)."""
-        out = {k: torch.from_numpy(np.asarray(batch[k])).to(self.device)
-               for k in ("image", "label", "task") if k in batch}
+        """One batch on the device (tasks as int64 indices): a host batch
+        through the stager, a staged one (``prefetch_to_device``) as it is."""
+        keys = [k for k in ("image", "label", "task") if k in batch]
+        if not all(isinstance(batch[k], torch.Tensor) for k in keys):
+            batch = self._stager({k: batch[k] for k in keys})
+        out = {k: batch[k] for k in keys}
         if "task" in out:
             out["task"] = out["task"].long()
         return out
@@ -362,8 +374,9 @@ class PromptTrainer:
         print(f"Elapsed: {datetime.timedelta(seconds=elapsed)}")
 
     def _timed_batches(self, record: dict):
-        """The train loader's batches, adding the host's wait for each to
-        ``record``."""
+        """The train loader's host batches, adding the host's wait for each
+        to ``record``; a multitask batch carries its count of distinct
+        tasks (``num_tasks``, a host int, read before staging)."""
         it = iter(self.train_loader_x)
         while True:
             t0 = time.perf_counter()
@@ -374,6 +387,8 @@ class PromptTrainer:
                 return
             record["loader_s"] += time.perf_counter() - t0
             record["images"] += len(batch["image"])
+            if "task" in batch:
+                batch["num_tasks"] = len(set(batch["task"].tolist()))
             yield batch
 
     def _dispatch_window(self) -> int:
@@ -382,18 +397,19 @@ class PromptTrainer:
 
     def run_epoch(self):
         record = {"epoch": self.epoch + 1, "loader_s": 0.0, "images": 0}
-        t0 = time.perf_counter()
+        t0, stage0 = time.perf_counter(), self._stager.host_s
         # The epoch's dropout seed, as the JAX trainer's PRNGKey: written
         # into the state's tensor, which a captured window reads.
         self.state.seed.fill_(max(self.cfg.SEED, 0) * 131 + self.epoch)
         window = self._dispatch_window()
-        batches = self._timed_batches(record)
+        batches = prefetch_to_device(self._timed_batches(record), stager=self._stager)
         if window > 1:
             self._run_epoch_windowed(window, batches)
         else:
             self._run_epoch_plain(batches)
         self._sync()
         record["wall_s"] = time.perf_counter() - t0
+        record["stage_s"] = self._stager.host_s - stage0
         self.timings["epochs"].append(record)
 
     def _print_progress(self, done: int, num_batches: int, meter: MetricMeter):
@@ -409,24 +425,24 @@ class PromptTrainer:
             self.state, metrics = self.train_step(self.state, self.backbone, self.consts,
                                                   self._device_batch(batch))
             meter.update(metrics)
-            if "task" in batch:
-                meter.update({"num_tasks": len(set(batch["task"].tolist()))})
+            if "num_tasks" in batch:
+                meter.update({"num_tasks": batch["num_tasks"]})
             if (batch_idx + 1) % max(1, self.cfg.TRAIN.PRINT_FREQ) == 0:
                 self._print_progress(batch_idx + 1, num_batches, meter)
 
     def _stage_window(self, pending: list) -> dict:
-        """The window's batches stacked to (K, B, ...) on the device; float
-        images in the compute dtype the model casts them to anyway, uint8
+        """The window's batches stacked to (K, B, ...) on the device (a copy
+        on the device when they are staged already); float images in the
+        compute dtype the model casts them to anyway, uint8
         (DEVICE_NORMALIZE) as they are."""
         # The train loader drops its tail batch (build_data_loader), so
         # every batch of a window has one shape.
         shape = pending[0]["image"].shape
         if any(b["image"].shape != shape for b in pending):
             raise ValueError("a window's batches must share one shape: "
-                             f"{[b['image'].shape for b in pending]}")
-        stacked = {k: np.stack([b[k] for b in pending])
-                   for k in ("image", "label", "task") if k in pending[0]}
-        out = self._device_batch(stacked)
+                             f"{[tuple(b['image'].shape) for b in pending]}")
+        batches = [self._device_batch(b) for b in pending]
+        out = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
         if out["image"].dtype != torch.uint8:
             out["image"] = out["image"].to(self.model.compute_dtype)
         return out
@@ -435,7 +451,13 @@ class PromptTrainer:
         """Stage ``window`` loader batches and run them in one call of the
         windowed step (``make_train_step_multi``: on the card one captured
         step replayed K times). Same optimizer and schedule math as the
-        per-batch path."""
+        per-batch path.
+
+        A window's progress line reads the device (the meter's values and
+        the update count), which waits for its replays. It is printed once
+        the next window's batches are decoded and staged, just before that
+        window runs, so the host decodes while the card replays; the lines
+        and their values are the same, in the same order."""
         meter = MetricMeter()
         num_batches = len(self.train_loader_x)
         # An epoch shorter than the configured window still gets windowed
@@ -450,12 +472,20 @@ class PromptTrainer:
                 normalize=self._normalize)
         pending: list[dict] = []
         done = 0
+        deferred = []  # the progress line of the last window, not yet printed
+
+        def settle():
+            while deferred:
+                self._print_progress(deferred.pop(), num_batches, meter)
 
         def flush():
             nonlocal done
             if not pending:
                 return
-            if len(pending) < window and not (min_tail and len(pending) >= min_tail):
+            full = len(pending) == window or bool(min_tail and len(pending) >= min_tail)
+            stacked = self._stage_window(pending) if full else None
+            settle()
+            if not full:
                 # Short tail: a step a call.
                 for b in pending:
                     self.state, metrics = self.train_step(
@@ -465,25 +495,26 @@ class PromptTrainer:
                 # A full window, or a tail of at least min_tail batches,
                 # which the first window's capture serves.
                 self.state, mstack = self.train_step_multi(
-                    self.state, self.backbone, self.consts, self._stage_window(pending))
+                    self.state, self.backbone, self.consts, stacked)
                 # one meter entry per step (the window mean, pushed K
                 # times) so the rolling average weights every step equally
                 means = {k: v.mean() for k, v in mstack.items()}
                 for _ in range(len(pending)):
                     meter.update(means)
             for b in pending:
-                if "task" in b:
-                    meter.update({"num_tasks": len(set(b["task"].tolist()))})
+                if "num_tasks" in b:
+                    meter.update({"num_tasks": b["num_tasks"]})
             done += len(pending)
             pending.clear()
             if done % max(1, self.cfg.TRAIN.PRINT_FREQ) < window:
-                self._print_progress(done, num_batches, meter)
+                deferred.append(done)
 
         for batch in batches:
             pending.append(batch)
             if len(pending) == window:
                 flush()
         flush()
+        settle()
 
     def after_epoch(self):
         cfg = self.cfg

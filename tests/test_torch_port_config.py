@@ -125,13 +125,24 @@ def test_frozen_and_unknown_keys_raise(make, tmp_path):
 @pytest.mark.parametrize("opts,item", [
     (["TPU.MESH_MODEL", "2"], "item 8"),
     (["TPU.MESH_DATA", "4"], "item 8"),
-    (["DATALOADER.BACKEND", "native"], "item 9"),
+    (["DATALOADER.BACKEND", "tf"], "tfdata"),
 ])
 def test_validate_support_names_the_roadmap_item(opts, item):
     cfg = get_cfg_default()
     cfg.merge_from_list(["TRAINER.NAME", "MVLPT", "DATASET.COOP", "True"] + opts)
     with pytest.raises(NotImplementedError, match=item):
         validate_support(cfg)
+
+
+@pytest.mark.parametrize("backend", ["python", "native"])
+def test_validate_support_passes_the_data_backends(backend):
+    """The "python" and "native" data backends run (Queue 1, item 9); the
+    JAX package passes both too."""
+    for make in (get_cfg_default, j_defaults):
+        cfg = make()
+        cfg.merge_from_list(["TRAINER.NAME", "MVLPT", "DATASET.COOP", "True",
+                             "DATALOADER.BACKEND", backend])
+        (validate_support if make is get_cfg_default else j_validate)(cfg)
 
 
 @pytest.mark.parametrize("opts", [

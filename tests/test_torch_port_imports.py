@@ -1,8 +1,9 @@
 """The port stands alone: no module of mvlpt_torch, not chip_smoke.py, and
 not the entry module of the tensor-parallel tests' spawned ranks imports
 JAX, the JAX package, or a package the GPU host lacks (regex, yaml,
-optax, scikit-learn); entry points refuse to run without CUDA unless
-asked for the CPU."""
+optax, scikit-learn); importing them all loads neither transformers nor
+matplotlib (imported where they are used); entry points refuse to run
+without CUDA unless asked for the CPU."""
 
 import ast
 import os
@@ -16,6 +17,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "mvlpt_tpu", "regex", "yaml", "optax", "flax", "sklearn")
+# Imported where they are used, never at import: the GPU host lacks
+# matplotlib (cli/draw_curves.py draws with it) and the port must not
+# need transformers (tokenizer/hf_adapter.py, checkpoint.convert_hf_clip).
+LAZY = ("transformers", "matplotlib")
 SOURCES = sorted((ROOT / "mvlpt_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "torch_port_tp_child.py"]
 
@@ -50,6 +55,8 @@ def test_importing_every_module_loads_no_forbidden_package():
         "assert 'mvlpt_torch.parallel.mesh' in sys.modules\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
+        f"lazy = sorted(m for m in sys.modules if m.split('.')[0] in {LAZY!r})\n"
+        "assert not lazy, lazy\n"
         "print('ok', len([m for m in sys.modules if m.startswith('mvlpt_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
