@@ -168,6 +168,19 @@
      an image batch, no other kernel; image img/s and the knowledge text
      step's ms. Check rows for #5/#6 at its image tower, (128, 50, 768,
      H 12); the run fails if its blocks' shapes are not that row's.
+   - The model zoo (``drive_zoo_extract``): extract_features
+     --model on the same task, in bf16 at batch 128, for
+     vit_base_patch16_224 (timm), resnet50 (torchvision) and
+     efficientnet_b0 (timm), each from a full-width random state dict in
+     its library's key layout (tests/torch_port_util.py's writers): every
+     split's rows as the CLIP extraction's, finite features of the
+     family's width, no kernel of the repo launched, 4 test images' fp32
+     features on the card within 1e-4 x max|ref| of the CPU's, the bf16
+     features' cosine to fp32 at least ZOO_COS; img/s with the loading,
+     the tower's ms a batch alone, peak memory, load-and-convert seconds.
+     interpret_prompt (``drive_interpret_prompt``): the CLI with the
+     random ViT-B/16 on a CoOp-layout checkpoint, its top 5 against
+     float64 numpy on the host.
    - The rest of the training CLI (PR 15), after trainer_cli:
      trainer_adamw_dropout (``drive_trainer_adamw_dropout``): trainer_cli's
      run with AdamW and VPT dropout 0.1: the replayed window equal bit for
@@ -3807,6 +3820,222 @@ def drive_extract_features() -> dict:
     return out
 
 
+# The model zoo through extract_features --model (``drive_zoo_extract``), at
+# full width on EXTRACT_TASK, each from a random state dict in its family's
+# key layout that tests/torch_port_util.py writes: name -> (writer, its
+# arguments, the feature width). efficientnet_b0's arguments are B0's table
+# (core/efficientnet.py, checked against EFFNET_CONFIGS by the converter's
+# config). ZOO_COS: each bf16 feature row's least cosine to the fp32 one
+# on the card (TF32 off), stated in PERF.md §2 before the first run;
+# ZOO_CHECK_IMAGES test images are also held in fp32, card against CPU,
+# within ZOO_FP32_REL x max|ref|.
+ZOO_MODELS = {
+    "vit_base_patch16_224": ("timm_vit_state_dict", dict(width=768, layers=12, patch=16,
+                                                         resolution=224, num_classes=1000), 768),
+    "resnet50": ("tv_resnet_state_dict", dict(layers=(3, 4, 6, 3), width=64, bottleneck=True,
+                                              num_classes=1000), 2048),
+    "efficientnet_b0": ("timm_effnet_state_dict", dict(
+        stages=((1, 3, 1, 1, 16), (2, 3, 2, 6, 24), (2, 5, 2, 6, 40), (3, 3, 2, 6, 80),
+                (3, 5, 1, 6, 112), (4, 5, 2, 6, 192), (1, 3, 1, 6, 320)),
+        stem_ch=32, head_ch=1280, num_classes=1000), 1280)}
+ZOO_COS, ZOO_CHECK_IMAGES, ZOO_FP32_REL = 0.999, 4, 1e-4
+# interpret_prompt's CoOp-layout checkpoint: N_CTX x the text width of the
+# random ViT-B/16, from a seeded generator; its top-k against float64
+# numpy on the host (indices equal but where two distances tie within
+# INTERPRET_TIE, distances within INTERPRET_REL, both relative).
+INTERPRET_CTX, INTERPRET_TOPK, INTERPRET_TIE, INTERPRET_REL = (16, 512), 5, 1e-6, 1e-5
+
+
+def _zoo_batch(data: Path):
+    """The first test batch of EXTRACT_TASK as the zoo's extraction loads it
+    (224 px, ImageNet's statistics, eval mode), on the card."""
+    import torch
+
+    from mvlpt_torch.config import get_cfg_default
+    from mvlpt_torch.data.loader import eval_mode
+    from mvlpt_torch.data.managers import build_data_manager
+    from mvlpt_torch.models.zoo import _IMAGENET_MEAN, _IMAGENET_STD
+
+    cfg = get_cfg_default()
+    cfg.DATASET.ROOT, cfg.DATASET.DATASET = str(data), EXTRACT_TASK
+    cfg.DATALOADER.TRAIN_X.BATCH_SIZE = cfg.DATALOADER.TEST.BATCH_SIZE = LP_BATCH
+    cfg.INPUT.SIZE = (224, 224)
+    cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD = list(_IMAGENET_MEAN), list(_IMAGENET_STD)
+    batch = next(iter(eval_mode(build_data_manager(cfg, strict_classnames=False).test_loader)))
+    return torch.from_numpy(batch["image"]).to("cuda")
+
+
+def drive_zoo_extract(rows: dict) -> dict:
+    """extract_features --model through the port's CLI (bf16, batch 128) for
+    each of ZOO_MODELS on EXTRACT_TASK, from a full-width random state dict
+    in its family's key layout (written by tests/torch_port_util.py, loaded
+    by path): every split with ``rows`` rows (the CLIP extraction's on the
+    same data) of finite features of the family's width, no kernel of the
+    repo launched (the JAX zoo runs no Pallas), and the first
+    ZOO_CHECK_IMAGES test images' fp32 features on the card (TF32 off)
+    within ZOO_FP32_REL x max|ref| of the same module's on the CPU. Prints,
+    with the card's name and power limit: img/s with the loading (whole
+    splits, and after each split's first batch), the tower's ms a batch of
+    128 alone (median of REPS CUDA-event runs) and its img/s, peak memory,
+    the checkpoint's load-and-convert seconds (the CLI's get_model call)
+    and the bf16-vs-fp32 cosine of the CLI's features, held at ZOO_COS."""
+    import numpy as np
+    import torch
+
+    from mvlpt_torch.cli import extract_features
+    from mvlpt_torch.data.transforms import device_normalize
+    from mvlpt_torch.models import zoo
+    from mvlpt_torch.ops import _build
+    from mvlpt_torch.utils import pipeline
+
+    path, card = "zoo_extract", card_line()
+    data = write_elevater_dataset(ROOT / "build" / "extract_features_data", tasks=[EXTRACT_TASK],
+                                  test=EXTRACT_TEST)
+    helpers = _test_helpers()
+    images = _zoo_batch(data)
+    n = ZOO_CHECK_IMAGES
+    out = dict(path=path, card=card, launches={}, task=EXTRACT_TASK, models={})
+    for name, (writer, kwargs, dim) in ZOO_MODELS.items():
+        ckpt = ROOT / "build" / "zoo" / f"{name}.pth"
+        ckpt.parent.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        torch.save(getattr(helpers, writer)(0, **kwargs), str(ckpt))
+        write_s = time.perf_counter() - t0
+        out_dir = ROOT / "build" / "zoo_out" / name
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        with _Timed(zoo, "get_model") as load, _Timed(pipeline, "dump_split_features") as dumps, \
+                _BatchTimes() as batches:
+            extract_features.cli(["--root", str(data), "--dataset", EXTRACT_TASK, "--model", name,
+                                  "--model-checkpoint", str(ckpt), "--output-dir", str(out_dir),
+                                  "--batch-size", str(LP_BATCH)])
+        _launches_of(f"{path} {name}", dict(_build.LAUNCHES), (), 0)
+        peak = _peak_gib()
+        counts = _split_counts(out_dir, dim)
+        if counts != rows:
+            raise AssertionError(f"{path} {name}: rows {counts}, want {rows}")
+
+        # The tower alone in bf16, and fp32 on the card against the CPU.
+        m16 = zoo.get_model(name, checkpoint=str(ckpt), dtype=torch.bfloat16)
+        if name == "efficientnet_b0":  # the writer's table is B0's
+            from mvlpt_torch.core.efficientnet import EFFNET_CONFIGS
+
+            blocks = [len(stage) for stage in m16.params["stages"]]
+            if blocks != [st[0] for st in EFFNET_CONFIGS[name].stages] or m16.feature_dim != dim:
+                raise AssertionError(f"{path} {name}: blocks {blocks}, width {m16.feature_dim}")
+        mean, std = m16.pixel_mean, m16.pixel_std
+        x = device_normalize(images, mean, std)
+        with torch.no_grad():
+            med, lo, hi = cuda_times(lambda: m16.features(x))
+            del m16
+            m32 = zoo.get_model(name, checkpoint=str(ckpt), dtype=torch.float32)
+            f32 = m32.features(x[:n]).float()
+            del m32
+            ref = zoo.get_model(name, checkpoint=str(ckpt), dtype=torch.float32,
+                                device="cpu").features(x[:n].cpu())
+        err = (f32.cpu() - ref).abs().max().item()
+        tol = ZOO_FP32_REL * ref.abs().max().item()
+        with np.load(out_dir / "test.npz") as z:
+            cli_rows = torch.from_numpy(z["feature_list"][:n]).to("cuda")
+        cos = torch.nn.functional.cosine_similarity(cli_rows, f32, dim=1).min().item()
+        images_n = sum(counts.values())
+        row = out["models"][name] = dict(
+            rows=counts, state_dict_write_s=write_s, load_convert_s=load.seconds[0],
+            img_per_s_with_loading=images_n / sum(dumps.seconds),
+            img_per_s_steady=batches.steady_img_per_s(), tower_ms=med, tower_ms_spread=[lo, hi],
+            tower_img_per_s=LP_BATCH / med * 1e3, peak_mem_gib=peak,
+            fp32_card_vs_cpu_max_err=err, fp32_tol=tol, features_cos_min_vs_fp32=cos)
+        print(f"{path} {name} [{card}]: {images_n} images ({counts}), "
+              f"{row['img_per_s_with_loading']:.1f} img/s with the loading (every split's loader "
+              f"start included; {row['img_per_s_steady']:.1f} after each split's first batch); "
+              f"the bf16 tower {med:.3f} ms a batch of {LP_BATCH} (CUDA events, [{lo:.3f}, "
+              f"{hi:.3f}]), {row['tower_img_per_s']:.1f} img/s alone; peak {peak:.2f} GiB; "
+              f"load and convert {load.seconds[0]:.2f} s (state dict written in {write_s:.2f} "
+              f"s); fp32 card vs CPU on {n} test images max|err| {err:.3e} (held at {tol:.3e}); "
+              f"bf16 vs fp32 cosine >= {cos:.6f} (held at {ZOO_COS})", flush=True)
+        if not err <= tol:
+            raise AssertionError(f"{path} {name}: fp32 features on the card against the CPU, "
+                                 f"max|err| {err} > {tol}")
+        if not cos >= ZOO_COS:
+            raise AssertionError(f"{path} {name}: bf16 against fp32 features, cosine {cos} < "
+                                 f"{ZOO_COS}")
+        _free_cuda()
+    out["peak_mem_gib"] = max(m["peak_mem_gib"] for m in out["models"].values())
+    print("main-path " + json.dumps(out), flush=True)
+    return out
+
+
+def drive_interpret_prompt() -> dict:
+    """interpret_prompt through the port's CLI on the card with the random
+    ViT-B/16 (MVLPT_TPU_RANDOM_CLIP) on a CoOp-layout prompt checkpoint the
+    phase writes (the reference trainer's torch archive: ctx of
+    INTERPRET_CTX from a seeded generator beside token_prefix and
+    token_suffix): its top INTERPRET_TOPK words a ctx vector against a
+    float64 numpy computation on the host over the same token embedding
+    (indices equal but where two distances tie within INTERPRET_TIE,
+    distances within INTERPRET_REL), no kernel of the repo launched."""
+    import numpy as np
+    import torch
+
+    from mvlpt_torch.cli import interpret_prompt
+    from mvlpt_torch.config import get_cfg_default
+    from mvlpt_torch.ops import _build
+    from mvlpt_torch.tokenizer import get_tokenizer
+    from mvlpt_torch.train.trainer import load_clip_backbone
+
+    path, card = "interpret_prompt", card_line()
+    ckpt = ROOT / "build" / "interpret_prompt" / "prompt_learner" / "model.pth.tar-50"
+    ckpt.parent.mkdir(parents=True, exist_ok=True)
+    gen = torch.Generator().manual_seed(0)
+    n_ctx, width = INTERPRET_CTX
+    ctx = torch.randn(INTERPRET_CTX, generator=gen) * 0.02
+    affixes = {"token_prefix": torch.randn((2, 1, width), generator=gen),
+               "token_suffix": torch.randn((2, 60, width), generator=gen)}
+    torch.save({"state_dict": {"ctx": ctx, **affixes}, "epoch": 50}, str(ckpt))
+    os.environ["MVLPT_TPU_RANDOM_CLIP"] = "1"
+    try:
+        _free_cuda()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        rows = interpret_prompt.cli([str(ckpt), str(INTERPRET_TOPK)])
+        wall = time.perf_counter() - t0
+        _launches_of(path, dict(_build.LAUNCHES), (), 0)
+        cfg = get_cfg_default()
+        cfg.MODEL.BACKBONE.NAME = "ViT-B/16"
+        emb = load_clip_backbone(cfg, torch.float32, "cuda")[0]["text"]["token_embedding"]
+        emb = emb.cpu().double().numpy()
+    finally:
+        os.environ.pop("MVLPT_TPU_RANDOM_CLIP", None)
+    encoder = get_tokenizer().encoder
+    c64 = ctx.double().numpy()
+    worst_rel, ties = 0.0, 0
+    if len(rows) != 1 or len(rows[0]) != n_ctx:
+        raise AssertionError(f"{path}: {len(rows)} context sets of {len(rows[0])} rows")
+    for i, row in enumerate(rows[0]):
+        d64 = np.sqrt(((emb - c64[i]) ** 2).sum(axis=1))
+        want = np.argsort(d64, kind="stable")[:INTERPRET_TOPK]
+        got = [encoder[w] for w, _ in row]
+        for k, (g, wnt, (_, dist)) in enumerate(zip(got, want, row)):
+            rel = abs(dist - d64[g]) / d64[g]
+            worst_rel = max(worst_rel, rel)
+            if rel > INTERPRET_REL:
+                raise AssertionError(f"{path}: ctx[{i}] #{k}: distance {dist} vs float64 "
+                                     f"{d64[g]}")
+            if g != wnt:
+                if abs(d64[g] - d64[wnt]) > INTERPRET_TIE * d64[wnt]:
+                    raise AssertionError(f"{path}: ctx[{i}] #{k}: token {g} vs float64's {wnt}")
+                ties += 1
+    out = dict(path=path, card=card, launches={}, wall_s=wall, ctx=list(INTERPRET_CTX),
+               topk=INTERPRET_TOPK, max_rel_err_vs_fp64=worst_rel, ties=ties)
+    print(f"{path} [{card}]: {n_ctx} ctx vectors x {emb.shape[0]} tokens, top {INTERPRET_TOPK} in "
+          f"{wall:.2f} s (the CLI, the random ViT-B/16 built); distances within {worst_rel:.2e} "
+          f"relative of float64's (held at {INTERPRET_REL}), indices equal ({ties} swapped ties)",
+          flush=True)
+    print("main-path " + json.dumps(out), flush=True)
+    return out
+
+
 # The phases of the optimizers, VPT dropout, FinetuneCLIP, --debug-nans and
 # the post-run CLIs. trainer_adamw_dropout runs trainer_cli's flags with
 # AdamW and VPT dropout; ADAM_RMS_K is the length of the Adam and RMSprop
@@ -4475,6 +4704,8 @@ def main() -> int:
     paths["lpclip"] = drive_lpclip()
     paths["lpclip_native"] = drive_lpclip_native(paths["lpclip"])
     paths["extract_features"] = drive_extract_features()
+    paths["zoo_extract"] = drive_zoo_extract(paths["extract_features"]["rows"])
+    paths["interpret_prompt"] = drive_interpret_prompt()
 
     summary = {"card": card_line()}
     for path, out in paths.items():

@@ -9,6 +9,7 @@ from mvlpt_torch.checkpoint.from_jax import (
     backbone_from_jax,
     finetune_params_from_jax,
     prompt_params_from_jax,
+    zoo_params_from_jax,
 )
 from mvlpt_torch.checkpoint.prompt_io import (
     apply_state_dict,

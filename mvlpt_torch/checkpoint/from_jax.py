@@ -8,6 +8,8 @@ so the conversion is leaf for leaf and both sides compute the same
 thing from the same numbers. A ModifiedResNet visual tree (``stem``,
 ``layer1``-``layer4`` as lists of blocks, ``attnpool``) comes across with
 its HWIO conv kernels turned into ``core/resnet.py``'s (O, I, KH, KW).
+The model zoo's trees (``mvlpt_tpu/core/zoo.py``, ``core/efficientnet.py``)
+come across the same way (``zoo_params_from_jax``).
 """
 
 from __future__ import annotations
@@ -55,3 +57,19 @@ def finetune_params_from_jax(tree: dict, device="cuda") -> dict:
         raise ValueError("FinetuneCLIP finetunes the ViT tower; this tree holds a ResNet")
     device = resolve_device(device)
     return tree_map(lambda a: _to_tensor(a, device, torch.float32), tree)
+
+
+ZOO_FAMILIES = ("std_vit", "tv_resnet", "effnet")
+
+
+def zoo_params_from_jax(tree: dict, family: str, device="cuda") -> dict:
+    """A JAX zoo tree (its converters' or inits', numpy leaves) -> the
+    port's, dtypes kept: ``family`` "std_vit" (core/zoo.py's ViT, no conv)
+    leaf for leaf; "tv_resnet" and "effnet" with every HWIO conv kernel
+    (a depthwise one (k, k, 1, C)) turned into (O, I, KH, KW) ((C, 1, k, k)),
+    channels_last."""
+    if family not in ZOO_FAMILIES:
+        raise ValueError(f"unknown zoo family {family!r}; known: {ZOO_FAMILIES}")
+    device = resolve_device(device)
+    out = tree_map(lambda a: _to_tensor(a, device), tree)
+    return out if family == "std_vit" else from_hwio(out)

@@ -14,11 +14,23 @@ trainers/vision_benchmark/evaluation/feature.py:324-535), as
     ``<out>/text.npz``.
 
 An RN backbone's text step raises, as the JAX package's fails there:
-its RNConfig has no text fields (``models.zsclip.text_config``). The
-non-CLIP model zoo (``--model``) is not ported.
+its RNConfig has no text fields (``models.zsclip.text_config``).
+
+``--model`` takes a non-CLIP zoo model instead (``models.zoo.get_model``:
+torchvision ResNets, timm ViT/DeiT with MAE and MoCo-v3 checkpoints,
+timm EfficientNets; the reference's MODEL.NAME dispatch,
+feature.py:245-321), from the local torch state dict that
+``--model-checkpoint`` names, else a random init. Its weights are bf16;
+the images are sized and normalised with the model's own input size and
+ImageNet statistics (feature.py:538-619), not cfg.INPUT's CLIP defaults.
+It writes image features only: the zoo has no text tower, so there is no
+``text.npz``. No kernel of the repo runs on this branch, as no Pallas
+runs on the JAX package's.
 
     python -m mvlpt_torch.cli.extract_features --root DATA --dataset cifar-10 \\
         --output-dir feats --knowledge wiki gpt3
+    python -m mvlpt_torch.cli.extract_features --root DATA --dataset cifar-10 \\
+        --model resnet50 --model-checkpoint R50.pth --output-dir feats
 
 Runs on the card; ``cli(argv, device="cpu")`` on the CPU.
 """
@@ -37,7 +49,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset", required=True, help="ELEVATER task name")
     p.add_argument("--backbone", default="ViT-B/32")
     p.add_argument("--model", default=None,
-                   help="non-CLIP zoo model (the JAX package's models/zoo.py): not ported")
+                   help="non-CLIP zoo model (models/zoo.py get_model: resnet18/50/..., "
+                        "vit_*/deit_*/mae_*/mocov3_*, efficientnet_b*) — the reference's "
+                        "MODEL.NAME dispatch (feature.py:245-321). Image features only; text "
+                        "features need a CLIP backbone")
     p.add_argument("--model-checkpoint", default=None, help="local torch state-dict for --model")
     p.add_argument("--output-dir", required=True)
     p.add_argument("--batch-size", type=int, default=128)
@@ -68,10 +83,6 @@ def cli(argv=None, device="cuda"):
     from mvlpt_torch.utils.pipeline import dump_split_features
 
     args = build_parser().parse_args(argv)
-    if args.model:
-        raise NotImplementedError(
-            f"--model {args.model}: the non-CLIP model zoo (models/zoo.py, core/zoo.py) is not "
-            "ported yet (ROADMAP.md Queue 1, item 10)")
     device = resolve_device(device)
     cfg = get_cfg_default()
     cfg.DATASET.ROOT = args.root
@@ -81,11 +92,36 @@ def cli(argv=None, device="cuda"):
     cfg.MODEL.BACKBONE.NAME = args.backbone
     cfg.DATALOADER.TEST.BATCH_SIZE = args.batch_size
     cfg.DATALOADER.TRAIN_X.BATCH_SIZE = args.batch_size
-    cfg.freeze()
-    backbone, clip_cfg = load_clip_backbone(cfg, torch.bfloat16, device)
-    encode = make_image_encoder(clip_cfg, cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD,
-                                cfg.TPU.USE_PALLAS)
-    dm = build_data_manager(cfg, strict_classnames=True)
+    if args.model:
+        from mvlpt_torch.data.transforms import device_normalize
+        from mvlpt_torch.models.zoo import get_model
+
+        zoo = get_model(args.model, checkpoint=args.model_checkpoint, dtype=torch.bfloat16,
+                        device=device)
+        # The zoo model's own input size and statistics (the reference's
+        # non-CLIP branches carry ImageNet's in the model yaml,
+        # feature.py:538-619), not the CLIP defaults cfg.INPUT starts with.
+        cfg.INPUT.SIZE = (zoo.input_resolution, zoo.input_resolution)
+        cfg.INPUT.PIXEL_MEAN = list(zoo.pixel_mean)
+        cfg.INPUT.PIXEL_STD = list(zoo.pixel_std)
+        cfg.freeze()
+        mean, std = tuple(zoo.pixel_mean), tuple(zoo.pixel_std)
+
+        @torch.no_grad()
+        def visual(images):
+            return zoo.features(device_normalize(images, mean, std))
+        backbone = clip_cfg = None
+    else:
+        cfg.freeze()
+        backbone, clip_cfg = load_clip_backbone(cfg, torch.bfloat16, device)
+        encode = make_image_encoder(clip_cfg, cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD,
+                                    cfg.TPU.USE_PALLAS)
+
+        def visual(images):
+            return encode(backbone, images)
+    # a zoo model reads no class names (no text tower), so the
+    # manifest/metadata class-count guard must not bind there
+    dm = build_data_manager(cfg, strict_classnames=not args.model)
 
     os.makedirs(args.output_dir, exist_ok=True)
     stage = DeviceStager(device)
@@ -93,10 +129,15 @@ def cli(argv=None, device="cuda"):
                           ("test", dm.test_loader)):
         if loader is None:
             continue
-        n = dump_split_features(
-            loader, lambda b: encode(backbone, stage({"image": b["image"]})["image"]),
-            os.path.join(args.output_dir, f"{split}.npz"))
+        n = dump_split_features(loader, lambda b: visual(stage({"image": b["image"]})["image"]),
+                                os.path.join(args.output_dir, f"{split}.npz"))
         print(f"{split}: {n} image features")
+
+    if backbone is None:
+        # no text tower (the reference extracts text features for CLIP-family
+        # models only, feature.py:410-535)
+        print(f"{args.model}: image features only (no text tower)")
+        return
 
     # ---- text features: template averaging (+ optional knowledge rows)
     knowledge = {}

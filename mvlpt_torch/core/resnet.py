@@ -67,17 +67,22 @@ def from_hwio(visual: dict) -> dict:
 
 def _bn(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
     """Inference BatchNorm over NCHW: scale and bias folded in fp32 from
-    the params as they are stored, then ``x * scale + bias`` in x's dtype."""
+    the params as they are stored, then ``x * scale + bias`` in x's dtype.
+    Shared by every converted backbone, as ``_conv`` is."""
     inv = torch.rsqrt(p["var"].float() + eps)
     scale = (p["scale"].float() * inv).to(x.dtype)
     bias = (p["bias"].float() - p["mean"].float() * p["scale"].float() * inv).to(x.dtype)
     return x * scale[:, None, None] + bias[:, None, None]
 
 
-def _conv(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1) -> torch.Tensor:
+def _conv(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1, groups: int = 1) -> torch.Tensor:
     """torch's symmetric padding (k // 2 each side, not XLA's SAME), fp32
-    accumulation, the result in x's dtype."""
-    return F.conv2d(x, kernel.to(x.dtype), stride=stride, padding=kernel.shape[-1] // 2)
+    accumulation, the result in x's dtype. ``groups`` splits the channels
+    as XLA's ``feature_group_count``: a depthwise conv over C channels
+    takes groups = C and a (C, 1, k, k) kernel. Shared by every converted
+    backbone (this tower, core/zoo.py's ResNet, core/efficientnet.py)."""
+    return F.conv2d(x, kernel.to(x.dtype), stride=stride, padding=kernel.shape[-1] // 2,
+                    groups=groups)
 
 
 def _avgpool(x: torch.Tensor, k: int) -> torch.Tensor:

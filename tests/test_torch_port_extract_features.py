@@ -8,8 +8,9 @@ patches (``MVLPT_TPU_CLIP_CKPT``) and the synthetic vocab; each package's
 Holds, for a task with its real class names under ``--knowledge wiki
 gpt3`` and ``--knowledge-tsv``, and for a custom task with the fallback
 template: every split's image features and ``text.npz`` within 1e-4 x
-max|ref|, the labels, row order and class names equal. ``--model`` is
-refused, naming its ROADMAP item; ``--backbone RN50`` writes the image
+max|ref|, the labels, row order and class names equal (``--model``, the
+model zoo's branch, is held in tests/test_torch_port_zoo_cli.py);
+``--backbone RN50`` writes the image
 features (equal within 1e-4 x max|ref|) and fails at the text step in
 both packages. The knowledge module: ``knowledge.json`` byte for byte,
 ``knowledge_texts`` string for string for every (task, class) in it under
@@ -133,14 +134,6 @@ def test_extract_features_matches_jax(world, tmp_path, monkeypatch, case):
         from mvlpt_torch.data.elevater import class_map
 
         assert len(names) == 4 and names[0] == class_map(TASK)[0]
-
-
-def test_extract_features_refuses_the_model_zoo(world, tmp_path):
-    from mvlpt_torch.cli.extract_features import cli
-
-    with pytest.raises(NotImplementedError, match="Queue 1, item 10"):
-        cli(["--root", world["data"], "--dataset", TASK, "--model", "resnet18",
-             "--output-dir", str(tmp_path)], device="cpu")
 
 
 def test_rn_backbone_fails_at_the_text_step_in_both(world, tmp_path, monkeypatch):

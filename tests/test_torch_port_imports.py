@@ -1,7 +1,8 @@
 """The port stands alone: no module of mvlpt_torch, not chip_smoke.py, and
 not the entry module of the tensor-parallel tests' spawned ranks imports
 JAX, the JAX package, or a package the GPU host lacks (regex, yaml,
-optax, scikit-learn); importing them all loads neither transformers nor
+optax, scikit-learn, timm, torchvision: the model zoo holds its own
+layers); importing them all loads neither transformers nor
 matplotlib (imported where they are used); entry points refuse to run
 without CUDA unless asked for the CPU."""
 
@@ -16,7 +17,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "mvlpt_tpu", "regex", "yaml", "optax", "flax", "sklearn")
+FORBIDDEN = ("jax", "jaxlib", "mvlpt_tpu", "regex", "yaml", "optax", "flax", "sklearn", "timm",
+             "torchvision")
 # Imported where they are used, never at import: the GPU host lacks
 # matplotlib (cli/draw_curves.py draws with it) and the port must not
 # need transformers (tokenizer/hf_adapter.py, checkpoint.convert_hf_clip).

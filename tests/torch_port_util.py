@@ -255,3 +255,185 @@ def calibrate_rn_bn(sd: dict, images):
             i += 1
         stage += 1
     return x
+
+
+# ---------------------------------------------------------------------------
+# Random state dicts in the model zoo's torch key layouts (timm ViT/DeiT with
+# MAE and MoCo-v3 wrappers, torchvision ResNet, timm EfficientNet), at any
+# size: the layouts both packages' checkpoint/zoo_convert.py read.
+# ---------------------------------------------------------------------------
+
+def _zoo_draws(seed: int):
+    """(t, bn) drawing torch fp32 tensors from ``seed``: t(*shape, s=std)
+    normal; bn(prefix, c) a BatchNorm's weight, bias and running
+    statistics away from identity, with num_batches_tracked."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+
+    def t(*shape, s=0.02):
+        return torch.from_numpy((rng.randn(*shape) * s).astype(np.float32))
+
+    def bn(prefix, c):
+        return {f"{prefix}.weight": 1 + t(c, s=0.1), f"{prefix}.bias": t(c, s=0.05),
+                f"{prefix}.running_mean": t(c, s=0.1),
+                f"{prefix}.running_var": torch.from_numpy(
+                    (0.5 + rng.rand(c)).astype(np.float32)),
+                f"{prefix}.num_batches_tracked": torch.tensor(0)}
+
+    return t, bn
+
+
+def timm_vit_state_dict(seed: int, width: int = 64, layers: int = 2, patch: int = 16,
+                        resolution: int = 32, mlp_ratio: int = 4, distilled: bool = False,
+                        wrapper: str | None = None, num_classes: int = 10) -> dict:
+    """A random timm ViT/DeiT state dict (``patch_embed.proj``, ``cls_token``,
+    ``dist_token`` when ``distilled``, ``pos_embed``, ``blocks.N.{norm1,
+    attn.qkv, attn.proj, norm2, mlp.fc1, mlp.fc2}``, ``norm``, ``head``):
+    linear kernels at fan-in scale, LayerNorms away from identity, every
+    draw from ``seed``. ``wrapper``: None (bare timm keys); "mae" (MAE's
+    pre-training file: {"model": ...} with ``mask_token`` and decoder
+    keys); "mae_finetune" ({"model": ...} with ``fc_norm`` in place of
+    ``norm``, the global pool); "mocov3" (MoCo-v3's file: {"state_dict":
+    "module.base_encoder." keys with a projection-MLP head, the momentum
+    encoder and predictor beside them, "epoch", "arch", "optimizer" and an
+    argparse namespace, which ``weights_only=True`` refuses).
+    ViT-B/16 is width 768, 12 layers, patch 16, 224 px, 1000 classes."""
+    import argparse
+
+    t, bn = _zoo_draws(seed)
+    w, n_prefix = width, 2 if distilled else 1
+    n_patches = (resolution // patch) ** 2
+
+    def lin(prefix, out, inp):
+        return {f"{prefix}.weight": t(out, inp, s=inp ** -0.5), f"{prefix}.bias": t(out)}
+
+    def ln(prefix):
+        return {f"{prefix}.weight": 1 + t(w, s=0.1), f"{prefix}.bias": t(w)}
+
+    sd = {"patch_embed.proj.weight": t(w, 3, patch, patch, s=(3 * patch * patch) ** -0.5),
+          "patch_embed.proj.bias": t(w), "cls_token": t(1, 1, w)}
+    if distilled:
+        sd["dist_token"] = t(1, 1, w)
+    sd["pos_embed"] = t(1, n_prefix + n_patches, w)
+    for i in range(layers):
+        b = f"blocks.{i}"
+        sd.update({**ln(f"{b}.norm1"), **lin(f"{b}.attn.qkv", 3 * w, w),
+                   **lin(f"{b}.attn.proj", w, w), **ln(f"{b}.norm2"),
+                   **lin(f"{b}.mlp.fc1", mlp_ratio * w, w),
+                   **lin(f"{b}.mlp.fc2", w, mlp_ratio * w)})
+    sd.update(ln("fc_norm" if wrapper == "mae_finetune" else "norm"))
+    if wrapper == "mocov3":  # the projection MLP (Linear, BN, ReLU, Linear)
+        sd.update({**lin("head.0", 2 * w, w), **bn("head.1", 2 * w), **lin("head.3", w, 2 * w)})
+    else:
+        sd.update(lin("head", num_classes, w))
+        if distilled:
+            sd.update(lin("head_dist", num_classes, w))
+    if wrapper is None:
+        return sd
+    if wrapper == "mae":
+        sd["mask_token"] = t(1, 1, w)
+        sd.update({**lin("decoder_embed", w, w), "decoder_pos_embed": t(1, 1 + n_patches, w),
+                   **lin("decoder_pred", patch * patch * 3, w)})
+        return {"model": sd}
+    if wrapper == "mae_finetune":
+        return {"model": sd}
+    if wrapper == "mocov3":
+        wrapped = {f"module.base_encoder.{k}": v for k, v in sd.items()}
+        wrapped.update({f"module.momentum_encoder.{k}": v.clone() for k, v in sd.items()})
+        wrapped.update({f"module.predictor.{k}": v for k, v in
+                        {**lin("0", 2 * w, w), **lin("3", w, 2 * w)}.items()})
+        return {"epoch": 300, "arch": "vit_base", "state_dict": wrapped,
+                "optimizer": {"state": {}, "param_groups": [{"lr": 1.5e-4}]},
+                "args": argparse.Namespace(arch="vit_base", moco_t=0.2)}
+    raise ValueError(f"unknown wrapper {wrapper!r}")
+
+
+def tv_resnet_state_dict(seed: int, layers=(1, 1, 1, 1), width: int = 8,
+                         bottleneck: bool = True, num_classes: int = 10,
+                         wrapper: str | None = None) -> dict:
+    """A random torchvision ResNet state dict (v1.5 layout: ``conv1/bn1``,
+    ``layer{1..4}.{j}.conv*/bn*``, ``downsample.{0,1}`` on each stage's
+    first block where the shape changes, ``fc``): He-normal kernels,
+    BatchNorms away from identity, every draw from ``seed``. ``wrapper``
+    "module" prefixes every key as DataParallel does; "state_dict" nests
+    them under {"state_dict": ...}. ResNet50 is layers (3, 4, 6, 3),
+    width 64, bottleneck, 1000 classes."""
+    t, bn = _zoo_draws(seed)
+
+    def conv(cout, cin, k):
+        return t(cout, cin, k, k, s=(2.0 / (cin * k * k)) ** 0.5)
+
+    expansion = 4 if bottleneck else 1
+    sd = {"conv1.weight": conv(width, 3, 7), **bn("bn1", width)}
+    c_in = width
+    for stage, n in enumerate(layers):
+        planes = width * 2 ** stage
+        c_out = planes * expansion
+        for j in range(n):
+            p = f"layer{stage + 1}.{j}"
+            if bottleneck:
+                sd.update({f"{p}.conv1.weight": conv(planes, c_in, 1), **bn(f"{p}.bn1", planes),
+                           f"{p}.conv2.weight": conv(planes, planes, 3), **bn(f"{p}.bn2", planes),
+                           f"{p}.conv3.weight": conv(c_out, planes, 1), **bn(f"{p}.bn3", c_out)})
+            else:
+                sd.update({f"{p}.conv1.weight": conv(planes, c_in, 3), **bn(f"{p}.bn1", planes),
+                           f"{p}.conv2.weight": conv(planes, planes, 3), **bn(f"{p}.bn2", planes)})
+            if j == 0 and (stage > 0 or c_in != c_out):
+                sd.update({f"{p}.downsample.0.weight": conv(c_out, c_in, 1),
+                           **bn(f"{p}.downsample.1", c_out)})
+            c_in = c_out
+    sd.update({"fc.weight": t(num_classes, c_in, s=c_in ** -0.5), "fc.bias": t(num_classes)})
+    if wrapper == "module":
+        return {f"module.{k}": v for k, v in sd.items()}
+    if wrapper == "state_dict":
+        return {"state_dict": sd}
+    if wrapper is not None:
+        raise ValueError(f"unknown wrapper {wrapper!r}")
+    return sd
+
+
+def timm_effnet_state_dict(seed: int, stages, stem_ch: int, head_ch: int,
+                           se_ratio: float = 0.25, num_classes: int = 10) -> dict:
+    """A random timm EfficientNet state dict: ``conv_stem``/``bn1``,
+    ``blocks.S.J.*`` (stage 0's expand-1 blocks DepthwiseSeparableConv:
+    ``conv_dw``, ``bn1``, ``se``, ``conv_pw``, ``bn2``; the others
+    InvertedResidual: ``conv_pw``, ``bn1``, ``conv_dw``, ``bn2``, ``se``,
+    ``conv_pwl``, ``bn3``; SE ``conv_reduce``/``conv_expand`` with biases,
+    ``se_ratio`` of the block's input channels), ``conv_head``/``bn2``,
+    ``classifier``. ``stages`` holds (blocks, kernel, stride, expansion,
+    out channels) a stage, as EffNetConfig's; efficientnet_b0 is
+    ``core.efficientnet.EFFNET_CONFIGS["efficientnet_b0"]``'s. He-normal
+    kernels, BatchNorms away from identity, every draw from ``seed``."""
+    t, bn = _zoo_draws(seed)
+
+    def conv(cout, cin, k):
+        return t(cout, cin, k, k, s=(2.0 / (cin * k * k)) ** 0.5)
+
+    def se(prefix, mid, rd):
+        return {f"{prefix}.conv_reduce.weight": t(rd, mid, 1, 1, s=mid ** -0.5),
+                f"{prefix}.conv_reduce.bias": t(rd),
+                f"{prefix}.conv_expand.weight": t(mid, rd, 1, 1, s=rd ** -0.5),
+                f"{prefix}.conv_expand.bias": t(mid)}
+
+    sd = {"conv_stem.weight": conv(stem_ch, 3, 3), **bn("bn1", stem_ch)}
+    c_in = stem_ch
+    for s_idx, (n, k, _, expand, c_out) in enumerate(stages):
+        for j in range(n):
+            p = f"blocks.{s_idx}.{j}"
+            rd = max(1, int(c_in * se_ratio))
+            if expand == 1:
+                sd.update({f"{p}.conv_dw.weight": conv(c_in, 1, k), **bn(f"{p}.bn1", c_in),
+                           **se(f"{p}.se", c_in, rd),
+                           f"{p}.conv_pw.weight": conv(c_out, c_in, 1), **bn(f"{p}.bn2", c_out)})
+            else:
+                mid = c_in * expand
+                sd.update({f"{p}.conv_pw.weight": conv(mid, c_in, 1), **bn(f"{p}.bn1", mid),
+                           f"{p}.conv_dw.weight": conv(mid, 1, k), **bn(f"{p}.bn2", mid),
+                           **se(f"{p}.se", mid, rd),
+                           f"{p}.conv_pwl.weight": conv(c_out, mid, 1), **bn(f"{p}.bn3", c_out)})
+            c_in = c_out
+    sd.update({"conv_head.weight": conv(head_ch, c_in, 1), **bn("bn2", head_ch),
+               "classifier.weight": t(num_classes, head_ch, s=head_ch ** -0.5),
+               "classifier.bias": t(num_classes)})
+    return sd
