@@ -216,6 +216,29 @@
      lpclip): lpclip's random-RN50 extraction with a --config-file on
      "native", every split's features bit-equal to the python run's,
      img/s by split beside it.
+   - The mesh, last (after interpret_prompt). mesh_cli (``drive_mesh_cli``): the
+     training CLI on trainer_cli's data and flags (4 shots: one eager
+     window of 12 steps, one epoch) as two ranks that share the card
+     (torchrun's variables, gloo), once with TPU.MESH_DATA 2 and once
+     with TPU.MESH_MODEL 2 TPU.MESH_DATA 1, then on one rank, and the
+     single-rank CLI's --eval-only on the data-axis run's directory:
+     every rank exits 0, only rank 0 writes files, both ranks print the
+     same results, the first loss and grad norm within TP_REL of one
+     rank's, the test logits and accuracy within MESH_LOGIT_REL and
+     MESH_ACC_PP (``_logit_bound``), #1-#4 (data axis) or #7-#10 (model
+     axis) launched 24 times a step and nothing else in training, #5/#6
+     or #7/#9 in test(); each rank's step ms, img/s with the loading,
+     share in dist.all_reduce and peak memory, which are no scaling
+     figures (two ranks time-slice one card). pod_loss_check
+     (``drive_pod_loss_check``): scripts/torch_port_pod_loss_check.py on
+     a (1, 2) mesh, ViT-B/16 bf16, 3 SGD steps under 'on' and 'off',
+     losses within TP_REL of one rank's, #11/#12 alone under 'on' on 6
+     of the 12 heads a rank, no kernel under 'off'.
+   - The extraction read (``read_turns``): lpclip's random RN50,
+     extract_features and zoo_extract's ViT run again with the previous
+     ``pipelined_inference`` read (batch i's ``.cpu()`` queued behind
+     batch i+1's tower) and then the shipped one, printing img/s with the
+     loading of each, in turns.
 4. Prints a summary line (img/s, ms/step, MFU, peak memory), one JSON
    line of kernel numbers, then, as the last line, {"ok": true,
    "device": {...}}.
@@ -3339,7 +3362,9 @@ def cocoop_step_memory(n_cls: int, chunk_remat: bool | None = None) -> dict:
 # at batch 128 on trainer_cli's 100-class dataset, then probe on those
 # features with the sweep cut to LP_RUNS runs of LP_STEPS binary-search
 # steps at LP_SHOTS (the CLI's default: 10 runs, 8 steps, shots 1 2 4 8
-# 16). PERF.md §2 stated, before the first run, each row's cosine of at
+# 16; shots 1 and 4 here, so that the mesh phases fit the run's time: the
+# 16-shot fit took about a minute on the host). PERF.md §2 stated, before
+# the first run, each row's cosine of at
 # least LP_COS for the CLI's bf16 features against the fp32 tower on the
 # card, TF32 off; on random weights it fails (the features are printed
 # with the bound, PERF.md §6) and is not held. What is held is the bf16
@@ -3349,7 +3374,7 @@ def cocoop_step_memory(n_cls: int, chunk_remat: bool | None = None) -> dict:
 # calibrated on the batch (``calibrate_rn_bn``) amplify bf16's rounding
 # block by block; both are printed.
 LP_BATCH, LP_COS = 128, 0.999
-LP_RUNS, LP_STEPS, LP_SHOTS = 1, 1, (1, 16)
+LP_RUNS, LP_STEPS, LP_SHOTS = 1, 1, (1, 4)
 # RN50 as an OpenAI-layout state_dict (tests/torch_port_util.py).
 RN50_SD = dict(layers=(3, 4, 6, 3), width=64, resolution=224, embed=1024, text_width=512,
                text_layers=12)
@@ -3526,10 +3551,11 @@ def drive_lpclip() -> dict:
             torch.cuda.reset_peak_memory_stats()
             _build.reset_launch_counts()
             t0 = time.perf_counter()
+            argv = ["extract-features", "--root", str(data), "--dataset-coop", "--dataset",
+                    "OxfordPets", "--output-dir", str(feat_dir), "--batch-size", str(LP_BATCH),
+                    "--num-workers", "8"]
             with _Timed(pipeline, "dump_split_features") as dumps, _BatchTimes() as batches:
-                lpclip.cli(["extract-features", "--root", str(data), "--dataset-coop",
-                            "--dataset", "OxfordPets", "--output-dir", str(feat_dir),
-                            "--batch-size", str(LP_BATCH), "--num-workers", "8"])
+                lpclip.cli(argv)
             wall = time.perf_counter() - t0
             _launches_of(f"{path} {name}", dict(_build.LAUNCHES), (), 0)
             peak = _peak_gib()
@@ -3608,6 +3634,11 @@ def drive_lpclip() -> dict:
                   f"{trunk_rel:.2e}), features after the pool >= {cos.min().item():.6f} "
                   f"(PERF.md §2's {LP_COS}, not held), the pool's mean max probability "
                   f"{peak_prob:.6f}", flush=True)
+            if name == "random":
+                _free_cuda()
+                out[name]["read_turns"] = read_turns(
+                    f"{path} {name}", card, lambda: lpclip.cli(argv), images_n,
+                    out[name]["img_per_s_with_loading"])
         finally:
             os.environ.pop(key, None)
 
@@ -3777,6 +3808,9 @@ def drive_extract_features() -> dict:
         shapes.add((*x.shape, n_heads))
         return fused(x, p, n_heads, *a, **k)
 
+    argv = ["--root", str(data), "--dataset", EXTRACT_TASK, "--backbone", "ViT-B/32",
+            "--output-dir", str(out_dir), "--batch-size", str(LP_BATCH), "--knowledge", "wiki",
+            "gpt3"]
     os.environ["MVLPT_TPU_RANDOM_CLIP"] = "1"
     block.fused_residual_block = recording
     try:
@@ -3785,9 +3819,7 @@ def drive_extract_features() -> dict:
         _build.reset_launch_counts()
         with _Timed(pipeline, "dump_split_features") as dumps, _BatchTimes() as timed, \
                 _Timed(knowledge, "encode_class_text_features_with_knowledge") as text:
-            extract_features.cli(["--root", str(data), "--dataset", EXTRACT_TASK, "--backbone",
-                                  "ViT-B/32", "--output-dir", str(out_dir), "--batch-size",
-                                  str(LP_BATCH), "--knowledge", "wiki", "gpt3"])
+            extract_features.cli(argv)
         counts = _split_counts(out_dir, 512)
         batches = sum(-(-n // LP_BATCH) for n in counts.values())
         row = half_block_shapes()[0]["image_extract"][:4]
@@ -3803,6 +3835,9 @@ def drive_extract_features() -> dict:
             raise AssertionError(f"{path}: text features {tf.shape}")
         if len(text.seconds) != 1:
             raise AssertionError(f"{path}: the knowledge text step ran {len(text.seconds)} times")
+        images_n = sum(counts.values())
+        turns = read_turns(path, card, lambda: extract_features.cli(argv), images_n,
+                           images_n / sum(dumps.seconds))
     finally:
         block.fused_residual_block = fused
         os.environ.pop("MVLPT_TPU_RANDOM_CLIP", None)
@@ -3811,7 +3846,7 @@ def drive_extract_features() -> dict:
                image_batches=batches, launches={k: n for k, n in launches.items() if n},
                img_per_s=images_n / sum(dumps.seconds),
                img_per_s_steady=timed.steady_img_per_s(), text_ms=text.seconds[0] * 1e3,
-               peak_mem_gib=_peak_gib())
+               peak_mem_gib=_peak_gib(), read_turns=turns)
     print(f"{path} [{card}]: {images_n} images ({counts}) in {batches} batches of {LP_BATCH}, "
           f"{out['img_per_s']:.1f} img/s with the loading (every split's loader start "
           f"included; {out['img_per_s_steady']:.1f} after each split's first batch); the "
@@ -3839,6 +3874,9 @@ ZOO_MODELS = {
                 (3, 5, 1, 6, 112), (4, 5, 2, 6, 192), (1, 3, 1, 6, 320)),
         stem_ch=32, head_ch=1280, num_classes=1000), 1280)}
 ZOO_COS, ZOO_CHECK_IMAGES, ZOO_FP32_REL = 0.999, 4, 1e-4
+# The zoo models whose extraction also runs with the previous read, in turns
+# (``read_turns``): the ViT, whose read waited on the next batch's tower.
+ZOO_READ_TURNS = ("vit_base_patch16_224",)
 # interpret_prompt's CoOp-layout checkpoint: N_CTX x the text width of the
 # random ViT-B/16, from a seeded generator; its top-k against float64
 # numpy on the host (indices equal but where two distances tie within
@@ -3905,11 +3943,12 @@ def drive_zoo_extract(rows: dict) -> dict:
         _free_cuda()
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launch_counts()
+        argv = ["--root", str(data), "--dataset", EXTRACT_TASK, "--model", name,
+                "--model-checkpoint", str(ckpt), "--output-dir", str(out_dir), "--batch-size",
+                str(LP_BATCH)]
         with _Timed(zoo, "get_model") as load, _Timed(pipeline, "dump_split_features") as dumps, \
                 _BatchTimes() as batches:
-            extract_features.cli(["--root", str(data), "--dataset", EXTRACT_TASK, "--model", name,
-                                  "--model-checkpoint", str(ckpt), "--output-dir", str(out_dir),
-                                  "--batch-size", str(LP_BATCH)])
+            extract_features.cli(argv)
         _launches_of(f"{path} {name}", dict(_build.LAUNCHES), (), 0)
         peak = _peak_gib()
         counts = _split_counts(out_dir, dim)
@@ -3960,6 +3999,11 @@ def drive_zoo_extract(rows: dict) -> dict:
         if not cos >= ZOO_COS:
             raise AssertionError(f"{path} {name}: bf16 against fp32 features, cosine {cos} < "
                                  f"{ZOO_COS}")
+        if name in ZOO_READ_TURNS:
+            _free_cuda()
+            row["read_turns"] = read_turns(f"{path} {name}", card,
+                                           lambda: extract_features.cli(argv), images_n,
+                                           row["img_per_s_with_loading"])
         _free_cuda()
     out["peak_mem_gib"] = max(m["peak_mem_gib"] for m in out["models"].values())
     print("main-path " + json.dumps(out), flush=True)
@@ -4517,6 +4561,445 @@ def drive_finetune_cli() -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------- the mesh
+#
+# mesh_cli (``drive_mesh_cli``): trainer_cli's data, flags and random
+# ViT-B/16 through ``mvlpt_torch.cli.train.main`` as two ranks that share
+# the card (torchrun's variables; gloo, since NCCL refuses two ranks on one
+# device), on each MESH_CLI_RUNS mesh, then on one rank as the reference.
+# Cut to fit its time: MESH_CLI_SHOTS shots (12 steps of 32, one window of
+# 12), one epoch, best_val on the 200 val and 400 test images.
+MESH_CLI_SHOTS = 4
+MESH_CLI_RUNS = {"data": ("TPU.MESH_DATA", "2"),
+                 "model": ("TPU.MESH_MODEL", "2", "TPU.MESH_DATA", "1")}
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 480
+# The mesh runs' test logits against the single rank's: max|difference| at
+# most MESH_LOGIT_REL x max|logit| (PERF.md §6, written before the first
+# run). Their accuracies differ by at most MESH_ACC_PP points, and
+# by no more than the share of test images whose single-rank top-2 margin
+# is under twice that difference (an argmax moves only where the margin
+# is below it).
+MESH_LOGIT_REL, MESH_ACC_PP = 0.05, 2.0
+POD_CHECK_TIMEOUT_S = 420
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_cli_argv(data: Path, out_dir: Path, opts=()) -> list:
+    return ["--root", str(data), "--trainer", "MVLPT", "--dataset-coop", "--dataset",
+            "OxfordPets", "--shots", str(MESH_CLI_SHOTS), "--seed", "1", "--cut-contextlen",
+            "--config-file", str(ROOT / "configs/trainers/MVLPT/vit_b16_tpu_fast.yaml"),
+            "--output-dir", str(out_dir), *CLI_OPTS, "OPTIM.MAX_EPOCH", "1", *opts]
+
+
+def _mesh_cli_rank(rank: int, world: int, workdir: str, ports: list) -> None:
+    """One rank of mesh_cli, in its own spawned process: for each run of
+    ``runs.json`` (name, argv, output dir), torchrun's variables for this
+    rank (MASTER_PORT a new free port a run) and ``cli.train.main`` on the
+    card, which joins the ranks and leaves the group at its end. Records
+    each window's metrics and host time (the card synchronized at both
+    ends) and the time in ``dist.all_reduce`` within it, the launch counts
+    of training and of test(), the final test()'s logits (computed after
+    it, uncounted), the trainer's epoch timings, the peak memory, the
+    paths it wrote under the output dir and the ``results`` lines it
+    printed. Writes rank{rank}.json and rank{rank}.pt, or rank{rank}.err
+    with the traceback."""
+    import traceback
+
+    work = Path(workdir)
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from mvlpt_torch.cli import train as cli_mod
+        from mvlpt_torch.ops import _build
+        from mvlpt_torch.train import trainer as trainer_mod
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        runs = json.loads((work / "runs.json").read_text())
+        write_probe = _test_helpers().WriteProbe
+        report, logits = {}, {}
+        make, test, all_reduce = (trainer_mod.make_train_step_multi,
+                                  trainer_mod.PromptTrainer.test, dist.all_reduce)
+        for (name, argv, out_dir), port in zip(runs, ports):
+            os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                              LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                              MASTER_PORT=str(port), MVLPT_TPU_RANDOM_CLIP="1")
+            windows, reduce_s, tests = [], [0.0], []
+            end = {}
+
+            def timed_all_reduce(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return all_reduce(*a, **k)
+                finally:
+                    reduce_s[0] += time.perf_counter() - t0
+
+            def probed(*a, **k):
+                step = make(*a, **k)
+
+                def call(*sa, **sk):
+                    torch.cuda.synchronize()
+                    r0, t0 = reduce_s[0], time.perf_counter()
+                    state, m = step(*sa, **sk)
+                    torch.cuda.synchronize()
+                    ms = 1e3 * (time.perf_counter() - t0)
+                    windows.append(dict(k=int(m["loss"].shape[0]), ms=ms,
+                                        all_reduce_ms=1e3 * (reduce_s[0] - r0),
+                                        loss=m["loss"].tolist(), grad_norm=m["grad_norm"].tolist()))
+                    return state, m
+                probed.steps.append(step)
+                return call
+            probed.steps = []
+
+            def tested(self, split=None):
+                before = dict(_build.LAUNCHES)
+                result = test(self, split)
+                after = dict(_build.LAUNCHES)
+                tests.append({k: after.get(k, 0) - before.get(k, 0) for k in after})
+                end.update(after)
+                if split in (None, "test"):
+                    logits[name] = _test_logits(self).cpu()
+                return result
+
+            trainer_mod.make_train_step_multi, trainer_mod.PromptTrainer.test = probed, tested
+            dist.all_reduce = timed_all_reduce
+            saved = sys.stdout
+            log = work / f"{name}.rank{rank}.out"
+            try:
+                with open(log, "w") as f, write_probe(out_dir) as writes:
+                    sys.stdout = f
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    _build.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    trainer = cli_mod.main(cli_mod.build_parser().parse_args(argv))
+                    run_s = time.perf_counter() - t0
+            finally:
+                sys.stdout = saved
+                trainer_mod.make_train_step_multi, trainer_mod.PromptTrainer.test = make, test
+                dist.all_reduce = all_reduce
+            in_tests = {k: sum(t.get(k, 0) for t in tests) for k in end}
+            report[name] = dict(
+                run_s=run_s, windows=windows, captures=[s.captures for s in probed.steps],
+                launches_train={k: v - in_tests[k] for k, v in end.items() if v - in_tests[k]},
+                launches_test={k: v for k, v in in_tests.items() if v},
+                epochs=trainer.timings["epochs"], tests=trainer.timings["tests"],
+                peak_mem_gib=_peak_gib(), writes=sorted(set(writes.paths)),
+                results=[line[len("results "):].strip() for line in log.read_text().splitlines()
+                         if line.startswith("results ")])
+            del trainer
+            _free_cuda()
+        (work / f"rank{rank}.json").write_text(json.dumps(report))
+        torch.save(logits, work / f"rank{rank}.pt")
+    except BaseException:
+        (work / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def _logit_bound(path: str, what: str, got, ref) -> dict:
+    """``got`` test logits against the reference ``ref`` (the single rank's):
+    max|difference| held at MESH_LOGIT_REL x max|ref|; the test images whose
+    reference top-2 margin is under twice it (the only ones whose argmax
+    can move), and the accuracy bound, in percentage points: their share,
+    at most MESH_ACC_PP."""
+    import torch
+
+    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{path}: {what} logits {tuple(got.shape)} against "
+                             f"{tuple(ref.shape)}, or not finite")
+    diff = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    top2 = ref.float().topk(2, dim=1).values
+    near = int(((top2[:, 0] - top2[:, 1]) < 2 * diff).sum())
+    out = dict(max_abs_diff=diff, max_abs_ref=scale, near_rows=near,
+               acc_bound_pp=min(MESH_ACC_PP, 100.0 * near / ref.shape[0]))
+    if not diff <= MESH_LOGIT_REL * scale:
+        raise AssertionError(f"{path}: {what} test logits differ from one rank's by {diff}, "
+                             f"over {MESH_LOGIT_REL} x {scale}")
+    return out
+
+
+def drive_mesh_cli() -> dict:
+    """mesh_cli: the training CLI under a mesh as two ranks on the one card
+    (``_mesh_cli_rank``), on trainer_cli's dataset at full ViT-B/16 width
+    (bf16, MVLPT UPT, vit_b16_tpu_fast.yaml, windows on), once for each of
+    MESH_CLI_RUNS, then the same argv on one rank in this process, and an
+    --eval-only run of the single-rank CLI from the data-axis run's rank 0
+    directory. Holds: every rank exits 0; only rank 0 wrote files; both
+    ranks print the same results lines; the first window's first loss and
+    grad norm within TP_REL (bf16) of the single rank's; the final test's
+    logits and accuracy within the bound of ``_logit_bound`` (so is the
+    --eval-only run's); the windows run eagerly (no capture); on the data
+    axis only #1-#4 launch in training, 24 a step each, and only #5/#6 in
+    test(); on the model axis only #7-#10 in training, 24 a step each, and
+    only #7/#9 in test(). Prints each rank's step ms, img/s with the
+    loading, the share of the windows' time in dist.all_reduce and peak
+    memory, with the card's name and power limit: two ranks time-slice one
+    card and all-reduce through host memory, so these are no scaling
+    figures."""
+    import ast
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    path, card = "mesh_cli", card_line()
+    data = write_cli_dataset(ROOT / "build" / "trainer_cli_data")
+    work = ROOT / "build" / "chip_smoke_mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    runs = [[name, _mesh_cli_argv(data, work / name, opts), str(work / name)]
+            for name, opts in MESH_CLI_RUNS.items()]
+    (work / "runs.json").write_text(json.dumps(runs))
+    ports = [_free_port() for _ in runs]
+    _free_cuda()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_mesh_cli_rank, args=(r, MESH_RANKS, str(work), ports))
+             for r in range(MESH_RANKS)]
+    t0 = time.perf_counter()
+    for proc in procs:
+        proc.start()
+    try:
+        for proc in procs:
+            proc.join(max(1.0, MESH_TIMEOUT_S - (time.perf_counter() - t0)))
+    finally:
+        hung = [r for r, proc in enumerate(procs) if proc.is_alive()]
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(10)
+    errs = {r: (work / f"rank{r}.err").read_text() for r in range(MESH_RANKS)
+            if (work / f"rank{r}.err").is_file()}
+    if hung or errs or any(proc.exitcode != 0 for proc in procs):
+        raise AssertionError(f"{path}: ranks still running after {MESH_TIMEOUT_S} s: {hung}; "
+                             f"exit codes {[proc.exitcode for proc in procs]}; errors {errs}")
+    ranks_s = time.perf_counter() - t0
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(MESH_RANKS)]
+    logits = [torch.load(work / f"rank{r}.pt", weights_only=True) for r in range(MESH_RANKS)]
+
+    # The single rank, then --eval-only from the data-axis run's directory.
+    os.environ["MVLPT_TPU_RANDOM_CLIP"] = "1"
+    try:
+        single, probe = _cli_run(_mesh_cli_argv(data, work / "single"))
+        ref_logits = _test_logits(single)
+    finally:
+        os.environ.pop("MVLPT_TPU_RANDOM_CLIP", None)
+    ref_results = _results_of(work / "single" / "log.txt")
+    ref_first = {k: probe.windows[0][k][0].item() for k in ("loss", "grad_norm")}
+    steps = int(probe.windows[0]["loss"].shape[0])
+    del single
+    _free_cuda()
+    os.environ["MVLPT_TPU_RANDOM_CLIP"] = "1"
+    try:
+        ev, _ = _cli_run(["--eval-only", "--model-dir", str(work / "data")]
+                         + _mesh_cli_argv(data, work / "eval_only"))
+        eval_logits = _test_logits(ev)
+    finally:
+        os.environ.pop("MVLPT_TPU_RANDOM_CLIP", None)
+    del ev
+    eval_results = _results_of(work / "eval_only" / "log.txt")
+    _free_cuda()
+
+    want_train = {"data": ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd"), "model": TP_KERNELS}
+    want_test = {"data": ("attn_fwd_infer", "mlp_fwd_infer"),
+                 "model": ("attn_fwd_tp", "mlp_fwd_tp")}
+    from mvlpt_torch.core.clip import CLIPConfig
+
+    vit = CLIPConfig.for_backbone("ViT-B/16")
+    layers = vit.vision_layers + vit.transformer_layers  # blocks a step, each tower's
+    out = dict(path=path, card=card, ranks_wall_s=ranks_s, steps=steps,
+               single=dict(first=ref_first, results=ref_results[-1]), runs={},
+               launches={})
+    for name in MESH_CLI_RUNS:
+        got = [r[name] for r in ranks]
+        res = [[ast.literal_eval(x) for x in g["results"]] for g in got]
+        if not res[0] or res[0] != res[1]:
+            raise AssertionError(f"{path} {name}: results lines {got[0]['results']} and "
+                                 f"{got[1]['results']} of the two ranks")
+        if got[1]["writes"]:
+            raise AssertionError(f"{path} {name}: rank 1 wrote {got[1]['writes']}")
+        for rel in ("log.txt", "prompt_learner/model-best.pth.tar"):
+            if str(work / name / rel) not in got[0]["writes"]:
+                raise AssertionError(f"{path} {name}: rank 0 did not write {rel}")
+        for r, g in enumerate(got):
+            if any(g["captures"]) or [w["k"] for w in g["windows"]] != [steps]:
+                sizes = [w["k"] for w in g["windows"]]
+                raise AssertionError(f"{path} {name} rank {r}: windows {sizes}, captures "
+                                     f"{g['captures']}; want one eager window of {steps}")
+            if g["launches_train"] != {k: layers * steps for k in want_train[name]}:
+                raise AssertionError(f"{path} {name} rank {r}: training launches "
+                                     f"{g['launches_train']}, want {layers * steps} of each of "
+                                     f"{want_train[name]}")
+            if set(g["launches_test"]) != set(want_test[name]):
+                raise AssertionError(f"{path} {name} rank {r}: test() launches "
+                                     f"{g['launches_test']}, want {want_test[name]}")
+        first = {k: got[0]["windows"][0][k][0] for k in ("loss", "grad_norm")}
+        for what in ("loss", "grad_norm"):
+            rel = TP_REL["bfloat16"][what]
+            if not (math.isfinite(first[what])
+                    and abs(first[what] - ref_first[what]) <= rel * abs(ref_first[what])):
+                raise AssertionError(f"{path} {name}: rank 0's first {what} {first[what]} vs one "
+                                     f"rank's {ref_first[what]} ({rel} relative)")
+        bound = _logit_bound(f"{path} {name}", "rank 0's", logits[0][name], ref_logits)
+        if not torch.equal(logits[0][name], logits[1][name]):
+            raise AssertionError(f"{path} {name}: the two ranks' test logits differ")
+        acc, acc_ref = res[0][-1]["accuracy"], ref_results[-1]["accuracy"]
+        if not abs(acc - acc_ref) <= bound["acc_bound_pp"] + 1e-9:
+            raise AssertionError(f"{path} {name}: test accuracy {acc} vs one rank's {acc_ref}, "
+                                 f"over the {bound['acc_bound_pp']} points of {bound['near_rows']} "
+                                 "near rows")
+        win = [g["windows"][0] for g in got]
+        epochs = [g["epochs"][0] for g in got]
+        row = out["runs"][name] = dict(
+            results=res[0][-1], first=first, logits=bound,
+            step_ms=[w["ms"] / w["k"] for w in win],
+            all_reduce_share=[w["all_reduce_ms"] / w["ms"] for w in win],
+            img_per_s_with_loading=[e["images"] / e["wall_s"] for e in epochs],
+            peak_mem_gib=[g["peak_mem_gib"] for g in got], run_s=[g["run_s"] for g in got],
+            launches_train=got[0]["launches_train"], launches_test=got[0]["launches_test"],
+            writes_rank0=len(got[0]["writes"]))
+        train, test = got[0]["launches_train"], got[0]["launches_test"]
+        out["launches"][name] = {k: train.get(k, 0) + test.get(k, 0)
+                                 for k in set(train) | set(test)}
+        print(f"{path} {name} [{card}]: two ranks time-slice this card over gloo (all-reduces "
+              f"through host memory; no scaling figure): step "
+              f"{', '.join(f'{x:.1f}' for x in row['step_ms'])} ms a rank (an eager window of "
+              f"{steps}), {', '.join(f'{100 * x:.1f}%' for x in row['all_reduce_share'])} of it in "
+              f"dist.all_reduce; {', '.join(f'{x:.1f}' for x in row['img_per_s_with_loading'])} "
+              f"img/s with the loading a rank (of its rows); peak "
+              f"{', '.join(f'{x:.2f}' for x in row['peak_mem_gib'])} GiB a rank; first loss "
+              f"{first['loss']:.6f} (one rank {ref_first['loss']:.6f}), grad norm "
+              f"{first['grad_norm']:.6f} ({ref_first['grad_norm']:.6f}); test logits max|diff| "
+              f"{bound['max_abs_diff']:.4g} of max {bound['max_abs_ref']:.4g}, accuracy {acc} "
+              f"(one rank {acc_ref}; bound {bound['acc_bound_pp']:.2f} points)", flush=True)
+    bound = _logit_bound(f"{path} --eval-only", "the --eval-only run's", eval_logits,
+                         logits[0]["data"])
+    acc_eval = eval_results[-1]["accuracy"]
+    acc_data = out["runs"]["data"]["results"]["accuracy"]
+    if not abs(acc_eval - acc_data) <= bound["acc_bound_pp"] + 1e-9:
+        raise AssertionError(f"{path}: --eval-only of rank 0's checkpoint gives {acc_eval}, rank "
+                             f"0's run {acc_data} (bound {bound['acc_bound_pp']} points)")
+    out["eval_only"] = dict(results=eval_results[-1], logits=bound,
+                            results_equal=eval_results[-1] == out["runs"]["data"]["results"])
+    print(f"{path}: --eval-only on one rank from the data-axis run's rank 0 checkpoint: "
+          f"{eval_results[-1]} (rank 0 {out['runs']['data']['results']}; logits max|diff| "
+          f"{bound['max_abs_diff']:.4g})", flush=True)
+    print("main-path " + json.dumps(out), flush=True)
+    return out
+
+
+def drive_pod_loss_check() -> dict:
+    """scripts/torch_port_pod_loss_check.py on the card: a (1, 2) mesh of two
+    ranks sharing it, ViT-B/16 in bf16, 3 SGD steps under 'on' then 'off',
+    every rank's per-step losses within TP_REL's loss bound of one rank's.
+    Under 'on' every rank launches #11/#12 alone, its image rows 32 x 6
+    heads (H/tp); under 'off' none of the 12 launches. Prints each rank's
+    step ms, the share in dist.all_reduce and peak memory, with the card's
+    name and power limit."""
+    import subprocess
+
+    path, card = "pod_loss_check", card_line()
+    out_json = ROOT / "build" / "pod_loss_check.json"
+    cmd = [sys.executable, str(ROOT / "scripts" / "torch_port_pod_loss_check.py"), "--mesh",
+           "1,2", "--backbone", "b16", "--kernels", "on", "off", "--steps", "3", "--tol", "0",
+           "--rtol", str(TP_REL["bfloat16"]["loss"]), "--out", str(out_json), "--workdir",
+           str(ROOT / "build" / "pod_loss_check")]
+    _free_cuda()
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=POD_CHECK_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{path}: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    line = json.loads(out_json.read_text())
+    out = dict(path=path, card=card, wall_s=wall, checks={}, launches={})
+    for check in line["checks"]:
+        sel, ranks = check["kernels"], check["ranks"]
+        image_rows = 32 * 12 // 2  # the batch x this rank's 6 of 12 heads
+        for r, got in enumerate(ranks):
+            if sel == "on" and not (set(got["launches"]) == {"attend_fwd", "attend_bwd"}
+                                    and image_rows in got["attend_rows"]):
+                raise AssertionError(f"{path} on rank {r}: launches {got['launches']}, "
+                                     f"attention rows {got['attend_rows']}")
+            if sel == "off" and got["launches"]:
+                raise AssertionError(f"{path} off rank {r}: launches {got['launches']}")
+        out["checks"][sel] = dict(
+            single=check["single"]["losses"], ranks=[g["losses"] for g in ranks],
+            max_excess=check["max_excess"], launches=ranks[0]["launches"],
+            attend_rows=ranks[0]["attend_rows"],
+            step_ms=[1e3 * sum(g["step_s"][1:]) / len(g["step_s"][1:]) for g in ranks],
+            all_reduce_share=[sum(g["all_reduce_s"][1:]) / sum(g["step_s"][1:]) for g in ranks],
+            single_step_ms=1e3 * sum(check["single"]["step_s"][1:])
+            / len(check["single"]["step_s"][1:]),
+            peak_mem_gib=[g["peak_mem_gib"] for g in ranks])
+        out["launches"][sel] = ranks[0]["launches"]
+        c = out["checks"][sel]
+        print(f"{path} {sel} [{card}]: losses one rank {c['single']}, ranks {c['ranks']} "
+              f"(within {TP_REL['bfloat16']['loss']} relative); two ranks time-slice the card "
+              f"over gloo (no scaling figure): {', '.join(f'{x:.1f}' for x in c['step_ms'])} ms "
+              f"a step a rank (one rank {c['single_step_ms']:.1f}), "
+              f"{', '.join(f'{100 * x:.1f}%' for x in c['all_reduce_share'])} in dist.all_reduce; "
+              f"peak {', '.join(f'{x or 0:.2f}' for x in c['peak_mem_gib'])} GiB; launches "
+              f"{c['launches']}, attention rows {c['attend_rows']}", flush=True)
+    if not line["ok"]:
+        raise AssertionError(f"{path}: {line}")
+    print("main-path " + json.dumps(out), flush=True)
+    return out
+
+
+def _parent_pipelined_inference(loader, dispatch):
+    """``utils.pipeline.pipelined_inference`` as it read before its repair,
+    the baseline of ``read_turns``: batch i read with ``.cpu()`` after batch i+1's
+    dispatch, so on the one stream the read waits for batch i+1's tower."""
+    import torch
+
+    def read(x):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+
+    pend = None
+    for batch in loader:
+        dev = dispatch(batch)
+        if pend is not None:
+            yield read(pend[0]), pend[1]
+        pend = (dev, batch)
+    if pend is not None:
+        yield read(pend[0]), pend[1]
+
+
+def read_turns(path: str, card: str, run, images_n: int, shipped: float) -> dict:
+    """The extraction ``run`` again, in turns after the phase's run with the
+    shipped read (``shipped`` img/s): with the previous read, then with the
+    shipped one. Returns and prints img/s with the loading of each."""
+    from mvlpt_torch.utils import pipeline
+
+    rates = {"shipped": [shipped], "parent": []}
+    for way in ("parent", "shipped"):
+        saved = pipeline.pipelined_inference
+        if way == "parent":
+            pipeline.pipelined_inference = _parent_pipelined_inference
+        try:
+            with _Timed(pipeline, "dump_split_features") as dumps:
+                run()
+        finally:
+            pipeline.pipelined_inference = saved
+        rates[way].append(images_n / sum(dumps.seconds))
+    print(f"{path} [{card}]: img/s with the loading, in turns: shipped read "
+          f"{rates['shipped'][0]:.1f}, the previous read {rates['parent'][0]:.1f}, shipped read "
+          f"{rates['shipped'][1]:.1f}", flush=True)
+    return rates
+
+
 def kernel_entries(results: list[dict], paths: dict) -> list[dict]:
     """One entry a kernel of KERNELS: its bf16 check row's numbers and its
     launches on each path."""
@@ -4706,6 +5189,14 @@ def main() -> int:
     paths["extract_features"] = drive_extract_features()
     paths["zoo_extract"] = drive_zoo_extract(paths["extract_features"]["rows"])
     paths["interpret_prompt"] = drive_interpret_prompt()
+    # The mesh runs last: two ranks share the card with this process, and
+    # the traced replays above run as they did before these phases existed.
+    mesh = drive_mesh_cli()
+    for name, launches in mesh["launches"].items():
+        paths[f"mesh_cli[{name}]"] = dict(mesh["runs"][name], launches=launches)
+    pod = drive_pod_loss_check()
+    for name, launches in pod["launches"].items():
+        paths[f"pod_loss_check[{name}]"] = dict(launches=launches)
 
     summary = {"card": card_line()}
     for path, out in paths.items():

@@ -14,9 +14,18 @@ Config merge order: dataset-yaml < trainer-yaml < CLI flags < opts
 (train.py:171-191). Runs on the card; ``main(args, device="cpu")`` runs
 on the CPU. CoOp and ELEVATER datasets, CoCoOp, ``--act-ckpt``, the
 zero-shot trainers, the fine-tune trainer (FinetuneCLIP), SGD, Adam, AdamW
-and RMSprop, VPT dropout and ``--debug-nans`` run; what the port does not
-run yet (a mesh, the data backends other than "python") raises, naming
-its ROADMAP.md item.
+and RMSprop, VPT dropout, ``--debug-nans`` and the mesh run; the "tf"
+data backend raises (``config.validate_support``).
+
+Under a ("data", "model") mesh of ranks, one process a rank:
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m mvlpt_torch.cli.train ... TPU.MESH_MODEL 2 TPU.MESH_DATA 1
+
+``main`` joins the ranks first (``parallel.maybe_initialize_distributed``:
+NCCL when each local rank has a card of its own, gloo when ranks share a
+card or run on the CPU), runs on the rank's device and leaves the group
+at exit. Only rank 0 writes log.txt, tb/ and the checkpoints.
 """
 
 from __future__ import annotations
@@ -122,22 +131,47 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--debug-nans", action="store_true",
                         help="fail fast on NaNs (debug-mode equivalent of "
                              "the dormant TRAIN.DETECT_ANOMALY flag)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (the default: the card, or under torch.distributed.run "
+                             "this rank's card) or cpu")
     parser.add_argument("opts", default=None, nargs=argparse.REMAINDER)
     return parser
 
 
 def main(args, device="cuda"):
-    import torch
+    """Run the CLI on ``device`` (the card unless the caller asks for the
+    CPU). Under torchrun's variables, or inside a process group a caller
+    made, it runs as one rank of the mesh, on ``parallel.rank_device``; it
+    leaves a group it made itself at exit."""
+    import torch.distributed as dist
 
-    from mvlpt_torch.train.trainer import build_trainer
+    from mvlpt_torch.parallel import maybe_initialize_distributed, rank_device
     from mvlpt_torch.utils.device import resolve_device
 
     device = resolve_device(device)
+    joins = not dist.is_initialized()
+    if maybe_initialize_distributed(device):
+        device = rank_device(device)
+        print(f"multi-host: process {dist.get_rank()}/{dist.get_world_size()}")
+    try:
+        return _run(args, device)
+    finally:
+        if joins and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args, device):
+    import torch
+
+    from mvlpt_torch.parallel import is_writer
+    from mvlpt_torch.train.trainer import build_trainer
+
     cfg = setup_cfg(args)
     if cfg.SEED >= 0:
         print(f"Setting fixed seed: {cfg.SEED}")
         set_random_seed(cfg.SEED)
-    setup_logger(cfg.OUTPUT_DIR)
+    # only rank 0 writes log.txt; every rank prints
+    setup_logger(cfg.OUTPUT_DIR if is_writer() else None)
     print(cfg.dump())
     if args.debug_nans:
         from mvlpt_torch.utils.profiler import enable_nan_debugging
@@ -162,7 +196,8 @@ def main(args, device="cuda"):
 
 
 def cli():
-    main(build_parser().parse_args())
+    args = build_parser().parse_args()
+    main(args, device=args.device)
 
 
 if __name__ == "__main__":

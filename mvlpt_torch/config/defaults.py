@@ -228,10 +228,11 @@ def validate_support(cfg) -> None:
     """Fail loudly on keys whose non-default values nothing runs.
 
     As in the JAX package: the Dassl DataLoader features MVLPT never
-    exercises. Besides, what the port has not ported yet, each naming
-    its ROADMAP.md item: a mesh of more than one device, and the "tf"
-    data backend (``data/tfdata.py`` imports TensorFlow, which the port
-    does not use)."""
+    exercises. Besides, the "tf" data backend, which the port does not
+    run (``data/tfdata.py`` imports TensorFlow, which the port does not
+    use; ROADMAP.md Queue 1). TPU.MESH_DATA/MESH_MODEL take any value: the
+    trainer checks the mesh against the run's ranks
+    (``train.trainer.build_mesh``)."""
     problems = []
     if cfg.DATALOADER.K_TRANSFORMS != 1:
         problems.append("DATALOADER.K_TRANSFORMS != 1 (multi-view "
@@ -253,10 +254,6 @@ def validate_support(cfg) -> None:
         raise NotImplementedError("; ".join(problems))
 
     missing = []
-    mesh = (cfg.TPU.MESH_DATA, cfg.TPU.MESH_MODEL)
-    if cfg.TPU.MESH_DATA not in (-1, 1) or cfg.TPU.MESH_MODEL != 1:
-        missing.append(f"TPU.MESH_DATA/MESH_MODEL {mesh}: the trainer runs on one "
-                       "device (ROADMAP.md Queue 1, item 8)")
     if cfg.DATALOADER.BACKEND not in ("python", "native"):
         missing.append(f"DATALOADER.BACKEND {cfg.DATALOADER.BACKEND!r}: only 'python' and "
                        "'native' (ROADMAP.md Queue 1: data/tfdata.py is not ported)")

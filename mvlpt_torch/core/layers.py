@@ -21,7 +21,9 @@ layer, TRAINER.ACT_CKPT > 1).
 kernels (their tensor-parallel parts under a mesh with a model axis);
 an attention function (``ops.attention.fused_attention``)
 replaces the attention core between the qkv and out-projection
-products; None keeps the plain path.
+products; None keeps the plain path; an ``ops.attention.ShardedAttention``
+runs either of the last two on the rank's Megatron shard of a block
+under a mesh with a model axis.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from mvlpt_torch.ops import block as block_ops
+from mvlpt_torch.ops.attention import ShardedAttention
+from mvlpt_torch.parallel.mesh import copy_to_model, reduce_from_model
 
 
 def layer_norm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
@@ -89,10 +93,57 @@ def mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
     return _matmul(h, p["proj_w"], p["proj_b"])
 
 
+def _column(xf: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
+    """``_matmul`` of an fp32 input that holds values of ``dtype``: the
+    product of a column-parallel shard, rounded to ``dtype``."""
+    return (torch.matmul(xf, w.to(dtype).float()) + b.float()).to(dtype)
+
+
+def _row(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, mesh) -> torch.Tensor:
+    """A row-parallel product: this rank's fp32 partial, summed over the
+    model group, plus the bias, rounded once to h's dtype."""
+    part = reduce_from_model(torch.matmul(h.float(), w.to(h.dtype).float()), mesh)
+    return (part + b.float()).to(h.dtype)
+
+
+def sharded_residual_block(x: torch.Tensor, p: dict, n_heads: int,
+                           mask: torch.Tensor | None, kernels: ShardedAttention) -> torch.Tensor:
+    """The plain block ('off', or 'on' through ``kernels.attn_fn``) on this
+    model rank's shard (``parallel.shard_blocks``), ``n_heads`` the
+    tower's full head count: LN, then the fp32 LN output enters the shard
+    (``copy_to_model``: its gradient is summed over the model group), qkv
+    on H/tp heads, attention, the out-projection's fp32 partial summed
+    over the model group plus out_b, rounded, plus the residual; the MLP
+    likewise on 4W/tp hidden units. The rounding points are the plain
+    path's; only the order of the products' sums moves. Full weights (a
+    tower whose heads or hidden units do not divide) run the plain block
+    whole on every model rank."""
+    mesh, attn_fn = kernels.mesh, kernels.attn_fn
+    b, s, w = x.shape
+    at, ml = p["attn"], p["mlp"]
+    if at["qkv_w"].shape[-1] == 3 * w:
+        return residual_block(x, p, n_heads, mask, attn_fn)
+    tp = mesh.n_model
+    if at["qkv_w"].shape[-1] * tp != 3 * w or n_heads % tp:
+        raise ValueError(f"sharded_residual_block: qkv_w {tuple(at['qkv_w'].shape)} is not a "
+                         f"{tp}-way shard of a {n_heads}-head block of width {w}")
+    dtype, hl, d = x.dtype, n_heads // tp, w // n_heads
+    hf = copy_to_model(layer_norm(x, p["ln_1"]).float(), mesh)
+    qkv = _column(hf, at["qkv_w"], at["qkv_b"], dtype)          # (B, S, 3W/tp)
+    q, k, v = qkv.view(b, s, 3, hl, d).permute(2, 0, 3, 1, 4)
+    o = (attn_fn or _sdpa)(q, k, v, mask)                      # (B, H/tp, S, D)
+    x = x + _row(o.transpose(1, 2).reshape(b, s, hl * d), at["out_w"], at["out_b"], mesh)
+    hf = copy_to_model(layer_norm(x, p["ln_2"]).float(), mesh)
+    a = quick_gelu(_column(hf, ml["fc_w"], ml["fc_b"], dtype))  # (B, S, 4W/tp)
+    return x + _row(a, ml["proj_w"], ml["proj_b"], mesh)
+
+
 def residual_block(x: torch.Tensor, p: dict, n_heads: int,
                    mask: torch.Tensor | None = None, kernels=None) -> torch.Tensor:
     """Pre-LN residual block under a kernel selection (see the module
     docstring)."""
+    if isinstance(kernels, ShardedAttention):
+        return sharded_residual_block(x, p, n_heads, mask, kernels)
     if isinstance(kernels, block_ops.BlockKernels):
         mesh = kernels.mesh
         if mesh is not None and mesh.n_model > 1:

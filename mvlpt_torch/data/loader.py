@@ -9,8 +9,10 @@ loaders drop the tail, eval loaders pad the tail batch and report the
 pad so metrics can mask it). Batches are numpy. ``DeviceStager`` and
 ``prefetch_to_device`` put them on the device: pinned host buffers from
 a ring, copied without blocking on a side stream, PyTorch's form of the
-JAX package's asynchronous ``jax.device_put``. The JAX package's
-multi-host row sharding is not ported (ROADMAP.md Queue 1, item 8).
+JAX package's asynchronous ``jax.device_put``. Under a mesh with a data
+axis a train loader decodes only its rank's rows of each global batch
+(``host_shard``, the JAX package's multi-host row sharding; the
+``parallel/multihost.py`` contract), and eval loaders read every row.
 """
 
 from __future__ import annotations
@@ -86,11 +88,17 @@ class DataLoader:
     ``drop_last``, matching torch's default for Dassl train loaders).
     Eval mode: tail batch is padded to the static batch size and
     ``n_valid`` marks real rows.
+
+    ``host_shard=(start, size)``: the rows [start, start + size) of each
+    global batch are all this loader decodes (a rank's rows under a data
+    axis, ``parallel.local_batch_slice``); the global order and the
+    per-index augmentation draws are those of every rank, so the rows are
+    those of the unsharded batch bit for bit. It requires ``drop_last``.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool,
                  num_workers: int = 4, seed: int = 0, drop_last: bool = False,
-                 multitask: bool = False):
+                 multitask: bool = False, host_shard: tuple[int, int] | None = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -99,6 +107,10 @@ class DataLoader:
         self.drop_last = drop_last
         self.multitask = multitask
         self.epoch = 0
+        self.host_shard = host_shard
+        if host_shard is not None and not drop_last:
+            raise ValueError("host_shard requires drop_last=True "
+                             "(eval loaders run replicated, unsharded)")
 
     def __len__(self):
         n = len(self.dataset)
@@ -141,12 +153,17 @@ class DataLoader:
                 chunk = idxs[start : start + bs]
                 if len(chunk) < bs and self.drop_last:
                     break
+                if self.host_shard is not None:
+                    # the augmentation draws key on the global index i
+                    s0, sz = self.host_shard
+                    chunk = chunk[s0:s0 + sz]
                 if pool is not None:
                     rows = list(pool.map(fetch, chunk))
                 else:
                     rows = [fetch(i) for i in chunk]
                 n_valid = len(rows)
-                while len(rows) < bs:  # pad eval tail to static shape
+                target = bs if self.host_shard is None else self.host_shard[1]
+                while len(rows) < target:  # pad eval tail to static shape
                     rows.append(rows[-1])
                 imgs = np.stack([r[0] for r in rows])
                 if imgs.dtype != np.uint8:
@@ -163,16 +180,29 @@ class DataLoader:
                 pool.shutdown(wait=False, cancel_futures=True)
 
 
+def train_shard(batch_size: int, is_train: bool, mesh) -> tuple[int, int] | None:
+    """The ``host_shard`` of a loader: this rank's rows of each global
+    batch for a train loader under a mesh whose data axis is above 1, else
+    None (eval loaders read every row on every rank)."""
+    if not is_train or mesh is None or mesh.n_data == 1:
+        return None
+    from mvlpt_torch.parallel.multihost import local_batch_slice
+
+    return local_batch_slice(batch_size, mesh)
+
+
 def build_data_loader(cfg, data_source, batch_size, tfm, is_train: bool,
-                      multitask: bool = False, label_transform=None):
+                      multitask: bool = False, label_transform=None, mesh=None):
     """Dassl build_data_loader equivalent (the reference's mvlpt.py:661-720).
     Train loaders shuffle and drop their tail batch, so every train batch
-    has the same shape (the trainer's windows stack them)."""
+    has the same shape (the trainer's windows stack them); under ``mesh``
+    (a ``parallel.Mesh``) they decode this rank's rows (:func:`train_shard`)."""
     ds = _TransformedDataset(data_source, tfm, label_transform)
     return DataLoader(
         ds, batch_size=batch_size, shuffle=is_train,
         num_workers=cfg.DATALOADER.NUM_WORKERS, seed=max(cfg.SEED, 0),
         drop_last=is_train, multitask=multitask,
+        host_shard=train_shard(batch_size, is_train, mesh),
     )
 
 
@@ -182,9 +212,11 @@ def eval_mode(loader):
     built for training. A training transform, ``NativeTrainTransform``
     too, becomes a plain (PIL) ``EvalTransform``, as in the JAX package:
     a train split extracted this way decodes through PIL whatever
-    DATALOADER.BACKEND says."""
+    DATALOADER.BACKEND says. Every rank reads every row: a train loader's
+    ``host_shard`` is cleared."""
     loader.shuffle = False
     loader.drop_last = False
+    loader.host_shard = None
     # Swap a training transform for its eval counterpart so the "no
     # augmentation" promise holds.
     ds = getattr(loader, "dataset", None)
@@ -300,11 +332,15 @@ def prefetch_to_device(iterator, size: int = 2, device=None, sharding=None,
     ``n_valid`` stays a host int; every array keeps its dtype (uint8
     images stay uint8 under TPU.DEVICE_NORMALIZE). ``stager`` (a
     ``DeviceStager`` on ``device``) keeps its pinned ring across calls;
-    by default each call makes its own. A ``sharding`` raises: the port
-    runs on one device (ROADMAP.md Queue 1, item 8)."""
+    by default each call makes its own. ``sharding`` (a ``parallel.Mesh``)
+    stages this rank's rows of each global batch (``parallel.local_batch``,
+    the counterpart of a ``NamedSharding`` over "data"); ``n_valid`` and
+    the other host values pass as they are."""
     if sharding is not None:
-        raise NotImplementedError("prefetch_to_device with a sharding is not ported yet: the "
-                                  "port stages on one device (ROADMAP.md Queue 1, item 8)")
+        from mvlpt_torch.parallel.mesh import local_batch
+
+        iterator = ({k: local_batch(v, sharding) if isinstance(v, (np.ndarray, torch.Tensor))
+                     else v for k, v in batch.items()} for batch in iterator)
     stager = stager or DeviceStager(device, depth=size + 1)
     queue = collections.deque()
     it = iter(iterator)

@@ -26,7 +26,7 @@ import numpy as np
 from mvlpt_torch.data import transforms as T
 from mvlpt_torch.data.coop import datasets as coop_datasets  # noqa: F401  (registers loaders)
 from mvlpt_torch.data.elevater import manifest as ev
-from mvlpt_torch.data.loader import DataLoader, _load_image, build_data_loader
+from mvlpt_torch.data.loader import DataLoader, _load_image, build_data_loader, train_shard
 from mvlpt_torch.data.zipio import read_bytes
 from mvlpt_torch.evaluation.metrics import get_metric
 from mvlpt_torch.utils.registry import DATASET_REGISTRY
@@ -35,7 +35,7 @@ from mvlpt_torch.utils.registry import DATASET_REGISTRY
 class CoopMultitaskDataManager:
     """Concatenate CoOp datasets with offset labels and task domains."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, mesh=None):
         # --dataset sets DATASET.DATASET; a bare --dataset-config-file
         # (the CoOp/CoCoOp protocol scripts, Dassl style) sets only
         # DATASET.NAME: accept either.
@@ -79,7 +79,7 @@ class CoopMultitaskDataManager:
 
         def mk(items, bs, is_train):
             return build_data_loader(cfg, items, bs, tfm_train if is_train else tfm_test,
-                                     is_train=is_train, multitask=multitask)
+                                     is_train=is_train, multitask=multitask, mesh=mesh)
 
         self.train_loader_x = mk(train_x, cfg.DATALOADER.TRAIN_X.BATCH_SIZE, True)
         self.val_loader = mk(val, cfg.DATALOADER.TEST.BATCH_SIZE, False) if val else None
@@ -138,14 +138,16 @@ def _elevater_transform(cfg):
         to_uint8=bool(cfg.TPU.DEVICE_NORMALIZE), **kw)
 
 
-def _make_loader(cfg, items, transform, target_fn, batch_size, shuffle, multitask):
+def _make_loader(cfg, items, transform, target_fn, batch_size, shuffle, multitask, mesh=None):
     """The threaded loader over ELEVATER items: train loaders shuffle and
-    drop their tail batch, eval loaders pad it."""
+    drop their tail batch (and decode this rank's rows under ``mesh``,
+    ``loader.train_shard``), eval loaders pad it."""
     ds = _ElevaterDataset(items, transform, target_fn)
     return DataLoader(
         ds, batch_size=batch_size, shuffle=shuffle,
         num_workers=cfg.DATALOADER.NUM_WORKERS,
-        seed=max(cfg.SEED, 0), drop_last=shuffle, multitask=multitask)
+        seed=max(cfg.SEED, 0), drop_last=shuffle, multitask=multitask,
+        host_shard=train_shard(batch_size, shuffle, mesh))
 
 
 _METRIC_DEFAULT_NOTED: set[str] = set()
@@ -190,7 +192,7 @@ def _metric_overrides(cfg) -> dict:
 class ElevaterDataManager:
     """Single ELEVATER task (mvlpt.py:740-770 + feature.py:538-619)."""
 
-    def __init__(self, cfg, strict_classnames: bool = True):
+    def __init__(self, cfg, strict_classnames: bool = True, mesh=None):
         task = cfg.DATASET.DATASET
         root = cfg.DATASET.ROOT
         man = ev.load_task_manifest(
@@ -235,7 +237,7 @@ class ElevaterDataManager:
         bs_train = cfg.DATALOADER.TRAIN_X.BATCH_SIZE
         bs_test = cfg.DATALOADER.TEST.BATCH_SIZE
         self.train_loader_x = _make_loader(
-            cfg, train_items, tfm, target_fn, bs_train, True, False)
+            cfg, train_items, tfm, target_fn, bs_train, True, False, mesh)
         self.val_loader = _make_loader(
             cfg, val_items, tfm, target_fn, bs_test, False, False) if val_items else None
         self.test_loader = _make_loader(
@@ -260,7 +262,7 @@ class ElevaterMultitaskDataManager:
     targets are k-hot over the GLOBAL class space, every item carries its
     task id (MultiTaskTorchDataset semantics, feature.py:709-756)."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, mesh=None):
         tasks = cfg.DATASET.DATASET.split(",")
         root = cfg.DATASET.ROOT
         mt = ev.load_multitask_manifest(root, tasks)
@@ -315,7 +317,7 @@ class ElevaterMultitaskDataManager:
         bs_train = cfg.DATALOADER.TRAIN_X.BATCH_SIZE
         bs_test = cfg.DATALOADER.TEST.BATCH_SIZE
         self.train_loader_x = _make_loader(
-            cfg, train_items, tfm, target_fn, bs_train, True, True)
+            cfg, train_items, tfm, target_fn, bs_train, True, True, mesh)
         self.val_loader = _make_loader(
             cfg, val_items, tfm, target_fn, bs_test, False, True) if val_items else None
         self.test_loader = _make_loader(
@@ -335,14 +337,16 @@ class ElevaterMultitaskDataManager:
         return [self._lab2cname[i] for i in range(self._num_classes)]
 
 
-def build_data_manager(cfg, strict_classnames: bool = True):
+def build_data_manager(cfg, strict_classnames: bool = True, mesh=None):
     """Universe dispatch (the reference's mvlpt.py:892-897): DATASET.COOP
     -> CoopMultitaskDataManager, else MULTITASK -> ElevaterMultitask,
     else a single ELEVATER task. ``strict_classnames=False`` relaxes the
     single-task manifest vs metadata class-count guard for flows that
-    never read classnames (``manifest._resolve_classnames``)."""
+    never read classnames (``manifest._resolve_classnames``). Under
+    ``mesh`` (a ``parallel.Mesh``) the train loader decodes this rank's
+    rows of each global batch."""
     if cfg.DATASET.COOP:
-        return CoopMultitaskDataManager(cfg)
+        return CoopMultitaskDataManager(cfg, mesh=mesh)
     if cfg.DATASET.MULTITASK:
-        return ElevaterMultitaskDataManager(cfg)
-    return ElevaterDataManager(cfg, strict_classnames=strict_classnames)
+        return ElevaterMultitaskDataManager(cfg, mesh=mesh)
+    return ElevaterDataManager(cfg, strict_classnames=strict_classnames, mesh=mesh)

@@ -30,7 +30,7 @@ CLIP_PIXEL_STD = (0.26862954, 0.26130258, 0.27577711)
 
 def flagship(n_cls: int = 100, batch: int = 32, compute_dtype=torch.bfloat16,
              backbone_name: str = "ViT-B/16", kernels: str = "auto",
-             device="cuda", mesh=None):
+             device="cuda", mesh=None, clip_cfg: CLIPConfig | None = None):
     """-> (model, backbone, prompt_params, consts, images, clip_cfg).
 
     ``kernels`` is the ``USE_PALLAS`` selection ('auto', 'block', 'on'
@@ -38,9 +38,10 @@ def flagship(n_cls: int = 100, batch: int = 32, compute_dtype=torch.bfloat16,
     224, 224, 3) fp32 from a fixed numpy seed. Runs on the card unless
     ``device='cpu'``. Under ``mesh`` (``parallel.Mesh``) the backbone is
     this rank's shard, the images its data rank's rows, and the model's
-    kernels run under the mesh."""
+    kernels run under the mesh. ``clip_cfg`` replaces ``backbone_name``'s
+    configuration (a smaller tower of the same UPT model)."""
     device = resolve_device(device)
-    clip_cfg = CLIPConfig.for_backbone(backbone_name)
+    clip_cfg = clip_cfg or CLIPConfig.for_backbone(backbone_name)
     backbone = cast_backbone(
         init_clip_params(torch.Generator().manual_seed(0), clip_cfg, device=device),
         compute_dtype)

@@ -29,6 +29,7 @@ from mvlpt_torch.data.transforms import device_normalize
 from mvlpt_torch.data.elevater import load_metadata, template_map
 from mvlpt_torch.evaluation import ClassificationEvaluator
 from mvlpt_torch.ops.attention import select_attn_fn
+from mvlpt_torch.parallel.mesh import over_data_rows, shard_backbone
 from mvlpt_torch.tokenizer import tokenize
 from mvlpt_torch.utils.device import resolve_device
 from mvlpt_torch.utils.pipeline import pipelined_inference
@@ -103,14 +104,16 @@ def encode_class_text_features(backbone: dict, clip_cfg: CLIPConfig, classnames,
     return mean_features / torch.linalg.norm(mean_features, dim=-1, keepdim=True)
 
 
-def make_image_encoder(clip_cfg, mean, std, use_pallas="auto"):
+def make_image_encoder(clip_cfg, mean, std, use_pallas="auto", mesh=None):
     """``encode(backbone, images) -> image features`` for no-grad callers
     (the encoder's output dtype, not normalised). On a ViT a uint8 batch
     has CLIP's normalisation folded into the patch embedding, a float
     batch is taken as normalised already, and the tower runs under the
     ``use_pallas`` selection with the no-grad kernels. An RN tower takes
     ``device_normalize`` (a uint8 batch normalised, a float one as it is),
-    then its plain path: it has no kernels, in either package."""
+    then its plain path: it has no kernels, in either package. ``mesh``
+    (a ``parallel.Mesh``) goes to the kernel selection: with a model axis
+    the ViT tower runs on the backbone's Megatron shard."""
     norm = (tuple(mean), tuple(std))
     if isinstance(clip_cfg, RNConfig):
         @torch.no_grad()
@@ -121,7 +124,7 @@ def make_image_encoder(clip_cfg, mean, std, use_pallas="auto"):
     if not isinstance(clip_cfg, CLIPConfig):
         raise NotImplementedError(f"no image encoder for {type(clip_cfg).__name__}; only ViT "
                                   "(CLIPConfig) and ModifiedResNet (RNConfig)")
-    kernels = select_attn_fn(use_pallas, inference=True)
+    kernels = select_attn_fn(use_pallas, inference=True, mesh=mesh)
     stems = vit_mod.FoldedStems()
 
     @torch.no_grad()
@@ -137,16 +140,22 @@ def make_image_encoder(clip_cfg, mean, std, use_pallas="auto"):
     return encode
 
 
-def make_zs_infer(clip_cfg, mean, std, use_pallas="auto"):
+def make_zs_infer(clip_cfg, mean, std, use_pallas="auto", mesh=None):
     """``infer(backbone, text_features, images) -> fp32 logits``: the
-    zero-shot step, through :func:`make_image_encoder`."""
-    encode = make_image_encoder(clip_cfg, mean, std, use_pallas)
+    zero-shot step, through :func:`make_image_encoder`. Under a ``mesh``
+    with a data axis each data rank runs its rows of the batch and every
+    rank gets the whole batch's logits (``parallel.over_data_rows``)."""
+    encode = make_image_encoder(clip_cfg, mean, std, use_pallas, mesh=mesh)
 
-    @torch.no_grad()
-    def infer(backbone, text_features, images):
+    def logits(backbone, text_features, images):
         img = encode(backbone, images).float()
         img = img / torch.linalg.norm(img, dim=-1, keepdim=True)
         return torch.exp(backbone["logit_scale"].float()) * img @ text_features.t()
+
+    @torch.no_grad()
+    def infer(backbone, text_features, images):
+        return over_data_rows(lambda rows: logits(backbone, text_features, rows["image"]),
+                              {"image": images}, mesh)
 
     return infer
 
@@ -155,16 +164,21 @@ class _ZeroshotBase:
     """The zero-shot trainer's surface (``train``, ``load_model``,
     ``test``), on ``device`` (the card unless the caller asks for the
     CPU). ``timings["tests"]`` records each test() pass's wall time and
-    images on the host clock."""
+    images on the host clock. A run of more than one rank runs under the
+    trainer's mesh (``train.trainer.build_mesh``): the class text features
+    whole on every rank, each data rank's rows of each test batch, the
+    image tower on each model rank's shard, and the same metrics on every
+    rank."""
 
     def __init__(self, cfg, device="cuda"):
         from mvlpt_torch.data.managers import build_data_manager
-        from mvlpt_torch.train.trainer import load_clip_backbone
+        from mvlpt_torch.train.trainer import build_mesh, load_clip_backbone
 
         self.cfg = cfg
         self.device = resolve_device(device)
         self._stager = DeviceStager(self.device)
-        self.dm = build_data_manager(cfg)
+        self.mesh = build_mesh(cfg)
+        self.dm = build_data_manager(cfg, mesh=self.mesh)
         self.test_loader = self.dm.test_loader
         self.timings = {"tests": []}
         print(f"Loading CLIP (backbone: {cfg.MODEL.BACKBONE.NAME})")
@@ -174,7 +188,9 @@ class _ZeroshotBase:
         self.text_features = encode_class_text_features(
             self.backbone, self.clip_cfg, classnames, self.templates(classnames))
         self._infer = make_zs_infer(self.clip_cfg, cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD,
-                                    use_pallas=cfg.TPU.USE_PALLAS)
+                                    use_pallas=cfg.TPU.USE_PALLAS, mesh=self.mesh)
+        if self.mesh is not None:
+            self.backbone = shard_backbone(self.backbone, self.clip_cfg, self.mesh)
 
     def templates(self, classnames) -> list[str]:
         raise NotImplementedError

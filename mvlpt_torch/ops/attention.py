@@ -39,6 +39,8 @@ The bf16 rows take D = 64 only, on either route.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from mvlpt_torch.ops import _build
@@ -215,6 +217,20 @@ _AS_ON = (True, "1")
 _AS_OFF = (False, "0", None)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardedAttention:
+    """'on' or 'off' under a mesh with a model axis, for
+    ``core.layers.residual_block``: each model rank runs the plain layers
+    on its Megatron shard of a block (``parallel.shard_blocks``: H/tp
+    heads, 4W/tp hidden units), with ``attn_fn`` (``fused_attention`` for
+    'on', None for the plain core) on its heads, and the row-parallel
+    partials summed over the model group in fp32
+    (``parallel.reduce_from_model``)."""
+
+    attn_fn: object
+    mesh: object
+
+
 def select_attn_fn(use_pallas="auto", inference: bool = False, mesh=None):
     """Resolve ``TPU.USE_PALLAS`` for the port, the counterpart of
     ``mvlpt_tpu/ops/attention.py:select_attn_fn``. Returns what
@@ -236,11 +252,11 @@ def select_attn_fn(use_pallas="auto", inference: bool = False, mesh=None):
     None select "off". Any other value raises, where the JAX side falls
     back to the plain path: a mistyped selection fails loudly here.
 
-    "on" and "off" take a mesh without a model axis only: on the JAX side
-    they reach a tensor-parallel mesh through GSPMD's sharding of the
-    plain layers, which the port does not have, and the port's sharded
-    weights would give wrong results on them. On a card the kernels run,
-    on the CPU their plain twins."""
+    Under a mesh with a model axis "on" and "off" return
+    ``ShardedAttention(fused_attention or None, mesh)``: the plain layers
+    on each model rank's shard, the counterpart of GSPMD's partitioning of
+    the JAX package's plain layers. On a card the kernels run, on the CPU
+    their plain twins."""
     if use_pallas in ("block", "auto"):
         return BlockKernels(inference=inference, mesh=mesh)
     if use_pallas in _AS_ON:
@@ -249,7 +265,7 @@ def select_attn_fn(use_pallas="auto", inference: bool = False, mesh=None):
         use_pallas = "off"
     if use_pallas not in ("on", "off"):
         raise ValueError(f"unknown kernel selection {use_pallas!r}")
+    attn_fn = fused_attention if use_pallas == "on" else None
     if mesh is not None and mesh.n_model > 1:
-        raise ValueError(f"kernel selection {use_pallas!r} does not run on a mesh with a model "
-                         f"axis ({mesh.n_model} ranks) yet; select 'block' or 'auto'")
-    return fused_attention if use_pallas == "on" else None
+        return ShardedAttention(attn_fn, mesh)
+    return attn_fn

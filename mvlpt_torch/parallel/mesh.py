@@ -17,7 +17,12 @@ model column.
     out and proj products by rows, so each model rank holds H/tp whole
     heads and 4W/tp hidden units. The fused tensor-parallel kernels
     (``ops/block.py``, ``attn_block_tp``/``mlp_block_tp``) emit fp32
-    partials that an all-reduce over the model group sums.
+    partials that an all-reduce over the model group sums. The plain
+    layers ('off') and the standalone attention ('on') run on the same
+    shard through the two Megatron conjugates below
+    (:func:`copy_to_model` on entry to a sharded half-block,
+    :func:`reduce_from_model` on its row-parallel partial), where the
+    JAX package lets GSPMD partition its plain layers over the mesh.
 
 The token embedding stays whole on every rank: the JAX package
 vocab-shards it, which is a memory layout with the same values.
@@ -27,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
 import torch.distributed as dist
 
 
@@ -123,3 +129,77 @@ def local_batch(batch, mesh: Mesh):
                          f"{mesh.n_data} data ranks")
     per = n // mesh.n_data
     return batch[mesh.data_rank * per:(mesh.data_rank + 1) * per]
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the model
+    group (each model rank's shard contributes a part of it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The sum over the model group forward; identity backward (every
+    model rank holds the whole gradient of the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Megatron's f: ``x`` as it is, on entry to a column-parallel product;
+    its gradient is all-reduced over the model group."""
+    return _CopyToModel.apply(x, mesh.model_group)
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Megatron's g: the all-reduce over the model group of a row-parallel
+    partial; its gradient passes as it is."""
+    return _ReduceFromModel.apply(x, mesh.model_group)
+
+
+def data_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every data rank's ``x`` (its rows of a batch, one shape on every
+    rank) concatenated in data-rank order along the leading axis, on every
+    rank: each rank writes its rows into its slot of zeros and an
+    all_reduce over the data group sums the slots, which is exact and runs
+    on every backend and device (gloo gathers no CUDA tensor)."""
+    if mesh is None or mesh.n_data == 1:
+        return x
+    n = x.shape[0]
+    out = torch.zeros((mesh.n_data * n, *x.shape[1:]), dtype=x.dtype, device=x.device)
+    out[mesh.data_rank * n:(mesh.data_rank + 1) * n] = x
+    dist.all_reduce(out, group=mesh.data_group)
+    return out
+
+
+def over_data_rows(fn, batch: dict, mesh: Mesh | None):
+    """``fn(rows)`` over a mesh's data axis, for no-grad callers: each data
+    rank runs its rows of ``batch`` (a dict of tensors with one leading
+    batch axis, padded by repeating its last row until it divides over the
+    data ranks), and the results are gathered over the data group
+    (:func:`data_gather`), so every rank holds the whole batch's, cut back
+    to the batch's rows. Without a data axis, ``fn(batch)``."""
+    if mesh is None or mesh.n_data == 1:
+        return fn(batch)
+    n = next(iter(batch.values())).shape[0]
+    pad = -n % mesh.n_data
+    if pad:
+        batch = {k: torch.cat([v, v[-1:].expand(pad, *v.shape[1:])]) for k, v in batch.items()}
+    return data_gather(fn(local_batch(batch, mesh)), mesh)[:n]

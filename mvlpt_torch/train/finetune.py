@@ -26,6 +26,7 @@ from mvlpt_torch.core.resnet import RNConfig
 from mvlpt_torch.data.transforms import device_normalize
 from mvlpt_torch.evaluation import ClassificationEvaluator
 from mvlpt_torch.models.custom_clip import TaskClassRanges, _apply_task_mask
+from mvlpt_torch.parallel import world
 from mvlpt_torch.train.optim import build_lr_schedule
 from mvlpt_torch.train.train_step import (
     WINDOW_METRICS,
@@ -129,6 +130,15 @@ class FinetuneCLIP(PromptTrainer):
                   f"ignored (windowed dispatch is a prompt-trainer "
                   f"optimization); running per-batch steps")
         return 1
+
+    def _build_mesh(self, cfg):
+        """No mesh: FinetuneCLIP runs on one device, as in the JAX package
+        (mvlpt_tpu/train/finetune.py), so a run of more than one rank
+        raises."""
+        if world()[1] > 1:
+            raise NotImplementedError(f"FinetuneCLIP runs on one rank; this run has {world()[1]} "
+                                      "(the JAX package runs it without a mesh too)")
+        return None
 
     def _init_state(self, params: dict):
         state, _ = build_finetune_optimizer(params, self.cfg.OPTIM, self.steps_per_epoch)

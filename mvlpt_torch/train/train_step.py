@@ -8,11 +8,15 @@ Multi-label targets are normalised to distributions; accuracy is taken
 against the argmax of the labels. Eval runs under ``torch.no_grad()``
 with the fused half-block kernels in their no-grad forwards.
 
-Under a mesh (``parallel.Mesh``) the train step takes the global batch,
-runs this data rank's rows, and takes the mean of the prompt gradients,
-the loss and the accuracy over the data group, so that every rank makes
-the global-batch step. The text tower runs whole on every data rank (the
-JAX package pads and splits its rows instead; the values are the same).
+Under a mesh (``parallel.Mesh``) the train step runs this data rank's
+rows (the global batch cut by ``parallel.local_batch``, or rows that are
+local already), and takes the mean of the prompt gradients, the loss and
+the accuracy over the data group, so that every rank makes the
+global-batch step. The windowed step does the same each step, its
+window's axis 1 holding the rank's rows. The text tower runs whole on
+every data rank (the JAX package pads and splits its rows instead; the
+values are the same). The eval steps under a data axis run this data
+rank's rows of each batch and gather the logits over the data group.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from mvlpt_torch.core.layers import dropout_key
 from mvlpt_torch.data.transforms import device_constant
 from mvlpt_torch.models.custom_clip import MVLPTModel, TaskClassRanges
 from mvlpt_torch.ops.block import BlockKernels
-from mvlpt_torch.parallel.mesh import local_batch
+from mvlpt_torch.parallel.mesh import local_batch, over_data_rows
 from mvlpt_torch.train.optim import DeviceOptimizer, build_device_optimizer, device_update_
 from mvlpt_torch.utils import profiler
 from mvlpt_torch.utils.tree import tree_leaves, tree_map
@@ -128,7 +132,7 @@ def apply_gradients(state, loss, logits, labels, mesh=None) -> tuple:
 
 def make_train_step(model: MVLPTModel, task_ranges: TaskClassRanges | None = None,
                     normalize: tuple | None = None, mesh=None,
-                    pre_embedded: bool = False) -> Callable:
+                    pre_embedded: bool = False, local_rows: bool = False) -> Callable:
     """step(state, backbone, consts, batch) -> (state, metrics).
 
     batch = {"image": (B,H,W,3) float (or uint8 with ``normalize``),
@@ -139,7 +143,9 @@ def make_train_step(model: MVLPTModel, task_ranges: TaskClassRanges | None = Non
     update count on the device, and VPT dropout drawn from the state's
     seed and that count (``step_rng``). Metrics are 0-dim tensors (loss,
     acc, grad_norm); reading them waits for the device. Under ``mesh`` the
-    batch is the global one and must divide over the data ranks;
+    batch is the global one and must divide over the data ranks, or, with
+    ``local_rows=True``, this data rank's rows already (the trainer's
+    batches, which its loader decodes by rank: ``DataLoader(host_shard=...)``);
     ``backbone`` is this rank's shard (``parallel.shard_backbone``) and the
     model's kernels carry the mesh. ``pre_embedded``: batch["image"] holds the (B, 1+N,
     width) tokens of ``model.embed_image``, as a window's steps read them
@@ -147,7 +153,7 @@ def make_train_step(model: MVLPTModel, task_ranges: TaskClassRanges | None = Non
 
     def step_fn(state: WindowState, backbone, consts, batch):
         nonlocal task_ranges
-        if mesh is not None:
+        if mesh is not None and not local_rows:
             batch = local_batch(batch, mesh)
         task_ranges = _ranges_on(task_ranges, batch["image"].device)
         imgs, pre = ((batch["image"], True) if pre_embedded
@@ -226,8 +232,9 @@ class WindowStep:
     calls no kernel wrapper, so ``ops._build.LAUNCHES`` does not count
     the kernels it launches: a device trace does."""
 
-    def __init__(self, model: MVLPTModel, task_ranges, pre_embed: bool, normalize, capture: bool):
-        self.model, self.task_ranges = model, task_ranges
+    def __init__(self, model: MVLPTModel, task_ranges, pre_embed: bool, normalize, capture: bool,
+                 mesh=None):
+        self.model, self.task_ranges, self.mesh = model, task_ranges, mesh
         self.pre_embed, self.normalize, self.capture = pre_embed, normalize, capture
         self._graphs: dict = {}
         self.captures = 0            # steps captured into a graph
@@ -290,7 +297,7 @@ class WindowStep:
             logits = model(backbone, params, consts, batch["image"], tasks=batch.get("task"),
                            task_ranges=self.task_ranges, pre_embedded=self.pre_embed, rng=rng)
         loss = soft_cross_entropy(logits, batch["label"])
-        values = apply_gradients(state, loss, logits, batch["label"])
+        values = apply_gradients(state, loss, logits, batch["label"], self.mesh)
         with torch.no_grad():
             for name, v in zip(WINDOW_METRICS, values):
                 out[name].index_copy_(0, index, v.reshape(1))
@@ -394,13 +401,21 @@ def make_train_step_multi(model: MVLPTModel, task_ranges: TaskClassRanges | None
     ``utils.profiler.enable_nan_debugging`` (``--debug-nans``), whose
     checks read the device every step, which a graph cannot capture.
 
-    Under a ``mesh`` it raises NotImplementedError: the data group's
-    all-reduces go through gloo on the host, which a graph cannot
-    capture (ROADMAP.md Queue 1)."""
-    if mesh is not None:
-        raise NotImplementedError("make_train_step_multi under a mesh is not ported yet: the "
-                                  "data group's gloo all-reduces cannot be captured")
-    return WindowStep(model, task_ranges, pre_embed, normalize, capture)
+    Under a ``mesh`` (``parallel.Mesh``) the window's axis 1 holds this
+    data rank's rows of each global batch (the counterpart of the JAX
+    package's (None, "data") window sharding), each step takes the mean
+    of the gradients, the loss and the accuracy over the data group, and
+    the model group reduces inside the blocks. The steps run eagerly:
+    ``capture=False`` is required there, and ``capture=True`` raises
+    NotImplementedError. One card takes two ranks over gloo only, whose
+    all-reduces go through host memory, which a graph cannot capture; a
+    captured window under NCCL waits for a machine with two or more cards
+    (ROADMAP.md Queue 1, item 8b)."""
+    if mesh is not None and capture:
+        raise NotImplementedError("make_train_step_multi under a mesh runs eagerly only "
+                                  "(capture=False): a captured window under NCCL waits for "
+                                  "two or more cards (ROADMAP.md Queue 1, item 8b)")
+    return WindowStep(model, task_ranges, pre_embed, normalize, capture, mesh)
 
 
 def _inference_model(model: MVLPTModel) -> MVLPTModel:
@@ -417,10 +432,27 @@ def _inference_model(model: MVLPTModel) -> MVLPTModel:
                       compute_dtype=model.compute_dtype)
 
 
+def _over_data(eval_fn: Callable, mesh) -> Callable:
+    """``eval_fn`` over a mesh's data axis (``parallel.over_data_rows``):
+    each data rank runs its rows of the batch, and every rank gets the
+    whole batch's logits. Without a data axis, ``eval_fn`` itself."""
+    if mesh is None or mesh.n_data == 1:
+        return eval_fn
+
+    @torch.no_grad()
+    def run(backbone, prompt_params, aux, batch):
+        return over_data_rows(lambda rows: eval_fn(backbone, prompt_params, aux, rows), batch,
+                              mesh)
+
+    return run
+
+
 def make_eval_step(model: MVLPTModel, task_ranges: TaskClassRanges | None = None,
-                   normalize: tuple | None = None) -> Callable:
+                   normalize: tuple | None = None, mesh=None) -> Callable:
     """eval_step(backbone, prompt_params, consts, batch) -> fp32 logits,
-    both towers each call, no gradient."""
+    both towers each call, no gradient. Under a ``mesh`` with a data axis
+    each data rank runs its rows and every rank gets the whole batch's
+    logits (``_over_data``)."""
     model = _inference_model(model)
 
     @torch.no_grad()
@@ -431,18 +463,20 @@ def make_eval_step(model: MVLPTModel, task_ranges: TaskClassRanges | None = None
         return model(backbone, prompt_params, consts, imgs, tasks=batch.get("task"),
                      task_ranges=task_ranges, pre_embedded=pre)
 
-    return eval_fn
+    return _over_data(eval_fn, mesh)
 
 
 def make_cached_text_eval(model: MVLPTModel, task_ranges: TaskClassRanges | None = None,
-                          normalize: tuple | None = None):
+                          normalize: tuple | None = None, mesh=None):
     """(text_fn, eval_fn) for the cached-text eval fast path: the prompts
     are frozen at eval, so ``text_fn(backbone, prompt_params, consts)``
     computes the text features once and ``eval_fn(backbone,
     prompt_params, text_features, batch)`` runs the image tower and the
     logits per batch, with the same values as :func:`make_eval_step`.
     CoCoOp's text features depend on the image: it returns (None, None),
-    and callers run :func:`make_eval_step`."""
+    and callers run :func:`make_eval_step`. Under a ``mesh`` with a data
+    axis every data rank computes the text features whole, runs its rows
+    of each batch, and gets the whole batch's logits (``_over_data``)."""
     if model.spec.has_cocoop:
         return None, None
     model = _inference_model(model)
@@ -460,4 +494,4 @@ def make_cached_text_eval(model: MVLPTModel, task_ranges: TaskClassRanges | None
                                        tasks=batch.get("task"), task_ranges=task_ranges,
                                        pre_embedded=pre)
 
-    return text_fn, eval_fn
+    return text_fn, _over_data(eval_fn, mesh)

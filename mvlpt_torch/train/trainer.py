@@ -25,7 +25,14 @@ mvlpt.py:827-1125):
   * SGD, Adam, AdamW and RMSprop on the device (``optim.DeviceOptimizer``),
     their state in the checkpoints; VPT dropout seeded each epoch by
     max(SEED, 0) * 131 + epoch, as the JAX trainer seeds its keys;
-  * scalar logging to <OUTPUT_DIR>/tb/scalars.jsonl.
+  * scalar logging to <OUTPUT_DIR>/tb/scalars.jsonl;
+  * a ("data", "model") mesh of ``torch.distributed`` ranks from
+    TPU.MESH_DATA/MESH_MODEL when the run has more than one rank
+    (``build_mesh``): the train loader decodes each data rank's rows,
+    the backbone keeps each model rank's Megatron shard, windows run
+    eagerly, test() runs each data rank's rows and gathers the logits, and
+    only rank 0 writes files (log.txt, tb/, checkpoints) while the other
+    ranks wait at a barrier.
 
 The fine-tune trainer lives in ``train/finetune.py``, the zero-shot
 trainers in ``models/zsclip.py``.
@@ -36,6 +43,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import json
+import math
 import os
 import time
 
@@ -52,6 +60,7 @@ from mvlpt_torch.data.managers import build_data_manager
 from mvlpt_torch.evaluation import ClassificationEvaluator
 from mvlpt_torch.models.custom_clip import MVLPTModel, TaskClassRanges
 from mvlpt_torch.ops.attention import select_attn_fn
+from mvlpt_torch.parallel import barrier, create_mesh, is_writer, shard_backbone, world
 from mvlpt_torch.prompts import (
     PromptSpec,
     build_prompt_consts,
@@ -105,6 +114,32 @@ def load_clip_backbone(cfg, dtype, device="cuda"):
     return clip_core.cast_backbone(params, dtype), clip_cfg
 
 
+def build_mesh(cfg):
+    """The ("data", "model") mesh of TPU.MESH_*, or None when the run
+    has one rank. As in the JAX trainer: MESH_DATA -1 means every rank
+    over the model axis (world // n_model), and the data axis shrinks
+    to its gcd with the train batch. Where the JAX trainer would leave
+    devices idle (n_data x n_model below the device count), this
+    raises: a rank cannot sit out of the groups it belongs to."""
+    rank, n_ranks = world()
+    if n_ranks == 1:
+        return None
+    n_model = max(1, cfg.TPU.MESH_MODEL)
+    n_data = cfg.TPU.MESH_DATA
+    if n_data == -1:
+        n_data = n_ranks // n_model
+    n_data = math.gcd(n_data, cfg.DATALOADER.TRAIN_X.BATCH_SIZE)
+    if n_data * n_model != n_ranks:
+        raise ValueError(
+            f"TPU.MESH_DATA/MESH_MODEL give a {n_data}x{n_model} mesh (the data axis cut to "
+            f"its gcd with the train batch {cfg.DATALOADER.TRAIN_X.BATCH_SIZE}), but the run "
+            f"has {n_ranks} ranks; every rank must sit on the mesh")
+    mesh = create_mesh(n_data, n_model)
+    print(f"mesh: {{'data': {n_data}, 'model': {n_model}}} (rank {rank}: data rank "
+          f"{mesh.data_rank}, model rank {mesh.model_rank})")
+    return mesh
+
+
 class MetricMeter:
     """Accumulates step metrics without reading the device: values stay
     as 0-dim tensors until summary(), so the host and the device stay
@@ -127,19 +162,25 @@ class MetricMeter:
 
 
 class ScalarWriter:
-    """write_scalar equivalent: one JSONL line per scalar."""
+    """write_scalar equivalent: one JSONL line per scalar. ``enabled=False``
+    (a rank other than 0) writes nothing."""
 
-    def __init__(self, output_dir):
+    def __init__(self, output_dir, enabled: bool = True):
         self.path = os.path.join(output_dir, "tb", "scalars.jsonl")
-        os.makedirs(os.path.dirname(self.path), exist_ok=True)
-        self._f = open(self.path, "a")
+        self._f = None
+        if enabled:
+            os.makedirs(os.path.dirname(self.path), exist_ok=True)
+            self._f = open(self.path, "a")
 
     def write_scalar(self, tag, value, step):
+        if self._f is None:
+            return
         self._f.write(json.dumps({"tag": tag, "value": float(value), "step": int(step)}) + "\n")
         self._f.flush()
 
     def close(self):
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 # Where each slot of a DeviceOptimizer lies in a JAX-written ``opt_state``:
@@ -216,7 +257,13 @@ class PromptTrainer:
 
     Batches reach the device through one ``DeviceStager`` (pinned host
     buffers, copies on a side stream): train batches through
-    ``prefetch_to_device``, eval batches in ``model_inference``."""
+    ``prefetch_to_device``, eval batches in ``model_inference``.
+
+    Under a mesh (``self.mesh``, more than one rank) the train loader
+    yields this rank's rows of each global batch, so ``_device_batch`` and
+    ``_stage_window`` stage those rows, and the steps take them as local
+    (``make_train_step(..., local_rows=True)``); eval batches are whole
+    and the eval steps cut and gather them. Only rank 0 writes files."""
 
     trainer_cfg_key = "MVLPT"
 
@@ -224,8 +271,10 @@ class PromptTrainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.output_dir = cfg.OUTPUT_DIR
-        os.makedirs(self.output_dir, exist_ok=True)
-        self.writer = ScalarWriter(self.output_dir)
+        self.writes = is_writer()
+        if self.writes:
+            os.makedirs(self.output_dir, exist_ok=True)
+        self.writer = ScalarWriter(self.output_dir, enabled=self.writes)
         self.epoch = 0
         self.max_epoch = cfg.OPTIM.MAX_EPOCH
         self.best_result = -np.inf
@@ -233,6 +282,11 @@ class PromptTrainer:
         self._stager = DeviceStager(self.device)
 
         self.multi_task = cfg.DATASET.MULTITASK
+        # The mesh comes first: the train loader decodes each rank's rows,
+        # and select_attn_fn and the backbone's shard take it (the JAX
+        # trainer builds it before the model, replacing nn.DataParallel,
+        # mvlpt.py:877-880).
+        self.mesh = self._build_mesh(cfg)
         self.build_data_loader()
         self.build_model()
 
@@ -259,9 +313,13 @@ class PromptTrainer:
         """(CoOp, CoCoOp) context init words."""
         return self.tcfg.COOP.CTX_INIT, self.tcfg.COCOOP.CTX_INIT
 
+    def _build_mesh(self, cfg):
+        """The run's mesh (:func:`build_mesh`)."""
+        return build_mesh(cfg)
+
     # ------------------------------------------------------------------ data
     def build_data_loader(self):
-        dm = build_data_manager(self.cfg)
+        dm = build_data_manager(self.cfg, mesh=self.mesh)
         self.dm = dm
         self.train_loader_x = dm.train_loader_x
         self.val_loader = dm.val_loader
@@ -305,7 +363,7 @@ class PromptTrainer:
         # checkpoint_sequential chunks, mvlpt.py:119-121): any value > 1
         # checkpoints every layer, as the JAX package's remat does.
         self.model = MVLPTModel(self.clip_cfg, self.spec,
-                                kernels=select_attn_fn(cfg.TPU.USE_PALLAS),
+                                kernels=select_attn_fn(cfg.TPU.USE_PALLAS, mesh=self.mesh),
                                 compute_dtype=compute_dtype, remat=cfg.TRAINER.ACT_CKPT > 1)
 
         n_prompt = sum(t.numel() for t in tree_leaves(prompt_params))
@@ -329,16 +387,21 @@ class PromptTrainer:
         # CLIP normalization into the frozen patch-embed product
         self._normalize = (tuple(cfg.INPUT.PIXEL_MEAN), tuple(cfg.INPUT.PIXEL_STD)) \
             if cfg.TPU.DEVICE_NORMALIZE else None
-        self.train_step = make_train_step(self.model, self.task_ranges, normalize=self._normalize)
+        self.train_step = make_train_step(self.model, self.task_ranges, normalize=self._normalize,
+                                          mesh=self.mesh, local_rows=True)
         self.train_step_multi = None  # built on first use (TRAIN.STEPS_PER_DISPATCH)
-        self.eval_step = make_eval_step(self.model, self.task_ranges, normalize=self._normalize)
+        self.eval_step = make_eval_step(self.model, self.task_ranges, normalize=self._normalize,
+                                        mesh=self.mesh)
         # Cached-text eval: prompts are frozen during eval, so test()
         # computes the text features once a call instead of per batch
         # (None for CoCoOp: its text features depend on the image).
         self._eval_text_fn, self.eval_step_cached = make_cached_text_eval(
-            self.model, self.task_ranges, normalize=self._normalize)
+            self.model, self.task_ranges, normalize=self._normalize, mesh=self.mesh)
         self._eval_text = None
         self.evaluator = ClassificationEvaluator(self.lab2cname)
+        if self.mesh is not None:
+            # each model rank keeps its Megatron shard of the frozen blocks
+            self.backbone = shard_backbone(self.backbone, self.clip_cfg, self.mesh)
 
     def _init_state(self, params: dict):
         """A fresh train state over ``params`` (the device optimizer of
@@ -347,7 +410,9 @@ class PromptTrainer:
 
     def _device_batch(self, batch: dict) -> dict:
         """One batch on the device (tasks as int64 indices): a host batch
-        through the stager, a staged one (``prefetch_to_device``) as it is."""
+        through the stager, a staged one (``prefetch_to_device``) as it is.
+        Under a mesh a train batch holds this rank's rows already (the
+        loader's ``host_shard``)."""
         keys = [k for k in ("image", "label", "task") if k in batch]
         if not all(isinstance(batch[k], torch.Tensor) for k in keys):
             batch = self._stager({k: batch[k] for k in keys})
@@ -467,9 +532,12 @@ class PromptTrainer:
             return self._run_epoch_plain(batches)
         min_tail = max(0, int(self.cfg.TRAIN.WINDOW_MIN_TAIL))
         if self.train_step_multi is None:
+            if self.mesh is not None:
+                print("windows run eagerly under the mesh (capture=False): the ranks' "
+                      "all-reduces are not captured")
             self.train_step_multi = make_train_step_multi(
                 self.model, self.task_ranges, pre_embed=bool(self.cfg.TPU.PRE_EMBED_WINDOW),
-                normalize=self._normalize)
+                normalize=self._normalize, mesh=self.mesh, capture=self.mesh is None)
         pending: list[dict] = []
         done = 0
         deferred = []  # the progress line of the last window, not yet printed
@@ -666,9 +734,11 @@ class PromptTrainer:
         # (the JAX package keeps optax's state as "opt_state", which it
         # reads and this package reads too)
         extra = {**self._opt_payload(), "step": self.state.step}
-        prompt_io.save_prompt_checkpoint(path, self.state.prompt_params, self.epoch + 1,
-                                         val_result, extra=extra)
-        print(f"Checkpoint saved to {path}")
+        if self.writes:
+            prompt_io.save_prompt_checkpoint(path, self.state.prompt_params, self.epoch + 1,
+                                             val_result, extra=extra)
+            print(f"Checkpoint saved to {path}")
+        barrier()  # under a mesh the other ranks wait for rank 0's file
 
     def load_model(self, directory, epoch=None):
         """Warm start / eval load (the reference's mvlpt.py:1090-1125)."""

@@ -123,8 +123,6 @@ def test_frozen_and_unknown_keys_raise(make, tmp_path):
 
 
 @pytest.mark.parametrize("opts,item", [
-    (["TPU.MESH_MODEL", "2"], "item 8"),
-    (["TPU.MESH_DATA", "4"], "item 8"),
     (["DATALOADER.BACKEND", "tf"], "tfdata"),
 ])
 def test_validate_support_names_the_roadmap_item(opts, item):
@@ -132,6 +130,18 @@ def test_validate_support_names_the_roadmap_item(opts, item):
     cfg.merge_from_list(["TRAINER.NAME", "MVLPT", "DATASET.COOP", "True"] + opts)
     with pytest.raises(NotImplementedError, match=item):
         validate_support(cfg)
+
+
+@pytest.mark.parametrize("opts", [["TPU.MESH_MODEL", "2", "TPU.MESH_DATA", "1"],
+                                  ["TPU.MESH_DATA", "4"]], ids=["model-axis", "data-axis"])
+def test_validate_support_passes_a_mesh(opts):
+    """TPU.MESH_DATA/MESH_MODEL run (the trainer holds the mesh to the
+    run's ranks, ``train.trainer.build_mesh``); the JAX package passes
+    them too."""
+    for make in (get_cfg_default, j_defaults):
+        cfg = make()
+        cfg.merge_from_list(["TRAINER.NAME", "MVLPT", "DATASET.COOP", "True"] + opts)
+        (validate_support if make is get_cfg_default else j_validate)(cfg)
 
 
 @pytest.mark.parametrize("backend", ["python", "native"])

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of mvlpt_torch, not chip_smoke.py, and
-not the entry module of the tensor-parallel tests' spawned ranks imports
+"""The port stands alone: no module of mvlpt_torch, not chip_smoke.py, not
+scripts/torch_port_pod_loss_check.py, and not the entry modules of the
+tensor-parallel and mesh tests' spawned ranks imports
 JAX, the JAX package, or a package the GPU host lacks (regex, yaml,
 optax, scikit-learn, timm, torchvision: the model zoo holds its own
 layers); importing them all loads neither transformers nor
@@ -24,7 +25,8 @@ FORBIDDEN = ("jax", "jaxlib", "mvlpt_tpu", "regex", "yaml", "optax", "flax", "sk
 # need transformers (tokenizer/hf_adapter.py, checkpoint.convert_hf_clip).
 LAZY = ("transformers", "matplotlib")
 SOURCES = sorted((ROOT / "mvlpt_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_port_tp_child.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_port_tp_child.py",
+    ROOT / "tests" / "torch_port_mesh_child.py", ROOT / "scripts" / "torch_port_pod_loss_check.py"]
 
 
 def _imported(path: Path) -> set[str]:
@@ -49,11 +51,12 @@ def test_importing_every_module_loads_no_forbidden_package():
         "for m in pkgutil.walk_packages(mvlpt_torch.__path__, 'mvlpt_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "from tests import torch_port_tp_child\n"
+        "from tests import torch_port_mesh_child, torch_port_tp_child\n"
         # The entry functions of the spawned ranks (chip_smoke's train[tp2]
         # and the CPU tests') are module-level, so a spawned child imports
         # only their modules.
         "assert callable(chip_smoke._tp_rank) and callable(torch_port_tp_child.run)\n"
+        "assert callable(chip_smoke._mesh_cli_rank) and callable(torch_port_mesh_child.cli)\n"
         "assert 'mvlpt_torch.parallel.mesh' in sys.modules\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"

@@ -2,8 +2,8 @@
 and ``DeviceStager``) on the CPU, against the bare loader and the JAX
 package's ``prefetch_to_device``: the same batches in the same order at
 ``size`` 1, 2 and more than the epoch, ``n_valid`` a host int, every
-array's dtype kept (uint8 under TPU.DEVICE_NORMALIZE), a ``sharding``
-refused naming ROADMAP item 8; the training CLI's per-step losses bit
+array's dtype kept (uint8 under TPU.DEVICE_NORMALIZE) (a mesh's
+``sharding``: tests/test_torch_port_multihost.py); the training CLI's per-step losses bit
 for bit with and without its staging; and the windowed epoch's progress
 lines, printed once the next window is staged, the same lines in the
 same order as the JAX CLI's."""
@@ -106,12 +106,6 @@ def test_pinned_ring_reuses_a_buffer_once_its_copy_is_done(monkeypatch):
     second, _ = stager._pinned(x, taken)
     third, _ = stager._pinned(x, taken)  # the ring's two are this batch's: a third
     assert len({id(first), id(second), id(third)}) == 3
-
-
-def test_a_sharding_is_refused():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        next(prefetch_to_device(iter([{"image": np.zeros(2)}]), device="cpu",
-                                sharding=object()))
 
 
 _WINDOWED = ("TRAIN.STEPS_PER_DISPATCH", "3", "TRAIN.WINDOW_MIN_TAIL", "1",

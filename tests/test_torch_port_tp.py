@@ -22,7 +22,8 @@ import torch
 from mvlpt_tpu.ops import block as jblock
 from tests import torch_port_tp_child as child
 from tests.test_torch_port_slice import BATCH, N_CLS, sides  # noqa: F401 (fixture)
-from tests.torch_port_util import block_params_np, synthetic_vocab  # noqa: F401 (fixture)
+from tests.torch_port_util import block_params_np, collect_ranks, spawn_ranks
+from tests.torch_port_util import synthetic_vocab  # noqa: F401 (fixture)
 
 from mvlpt_torch.ops import block
 from mvlpt_torch.parallel import Mesh, shard_backbone, shard_blocks
@@ -176,14 +177,20 @@ def test_indivisible_heads_fall_back_to_the_plain_block():
 
 
 def test_select_attn_fn_on_a_mesh():
-    from mvlpt_torch.ops.attention import fused_attention, select_attn_fn
+    """'block'/'auto' carry the mesh into the fused kernels; on a mesh with
+    a model axis 'on' and 'off' run the plain layers on the rank's shard
+    (ShardedAttention, with the standalone attention or the plain core);
+    without one they are what they are on one device."""
+    from mvlpt_torch.ops.attention import ShardedAttention, fused_attention, select_attn_fn
 
     tp_mesh, dp_mesh = _fake_mesh(2), _fake_mesh(1)
     for sel in ("block", "auto"):
         assert select_attn_fn(sel, mesh=tp_mesh) == block.BlockKernels(mesh=tp_mesh)
-    for sel in ("on", "off"):
-        with pytest.raises(ValueError, match="model axis"):
-            select_attn_fn(sel, mesh=tp_mesh)
+    for sel, attn_fn in (("on", fused_attention), (True, fused_attention), ("off", None),
+                         (False, None)):
+        got = select_attn_fn(sel, mesh=tp_mesh)
+        assert isinstance(got, ShardedAttention)
+        assert got.attn_fn is attn_fn and got.mesh is tp_mesh
     assert select_attn_fn("on", mesh=dp_mesh) is fused_attention
     assert select_attn_fn("off", mesh=dp_mesh) is None
 
@@ -192,27 +199,12 @@ def test_select_attn_fn_on_a_mesh():
 
 def _spawn(n_data, n_model, workdir, vocab):
     """Start one gloo rank a process; returns the processes."""
-    ctx = torch.multiprocessing.get_context("spawn")
     world = n_data * n_model
-    procs = [ctx.Process(target=child.run, args=(r, world, n_data, n_model, str(workdir), vocab))
-             for r in range(world)]
-    for proc in procs:
-        proc.start()
-    return procs
+    return spawn_ranks(child.run, world, world, n_data, n_model, str(workdir), vocab)
 
 
 def _collect(procs, workdir, deadline):
-    for proc in procs:
-        proc.join(max(1.0, deadline - time.monotonic()))
-    hung = [r for r, proc in enumerate(procs) if proc.is_alive()]
-    for proc in procs:
-        if proc.is_alive():
-            proc.kill()
-            proc.join(10)
-    errs = {r: (workdir / f"rank{r}.err").read_text() for r in range(len(procs))
-            if (workdir / f"rank{r}.err").is_file()}
-    codes = [proc.exitcode for proc in procs]
-    assert not hung and not errs and codes == [0] * len(procs), (hung, codes, errs)
+    collect_ranks(procs, workdir, deadline)
     return [dict(np.load(workdir / f"rank{r}.npz")) for r in range(len(procs))]
 
 

@@ -7,6 +7,10 @@ in interpret mode there, as in its own tests.
 
 from __future__ import annotations
 
+import time
+import traceback
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -28,6 +32,112 @@ def synthetic_vocab(tmp_path_factory):
         mp.setattr(jbpe, "_DEFAULT", jbpe.ClipBpeTokenizer(path))
         mp.setattr(tbpe, "_DEFAULT", tbpe.ClipBpeTokenizer(path))
         yield path
+
+
+def spawn_ranks(target, world: int, *args) -> list:
+    """Start ``target(rank, *args)`` in one process a rank (start method
+    ``spawn``, so a child imports only what ``target``'s module imports:
+    never JAX); returns the processes."""
+    import torch
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, *args)) for r in range(world)]
+    for proc in procs:
+        proc.start()
+    return procs
+
+
+def collect_ranks(procs: list, workdir, deadline: float) -> None:
+    """Join the ranks of :func:`spawn_ranks` by ``deadline`` (on
+    ``time.monotonic``), kill the ones still running, and assert that
+    none hung, none wrote ``rank{r}.err`` in ``workdir`` and every one
+    exited 0."""
+    workdir = Path(workdir)
+    for proc in procs:
+        proc.join(max(1.0, deadline - time.monotonic()))
+    hung = [r for r, proc in enumerate(procs) if proc.is_alive()]
+    for proc in procs:
+        if proc.is_alive():
+            proc.kill()
+            proc.join(10)
+    errs = {r: (workdir / f"rank{r}.err").read_text() for r in range(len(procs))
+            if (workdir / f"rank{r}.err").is_file()}
+    codes = [proc.exitcode for proc in procs]
+    assert not hung and not errs and codes == [0] * len(procs), (hung, codes, errs)
+
+
+def run_rank(rank: int, world: int, workdir: str, fn, *args) -> None:
+    """The body of a spawned rank: one intra-op thread, a gloo group over
+    a ``file://`` store under ``workdir``, then ``fn(rank, *args)``; the
+    traceback of a failure goes to ``rank{rank}.err``, and the group is
+    destroyed at the end."""
+    import torch
+    import torch.distributed as dist
+
+    work = Path(workdir)
+    try:
+        torch.set_num_threads(1)
+        dist.init_process_group("gloo", init_method=f"file://{work / 'store'}", rank=rank,
+                                world_size=world)
+        fn(rank, *args)
+    except BaseException:
+        (work / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+class WriteProbe:
+    """Records the paths under ``root`` that this process opens for writing
+    or creates as directories (``open``, ``io.open``, ``os.makedirs``,
+    ``os.mkdir``) while it is entered: which rank wrote a run's files."""
+
+    def __init__(self, root):
+        import builtins
+        import io
+        import os
+
+        self.root, self.paths = os.path.abspath(root), []
+        self._saved = (builtins.open, io.open, os.makedirs, os.mkdir)
+
+    def _note(self, path):
+        import os
+
+        if isinstance(path, (str, os.PathLike)):
+            path = os.path.abspath(os.fspath(path))
+            if path.startswith(self.root):
+                self.paths.append(path)
+
+    def __enter__(self):
+        import builtins
+        import io
+        import os
+
+        def opened(real):
+            def call(file, mode="r", *a, **k):
+                if any(c in mode for c in "wax+"):
+                    self._note(file)
+                return real(file, mode, *a, **k)
+            return call
+
+        def made(real):
+            def call(name, *a, **k):
+                if not os.path.isdir(name):
+                    self._note(name)
+                return real(name, *a, **k)
+            return call
+
+        o, io_o, mkd, mk = self._saved
+        builtins.open, io.open, os.makedirs, os.mkdir = opened(o), opened(io_o), made(mkd), made(mk)
+        return self
+
+    def __exit__(self, *exc):
+        import builtins
+        import io
+        import os
+
+        builtins.open, io.open, os.makedirs, os.mkdir = self._saved
 
 
 def block_params_np(rng: np.random.RandomState, w: int) -> dict:
