@@ -35,22 +35,25 @@
    bf16 on the tensor cores up to the buckets, on the CUDA cores past
    them; fp32 on the CUDA cores), the MLP and attention half-blocks' by
    dtype (MLP_ROUTES, ATTN_FWD_ROUTES, ATTN_BWD_ROUTES: bf16 through the
-   wgmma GEMM, the attention cores on mma.sync). In bf16 each
+   wgmma GEMM, the attention cores on mma.sync) and, off those routes'
+   shapes, bf16 on the CUDA cores (BF16_CUDA_CORES: rows text_soak,
+   image_mid and text_mid, the accuracy phases' towers). In bf16 each
    standalone-attention wrapper may request nothing beyond its outputs
    and its route's scratch, attn_fwd (and its part) nothing beyond its
    outputs and residuals and its xh and o scratch, attn_bwd (and its
    part) nothing beyond its output and its do, dqkv, fp32 dxh and (B, H,
-   S) fp32 t scratch, mlp_fwd nothing beyond its outputs and its xh and
+   S) fp32 t scratch (on the CUDA cores (B, H, S, S) fp32 ds), mlp_fwd nothing beyond its outputs and its xh and
    act scratch, mlp_bwd (and its part) nothing beyond its output and its
    dh and fp32 dxh scratch. ptxas must report no spills for any
    tensor-core kernel (the standalone attention's, the attention
    half-blocks' cores and the wgmma GEMM's), in this run's build or the
    cached one's; the attn_fwd, attn_bwd, mlp_fwd and mlp_bwd libraries
    must hold HGMMA in their SASS, and attn_fwd's and attn_bwd's also HMMA
-   (their mma.sync cores). Times kernel, twin and a
-   library call computing the same function (scaled_dot_product_attention
-   on the attention core; for the attention backwards its forward and
-   backward by autograd) as the median of REPS event-timed runs each, the
+   (their mma.sync cores). Times kernel, twin and, on the rows of
+   LIBRARY_TOWERS, a library call computing the same function
+   (scaled_dot_product_attention on the attention core; for the attention
+   backwards its forward and backward by autograd) as the median of REPS
+   event-timed runs each (each row's wall seconds as check_s), the
    kernel's spread [min, max] beside it, and, as a yardstick for the MLP
    and attention half-blocks' products alone, cuBLAS's two products on
    the same inputs (gemm_library_ms).
@@ -216,6 +219,29 @@
      lpclip): lpclip's random-RN50 extraction with a --config-file on
      "native", every split's features bit-equal to the python run's,
      img/s by split beside it.
+   - The accuracy contract, after interpret_prompt.
+     bf16_drift (``drive_bf16_drift``): scripts/
+     torch_port_bf16_drift_train.py's four trajectories at ViT-B/16 width
+     (batch 32, 100 classes, 120 SGD steps on 6 pixel batches cycled): A
+     fp32 plain one step a call, B bf16 'auto' in one captured window of
+     120, C fp32 plain on a fresh stream, D bf16 plain in one captured
+     window. Held: param_ratio and loss_ratio below 0.5, B - D below half
+     of A - C, one capture and 119 replays in B and in D, #1-#4 launched
+     48 times each by B's wrappers (the window's warm-up and captured
+     steps); each leg's ms/step. Then the zero-shot logits, #5/#6 once a
+     layer: at tests/test_bf16_drift.py's mid size (4 heads of 32: the
+     attention on the CUDA cores' bf16 route) 'auto' bf16 within 0.12 of
+     the fp32 logits' std of fp32 and within 0.14 of 'off' bf16, and at
+     ViT-B/16 width (EVAL_BATCH images, 100 random token rows as that
+     test draws them) within ZS_B16_FACTOR times 'off' bf16's drift of
+     fp32, each with the top-1 rule on the samples whose margin exceeds
+     twice the drift (at least one). soak (``drive_soak``):
+     scripts/torch_port_soak_synthetic.py at its defaults through the CLI
+     (two 10-class ELEVATER tasks of class-coloured JPEGs, 40 epochs, the
+     tiny towers, "native"), the final average test accuracy at least
+     0.2; its epoch walls; #1-#6 launched, #1-#4 on the tensor cores'
+     bf16 route (the image tower) and on the CUDA cores' (the 32-wide
+     text tower), no other kernel.
    - The mesh, last (after interpret_prompt). mesh_cli (``drive_mesh_cli``): the
      training CLI on trainer_cli's data and flags (4 shots: one eager
      window of 12 steps, one epoch) as two ranks that share the card
@@ -290,6 +316,13 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor cores; 
 # bf16 bound, 5e-3 x max|ref| against ref, is printed beside the rule
 # (tol_old, ok_old) and stops nothing.
 TOL = {"float32": 1e-4, "bfloat16": 5e-3}
+# The check rows that time a library call (library_ms): the kernels line's
+# shapes (KERNELS: image, image_eval; the standalone attention's
+# image_train) and the text half-blocks' yardsticks of ROADMAP Queue 2
+# item 1. scaled_dot_product_attention's first bf16 call at a new shape
+# takes 2-10 s on an H100 (the rows' check_s), so the other rows leave it
+# out.
+LIBRARY_TOWERS = ("image", "image_eval", "image_train", "text_cocoop", "text_elevater")
 TWIN_FACTOR = 2
 # Each kernel of the path, in ops._build.LAUNCHES' names: (source,
 # TPU kernel it replaces, the check row whose numbers it reports as
@@ -387,17 +420,20 @@ def cuda_times(fn, reps: int = REPS) -> tuple[float, float, float]:
     """(median, min, max) ms of ``reps`` runs of fn, each between its own
     pair of CUDA events. A sleep kernel holds the card while the host
     enqueues every run, so each pair reads the card's time for that run
-    alone, not the host's launch gaps."""
+    alone, not the host's launch gaps. The sleep is sized from the host's
+    time to enqueue the warm-up run (which includes the card's time
+    wherever fn waits for the card), not from the card's time."""
     import torch
 
     t0 = time.perf_counter()
     fn()
+    enqueue_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in range(reps)]
-    # Cycles at about 1.5 GHz: longer than the host takes to enqueue them all.
-    torch.cuda._sleep(int(min(1.5 * reps * warm_s, 5.0) * 1.5e9))
+    # Cycles at about 1.5 GHz: twice what the host took to enqueue as many
+    # runs, plus a millisecond.
+    torch.cuda._sleep(int(min(2 * reps * enqueue_s + 1e-3, 5.0) * 1.5e9))
     for start, end in events:
         start.record()
         fn()
@@ -580,8 +616,12 @@ def check_kernels(shapes: dict) -> list[dict]:
                                                       h),
                     "mlp_fwd": mlp_gemm_library(*mlp_args[:6]),
                     "mlp_bwd": mlp_bwd_gemm_library(hpre, ml["fc_w"], ml["proj_w"], gy)}
+        # The bf16 route each wrapper takes at this shape (block.py's codes):
+        # the tensor cores', or the CUDA cores' off their shapes.
+        tc = {"attn": block.tensor_core_shapes(x, w, h), "mlp": block.tensor_core_shapes(x, w4)}
         for name, mode, kern, twin, flops, nbytes, lib in (
                 c for c in cases if c[1] in modes or (c[0], c[1]) in modes):
+            row_t0 = time.perf_counter()
             got, alloc = requested(kern)
             ref64 = twin(torch.float64) if dtype == torch.bfloat16 else None
             bound_ms, bound_by = bound(flops, nbytes, dtype_name)
@@ -589,30 +629,36 @@ def check_kernels(shapes: dict) -> list[dict]:
             row = dict(name=name, mode=mode, tower=tower, dtype=dtype_name,
                        shape=[b, s, w, h], masked=mask is not None,
                        **verdict(dtype_name, got, twin(), ref64, outputs),
-                       **timed(kern, twin, lib), bound_ms=bound_ms, bound_by=bound_by)
+                       **timed(kern, twin, lib if tower in LIBRARY_TOWERS else None),
+                       bound_ms=bound_ms, bound_by=bound_by)
             if name in gemm_lib:
                 # The bf16 route's wrappers request their outputs and scratch,
                 # nothing more: attn_fwd y, qkv (a residual, or scratch
                 # without residuals), probs, mu and rstd, and its xh and o;
                 # attn_bwd dx, its do and dqkv, the fp32 dxh and the core's
-                # (B, H, S) fp32 t, no (B, H, S, S) tensor; mlp_fwd its xh
-                # and act, mlp_bwd its dh and fp32 dxh.
-                train = mode == "train"
+                # (B, H, S) fp32 t, no (B, H, S, S) tensor (on the CUDA
+                # cores its (B, H, S, S) fp32 ds); mlp_fwd its xh and act,
+                # mlp_bwd its dh and fp32 dxh.
+                train, on_tc = mode == "train", tc["mlp" if name.startswith("mlp") else "attn"]
                 if name == "attn_fwd":
                     want = act + m * 3 * w * esz + (probs_b + stats if train else 0) + 2 * act
                 elif name == "attn_bwd":
-                    want = act + act + m * 3 * w * esz + m * w * 4 + b * h * s * 4
+                    want = act + act + m * 3 * w * esz + m * w * 4 + b * h * s * (
+                        4 if on_tc else 4 * s)
                 elif name == "mlp_fwd":
                     want = act + (m * w4 * esz + stats if train else 0) + act + m * w4 * esz
                 else:
                     want = act + m * w4 * esz + m * w * 4
                 routes = {"attn_fwd": block.ATTN_FWD_ROUTES,
                           "attn_bwd": block.ATTN_BWD_ROUTES}.get(name, block.MLP_ROUTES)
-                row.update(route=routes[dtype], gemm_library_ms=cuda_ms(gemm_lib[name]),
+                route = block.BF16_CUDA_CORES if dtype == torch.bfloat16 and not on_tc else (
+                    routes[dtype])
+                row.update(route=route, gemm_library_ms=cuda_ms(gemm_lib[name]),
                            requested_bytes=alloc, want_bytes=want)
                 if dtype == torch.bfloat16 and alloc != want:
                     raise AssertionError(f"{name} ({mode}, {tower}, bf16): requested {alloc} "
                                          f"bytes, not those of its outputs and scratch ({want})")
+            row["check_s"] = time.perf_counter() - row_t0
             rows.append(row)
             print("kernel-check " + json.dumps(row), flush=True)
     return _fail_on_disagreement(rows)
@@ -810,6 +856,7 @@ def check_tp_kernels(shapes: dict) -> list[dict]:
              m * w4l * esz + mlp_w + act + part, None),
         ]
         for name, kern, twin, flops, nbytes, lib in (c for c in cases if c[0] in names):
+            row_t0 = time.perf_counter()
             got, alloc = requested(kern)
             bound_ms, bound_by = bound(flops, nbytes, dtype_name)
             row = dict(name=name, mode="part", tower=tower, dtype=dtype_name,
@@ -817,7 +864,8 @@ def check_tp_kernels(shapes: dict) -> list[dict]:
                        masked=mask is not None,
                        **verdict(dtype_name, got, twin(), twin(torch.float64) if bf16 else None,
                                  ATTN_FWD_OUTPUTS if name == "attn_fwd_tp" else None),
-                       **timed(kern, twin, lib), bound_ms=bound_ms, bound_by=bound_by)
+                       **timed(kern, twin, lib if tower in LIBRARY_TOWERS else None),
+                       bound_ms=bound_ms, bound_by=bound_by)
             if name == "attn_fwd_tp":
                 # The bf16 route requests the fp32 partial, the residuals
                 # (qkv, probs, mu, rstd) and the xh and o scratch.
@@ -853,6 +901,7 @@ def check_tp_kernels(shapes: dict) -> list[dict]:
                 if bf16 and alloc != want:
                     raise AssertionError(f"mlp_bwd_tp ({tower}, bf16): requested {alloc} bytes, "
                                          f"not those of its output and scratch ({want})")
+            row["check_s"] = time.perf_counter() - row_t0
             rows.append(row)
             print("kernel-check " + json.dumps(row), flush=True)
 
@@ -958,6 +1007,7 @@ def check_attend(shapes: dict) -> list[dict]:
              10 * n * d * pairs, 7 * rows_b + mask_b, lib_bwd),
         ]
         for name, kern, twin, flops, nbytes, lib in (c for c in cases if c[0] in names):
+            row_t0 = time.perf_counter()
             got, alloc = requested(kern)
             ref64 = twin(torch.float64) if dtype == torch.bfloat16 else None
             agree = verdict(dtype_name, got, twin(), ref64)
@@ -969,8 +1019,9 @@ def check_attend(shapes: dict) -> list[dict]:
                 want += 3 * n * s * 4 if route == "mma" else 2 * n * s * s * esz
             row = dict(name=name, mode="core", tower=path, dtype=dtype_name, shape=[n, s, d],
                        route=attention.ROUTES[route], masked=mask is not None, **agree,
-                       requested_bytes=alloc, **timed(kern, twin, lib), bound_ms=bound_ms,
-                       bound_by=bound_by)
+                       requested_bytes=alloc,
+                       **timed(kern, twin, lib if path in LIBRARY_TOWERS else None),
+                       bound_ms=bound_ms, bound_by=bound_by, check_s=time.perf_counter() - row_t0)
             rows.append(row)
             print("kernel-check " + json.dumps(row), flush=True)
             if dtype == torch.bfloat16 and alloc != want:
@@ -4561,6 +4612,215 @@ def drive_finetune_cli() -> dict:
     return out
 
 
+# ------------------------------------------------- the accuracy contract
+#
+# bf16_drift (``drive_bf16_drift``): scripts/torch_port_bf16_drift_train.py's
+# four trajectories at ViT-B/16 width (the JAX script's b16 defaults, the
+# window at the shipped K = 120), held to tests/test_bf16_drift.py's three
+# bounds; then the zero-shot logits' drift at that test's mid size and at
+# ViT-B/16 width. soak (``drive_soak``): scripts/torch_port_soak_synthetic.py
+# at its defaults, the final average test accuracy at least its --min-acc.
+DRIFT = dict(steps=120, window=120, batch=32, n_cls=100, unique=6)
+DRIFT_RATIO = 0.5
+# At ViT-B/16 width 'auto' bf16 drifts from fp32 by at most this many times
+# the plain bf16 path's drift on the same card.
+ZS_B16_FACTOR = 2.0
+SOAK_ARGV = []  # the JAX script's defaults: 40 epochs, 200 + 60 images a task
+# The C entries' dtype codes (ops/block.py): bf16 on the tensor cores, and
+# on the CUDA cores (block.BF16_CUDA_CORES) at the shapes those do not take.
+TC_CODE, BF16_CC_CODE = 1, 2
+
+
+def _script(name: str):
+    """scripts/<name>.py of this checkout, loaded from its file."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class _RouteCounts:
+    """While open, counts the half-block kernels' launches by entry and C
+    dtype code (``_build.call``'s first two arguments), beside
+    ``_build.LAUNCHES``: which route each launch took."""
+
+    def __enter__(self):
+        from mvlpt_torch.ops import _build
+
+        self.counts, self._call = {}, _build.call
+
+        def counted(name, code, *args):
+            self._call(name, code, *args)
+            self.counts[f"{name}:{code}"] = self.counts.get(f"{name}:{code}", 0) + 1
+
+        _build.call = counted
+        return self.counts
+
+    def __exit__(self, *exc):
+        from mvlpt_torch.ops import _build
+
+        _build.call = self._call
+
+
+def _zs_logits(drift, path: str, cfg, bb32, images, ids) -> dict:
+    """fp32 'off', bf16 'off' and bf16 'auto' (the no-grad half-block
+    forwards, #5/#6) zero-shot logits on the same inputs, checked finite
+    and of shape (images, classes); the 'auto' run's launches, one of
+    each kernel a layer of either tower, and their routes."""
+    import numpy as np
+    import torch
+
+    from mvlpt_torch.core.clip import cast_backbone
+    from mvlpt_torch.ops import _build
+    from mvlpt_torch.ops.attention import select_attn_fn
+
+    bb16 = cast_backbone(bb32, torch.bfloat16)
+    ref = drift._zeroshot_logits(bb32, cfg, images, ids)
+    off16 = drift._zeroshot_logits(bb16, cfg, images.bfloat16(), ids)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with _RouteCounts() as routes:
+        auto16 = drift._zeroshot_logits(bb16, cfg, images.bfloat16(), ids,
+                                        select_attn_fn("auto", inference=True))
+    launches = _launches(path, EVAL_KERNELS["auto"], cfg.vision_layers + cfg.transformer_layers)
+    for name, got in (("fp32", ref), ("off_bf16", off16), ("auto_bf16", auto16)):
+        if not np.isfinite(got).all() or got.shape != (images.shape[0], ids.shape[0]):
+            raise AssertionError(f"{path}: {name} logits of shape {got.shape}, not all finite")
+    return dict(ref=ref, off16=off16, auto16=auto16, launches=launches, routes=routes)
+
+
+def drive_bf16_drift() -> dict:
+    """The training drift (``measure("b16", **DRIFT)``), held as
+    tests/test_bf16_drift.py holds the tiny one, with leg B's launches
+    (the wrappers' warm-up and captured steps; its replays call none) and
+    one capture each for B and D; then the zero-shot drift, each with
+    ``_check_drift``'s top-1 rule: at that test's mid size (4 heads of 32:
+    the attention on the CUDA cores' bf16 route) 'auto' bf16 within
+    BF16_REL_TOL of fp32 and within FUSED_REL_TOL of 'off' bf16, and at
+    ViT-B/16 width (the flagship's seed, EVAL_BATCH images, 100 classes)
+    within ZS_B16_FACTOR x the 'off' bf16 drift of fp32. -> the paths."""
+    import numpy as np
+    import torch
+
+    from mvlpt_torch.core.clip import CLIPConfig, init_clip_params
+    from mvlpt_torch.ops import _build
+
+    drift = _script("torch_port_bf16_drift_train")
+    card = card_line()
+    clip_cfg = CLIPConfig.for_backbone("ViT-B/16")
+    t0 = time.perf_counter()
+    out = drift.measure("b16", device="cuda", **DRIFT)
+    train_s = time.perf_counter() - t0
+    # One launch of each of #1-#4 a layer of either tower a step.
+    per_step = clip_cfg.vision_layers + clip_cfg.transformer_layers
+    legs = out["legs"]
+    b, d = legs["B prod-windowed s0"], legs["D bf16-plain-window s0"]
+    got = {name: out["launches_B"].get(name, 0) for name in _build.LAUNCHES}
+    # The window's first step runs eagerly as the warm-up, its second is
+    # captured; the rest are replays of that graph.
+    launches = _launches_of("bf16_drift[B]", got, TRAIN_KERNELS["auto"], 2 * per_step)
+    summary = {k: v for k, v in out.items() if k != "losses"}
+    print("bf16_drift " + json.dumps(summary), flush=True)
+    print("bf16_drift losses " + json.dumps(out["losses"]), flush=True)
+    for tag, leg in legs.items():
+        print(f"bf16_drift [{card}]: {tag} {leg['seconds']:.2f} s, {leg['ms_per_step']:.2f} "
+              f"ms/step over {out['n_steps']} steps", flush=True)
+    if (b["captures"], b["replays"], d["captures"], d["replays"]) != (
+            1, DRIFT["steps"] - 1, 1, DRIFT["steps"] - 1):
+        raise AssertionError(f"bf16_drift: windows B {b}, D {d}: want one capture and "
+                             f"{DRIFT['steps'] - 1} replays each")
+    if not all(np.isfinite(v).all() for v in out["losses"].values()):
+        raise AssertionError("bf16_drift: a leg's losses are not finite")
+    for key, bound in (("param_ratio", DRIFT_RATIO), ("loss_ratio", DRIFT_RATIO),
+                       ("param_dist_kernels_only", DRIFT_RATIO * out["param_dist_seed"])):
+        if not out[key] < bound:
+            raise AssertionError(f"bf16_drift: {key} {out[key]} not below {bound}")
+
+    # The zero-shot drift at the mid size: the port's init at seed 7. Its
+    # attention (head width 32) takes the CUDA cores' bf16 route.
+    cfg = drift._mid_clip()
+    images, ids = drift._mid_clip_inputs()
+    mid = _zs_logits(drift, "bf16_drift[zeroshot_mid]", cfg,
+                     init_clip_params(torch.Generator().manual_seed(7), cfg, device="cuda"),
+                     torch.from_numpy(images).cuda(), torch.from_numpy(ids).cuda())
+    if not mid["routes"].get(f"attn_fwd:{BF16_CC_CODE}"):
+        raise AssertionError(f"bf16_drift[zeroshot_mid]: routes {mid['routes']}: the "
+                             "attention did not take the CUDA cores' bf16 route")
+    # At ViT-B/16 width, the flagship's backbone seed: the mid test's
+    # recipe (random token rows) for its 100 classes.
+    bb32 = init_clip_params(torch.Generator().manual_seed(0), clip_cfg, device="cuda")
+    images, ids = drift._mid_clip_inputs(EVAL_BATCH, clip_cfg.image_resolution, DRIFT["n_cls"])
+    big = _zs_logits(drift, "bf16_drift[zeroshot_b16]", clip_cfg, bb32,
+                     torch.from_numpy(images).cuda(), torch.from_numpy(ids).cuda())
+    off_b16 = float(np.abs(big["off16"] - big["ref"]).max() / np.std(big["ref"]))
+    zs = {"mid": dict(auto_vs_fp32=drift._check_drift(mid["ref"], mid["auto16"],
+                                                      drift.BF16_REL_TOL),
+                      auto_vs_off_bf16=drift._check_drift(mid["off16"], mid["auto16"],
+                                                          drift.FUSED_REL_TOL)),
+          "b16": dict(off_vs_fp32=off_b16,
+                      auto_vs_fp32=drift._check_drift(big["ref"], big["auto16"],
+                                                      ZS_B16_FACTOR * off_b16))}
+    for name, z in (("mid", mid), ("b16", big)):
+        zs[name].update(launches=z["launches"], routes=z["routes"])
+        print(f"bf16_drift zeroshot_{name} [{card}] " + json.dumps(zs[name]), flush=True)
+    del mid, big, bb32
+    _free_cuda()
+    return {"bf16_drift[B]": dict(out=summary, launches=launches, seconds=train_s),
+            **{f"bf16_drift[zeroshot_{name}]": z for name, z in zs.items()}}
+
+
+def drive_soak() -> dict:
+    """scripts/torch_port_soak_synthetic.py at its defaults through the
+    CLI on the card (data and output under build/soak): the final
+    average test accuracy at least its --min-acc (raised by the script);
+    #1-#4 launched alike and #5 as #6, no other kernel; and each of the
+    four entries on both bf16 routes: the tensor cores' for the image
+    tower (width 64, one head of 64), the CUDA cores' for the 32-wide
+    text tower (two heads of 16)."""
+    import shutil
+
+    import torch
+
+    from mvlpt_torch.ops import _build
+
+    soak = _script("torch_port_soak_synthetic")
+    work = ROOT / "build" / "soak"
+    shutil.rmtree(work, ignore_errors=True)
+    card = card_line()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _RouteCounts() as routes:
+        res = soak.run(SOAK_ARGV, device="cuda", workdir=str(work))
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    trainer = res["trainer"]
+    timings = _cli_timings(trainer)
+    used = {k for k, v in launches.items() if v}
+    want = set(TRAIN_KERNELS["auto"] + EVAL_KERNELS["auto"])
+    if used != want or len({launches[k] for k in TRAIN_KERNELS["auto"]}) != 1 or (
+            launches["attn_fwd_infer"] != launches["mlp_fwd_infer"]):
+        raise AssertionError(f"soak: launches {launches}, want each of {sorted(want)}, "
+                             "#1-#4 alike and #5 as #6, and no other kernel")
+    if not all(routes.get(f"{name}:{code}") for name in TRAIN_KERNELS["auto"]
+               for code in (TC_CODE, BF16_CC_CODE)):
+        raise AssertionError(f"soak: routes {routes}: want each of #1-#4 on the tensor "
+                             "cores' (image tower) and the CUDA cores' (text tower) bf16 route")
+    walls = timings["epoch_wall_s"]
+    out = dict(path="soak", final=res["final"], min_acc=res["min_acc"], wall_s=wall,
+               epochs=len(walls), epoch_wall_s=walls,
+               epoch_wall_median_s=sorted(walls)[len(walls) // 2],
+               img_per_s=timings["img_per_s"], test_wall_s=timings["test_wall_s"],
+               launches={k: v for k, v in launches.items() if v}, routes=routes,
+               vocab=os.environ.get("MVLPT_TORCH_BPE_PATH", ""))
+    print(f"soak [{card}] " + json.dumps(out), flush=True)
+    del res, trainer
+    _free_cuda()
+    return {"soak": out}
+
 
 # ---------------------------------------------------------------- the mesh
 #
@@ -5056,6 +5316,9 @@ def half_block_shapes() -> tuple[dict, dict]:
     mask_t = block_causal_mask(g_t, s_t, device="cuda")
     s_ei, s_zs = elevater_image_tokens(), elevater_image_tokens(0)
     s_x = extract_image_tokens()
+    soak_tasks = ("cifar-10", "mnist")  # scripts/torch_port_soak_synthetic.py's TASKS
+    s_k, g_k, rows_k = elevater_text_shape(soak_tasks, 2)
+    n_k = len(elevater_classnames(soak_tasks))
     rows_c = cocoop_chunk_rows(32, cocoop_base_classes())
     rows_ce = cocoop_chunk_rows(EVAL_BATCH, COCOOP_CLASSES - cocoop_base_classes())
     rows_p = cocoop_chunk_rows(32, COCOOP_PROBE_CLASSES)
@@ -5092,7 +5355,16 @@ def half_block_shapes() -> tuple[dict, dict]:
         # (SUN397 base), the train kernels only (one train step).
         "text_cocoop_probe": (rows_p, 77, 512, 8, mask_c, 77, rows_p, ("train",)),
         # extract_features' ViT-B/32 image tower (no VPT rows) at batch 128.
-        "image_extract": (LP_BATCH, s_x, 768, 12, None, s_x, LP_BATCH, no_residual)}
+        "image_extract": (LP_BATCH, s_x, 768, 12, None, s_x, LP_BATCH, no_residual),
+        # The CUDA cores' bf16 route (block.BF16_CUDA_CORES), at the shapes
+        # the tensor cores' do not take: soak's 32-wide text tower (two
+        # heads of 16, 4W = 128: all four kernels) over its 20 classes,
+        # and bf16_drift's mid-size zero-shot towers (4 heads of 32: the
+        # attention; the MLP at 4W = 512 stays on the tensor cores).
+        "text_soak": (rows_k, g_k * s_k, 32, 2, block_causal_mask(g_k, s_k, device="cuda"), s_k,
+                      n_k, every),
+        "image_mid": (48, 17, 128, 4, None, 17, 48, no_residual),
+        "text_mid": (16, 13, 128, 4, causal_mask(13, device="cuda"), 13, 16, no_residual)}
     tp_shapes = {
         "image": (32, s_img, 768, 12, None, s_img, 32, TP_KERNELS),
         "text": (rows, g * s, 512, 8, packed_mask, s, 100, TP_KERNELS),
@@ -5121,7 +5393,15 @@ def main() -> int:
 
     print(card_line(), flush=True)  # name, power limit (nvidia-smi)
     print(setup_vocab(), flush=True)
-    t0 = time.perf_counter()
+    t0 = last = time.perf_counter()
+
+    def mark(phase: str) -> None:
+        """Print the seconds since the previous mark and since the build."""
+        nonlocal last
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - last:.1f} s, {now - t0:.1f} s into the run", flush=True)
+        last = now
+
     info = _build.build_kernels()
     for name in _build.SOURCES:
         _build.library(name)
@@ -5135,18 +5415,22 @@ def main() -> int:
               f"spills", flush=True)
     check_tc_spills(info["ptxas"])
     check_hgmma()
+    mark("build")
 
     s, g, rows, s_img, s_l336, packed_mask = text_and_image_shapes()
     s_e, g_e, rows_e = elevater_text_shape()
     kernel_shapes, tp_shapes = half_block_shapes()
     results = check_kernels(kernel_shapes)
+    mark("check rows: half-blocks")
     results += check_tp_kernels(tp_shapes)
+    mark("check rows: tensor-parallel parts")
     # The MLP backward's K-major GEMM alone: the image and packed text
     # rows, ViT-L/14@336px at its train batch of 8, and a ragged edge
     # below one tile.
     results += check_gemm_kmajor({"image": (32 * s_img, 768), "text": (rows * g * s, 512),
                                   "vitl336": (VITL336["batch"] * s_l336, 1024),
                                   "edge": (51, 64)})
+    mark("check rows: K-major GEMM")
     both, fb = ("bfloat16", "float32"), ("attend_fwd", "attend_bwd")
     results += check_attend({
         "image_train": (32 * 12, s_img, 64, None, both, fb),
@@ -5170,33 +5454,51 @@ def main() -> int:
         "max_bwd_fp32": (64, 278, 64, None, ("float32",), ("attend_bwd",)),
         "vitl336_s581": (4 * 16, s_l336, 64, None, both, fb),
         "s1024": (64, 1024, 64, causal_mask(1024, device="cuda"), both, fb)})
+    mark("check rows: standalone attention")
     print(f"text tower: s={s}, G={g}, {rows} packed rows of {g * s} tokens", flush=True)
     paths = drive_paths({"visual": (32, s_img, None), "text": (rows, g * s, packed_mask)},
                         (s, g))
+    mark("paths")
     paths["trainer_cli"] = drive_trainer_cli()
+    mark("trainer_cli")
     paths["trainer_cli_native"] = drive_trainer_cli_native(paths["trainer_cli"])
+    mark("trainer_cli_native")
     paths["trainer_adamw_dropout"] = drive_trainer_adamw_dropout(
         paths.get("train_window_k120[auto]"))
+    mark("trainer_adamw_dropout")
     paths["debug_nans"] = drive_debug_nans()
     paths["post_run"] = drive_post_run()
+    mark("debug_nans, post_run")
     paths["finetune_cli"] = drive_finetune_cli()
+    mark("finetune_cli")
     print(f"ELEVATER-20 text tower: s={s_e}, G={g_e}, {rows_e} rows of {g_e * s_e} tokens",
           flush=True)
     paths.update(drive_trainer_elevater())
+    mark("trainer_elevater")
     paths.update(drive_trainer_cocoop())
+    mark("trainer_cocoop")
     paths["lpclip"] = drive_lpclip()
     paths["lpclip_native"] = drive_lpclip_native(paths["lpclip"])
+    mark("lpclip")
     paths["extract_features"] = drive_extract_features()
     paths["zoo_extract"] = drive_zoo_extract(paths["extract_features"]["rows"])
+    mark("extract_features, zoo_extract")
     paths["interpret_prompt"] = drive_interpret_prompt()
+    mark("interpret_prompt")
+    paths.update(drive_bf16_drift())
+    mark("bf16_drift")
+    paths.update(drive_soak())
+    mark("soak")
     # The mesh runs last: two ranks share the card with this process, and
     # the traced replays above run as they did before these phases existed.
     mesh = drive_mesh_cli()
     for name, launches in mesh["launches"].items():
         paths[f"mesh_cli[{name}]"] = dict(mesh["runs"][name], launches=launches)
+    mark("mesh_cli")
     pod = drive_pod_loss_check()
     for name, launches in pod["launches"].items():
         paths[f"pod_loss_check[{name}]"] = dict(launches=launches)
+    mark("pod_loss_check")
 
     summary = {"card": card_line()}
     for path, out in paths.items():

@@ -36,6 +36,11 @@
 //     (B, H, S, S) scratch in the dq launch and reads it by column in the
 //     dk/dv launch (namespace cuda_cores below), every product summed in
 //     order with fp32 FMAs (TF32 would not hold fp32's tolerance).
+// bf16 at the shapes the tensor cores' route does not take (D other than
+// 64, W or Wl off the multiples of 64) takes the CUDA cores' route on bf16
+// operands (ops/block.BF16_CUDA_CORES): the same GEMM and core, ds
+// rounded to bf16 before it is kept, dq, dk and dv rounded as they are
+// stored.
 // Neither core uses atomics: results do not change from run to run.
 #include <type_traits>
 
@@ -381,7 +386,11 @@ int launch(const void* qkv, const void* probs, const void* dout, float* t, void*
 
 }  // namespace tc
 
-// -------------------------------------------- fp32 attention core, FMAs
+// --------------------------------------- CUDA-core attention core, FMAs
+//
+// In T (fp32, or bf16 off the tensor cores' shapes): operands read and
+// widened to fp32, every sum in fp32, ds rounded to T in the (B, H, S, S)
+// fp32 scratch, dq, dk and dv rounded to T as they are stored.
 //
 // The dq launch, one block per (query tile, head, image), writes ds to a
 // (B, H, S, S) scratch; the dk/dv launch, one block per (key tile, head,
@@ -406,10 +415,11 @@ inline size_t dkv_words(int D) {
 }
 
 // Per query row: dp, ds (rounded; also written to ds_g) and dq.
+template <typename T>
 __global__ void __launch_bounds__(FMA_THREADS)
-attn_bwd_dq(const float* __restrict__ qkv, const float* __restrict__ probs,
-            const float* __restrict__ dout, float* __restrict__ ds_g, float* __restrict__ dqkv,
-            int S, int H, int D, float scale, int qt) {
+attn_bwd_dq(const T* __restrict__ qkv, const T* __restrict__ probs, const T* __restrict__ dout,
+            float* __restrict__ ds_g, T* __restrict__ dqkv, int S, int H, int D, float scale,
+            int qt) {
   extern __shared__ __align__(16) float smem[];
   const int W = H * D, W3 = 3 * W;
   const int q0 = blockIdx.x * qt, h = blockIdx.y, b = blockIdx.z;
@@ -418,12 +428,12 @@ attn_bwd_dq(const float* __restrict__ qkv, const float* __restrict__ probs,
   float* dOs = Vc + FMA_KC * (D + 1);  // qt x D
   float* dQ = dOs + qt * D;           // qt x D, the dq accumulators
   float* Ds = dQ + qt * D;            // qt x S: dp, then ds
-  const float* base = qkv + (size_t)b * S * W3 + h * D;
+  const T* base = qkv + (size_t)b * S * W3 + h * D;
 
   for (int idx = threadIdx.x; idx < qt * D; idx += FMA_THREADS) {
     const int r = idx / D, d = idx - r * D;
     const int qi = q0 + r;
-    dOs[idx] = qi < S ? dout[((size_t)b * S + qi) * W + h * D + d] : 0.f;
+    dOs[idx] = qi < S ? to_f(dout[((size_t)b * S + qi) * W + h * D + d]) : 0.f;
     dQ[idx] = 0.f;
   }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -434,7 +444,7 @@ attn_bwd_dq(const float* __restrict__ qkv, const float* __restrict__ probs,
     __syncthreads();
     for (int idx = threadIdx.x; idx < nk * D; idx += FMA_THREADS) {
       const int j = idx / D, d = idx - j * D;
-      Vc[j * (D + 1) + d] = base[(size_t)(k0 + j) * W3 + 2 * W + d];
+      Vc[j * (D + 1) + d] = to_f(base[(size_t)(k0 + j) * W3 + 2 * W + d]);
     }
     __syncthreads();
     for (int r = warp; r < qt; r += FMA_THREADS / 32) {
@@ -454,13 +464,13 @@ attn_bwd_dq(const float* __restrict__ qkv, const float* __restrict__ probs,
     const int qi = q0 + r;
     if (qi >= S) break;
     const size_t prow_off = (((size_t)b * H + h) * S + qi) * S;
-    const float* pg = probs + prow_off;
+    const T* pg = probs + prow_off;
     float* drow = Ds + r * S;
     float t = 0.f;
-    for (int j = lane; j < S; j += 32) t += drow[j] * pg[j];
+    for (int j = lane; j < S; j += 32) t += drow[j] * to_f(pg[j]);
     t = warp_sum(t);
     for (int j = lane; j < S; j += 32) {
-      const float ds = pg[j] * (drow[j] - t) * scale;
+      const float ds = rnd<T>(to_f(pg[j]) * (drow[j] - t) * scale);
       drow[j] = ds;
       ds_g[prow_off + j] = ds;
     }
@@ -472,7 +482,7 @@ attn_bwd_dq(const float* __restrict__ qkv, const float* __restrict__ probs,
     __syncthreads();
     for (int idx = threadIdx.x; idx < nk * D; idx += FMA_THREADS) {
       const int j = idx / D, d = idx - j * D;
-      Kc[j * (D + 1) + d] = base[(size_t)(k0 + j) * W3 + W + d];
+      Kc[j * (D + 1) + d] = to_f(base[(size_t)(k0 + j) * W3 + W + d]);
     }
     __syncthreads();
     for (int r = warp; r < qt; r += FMA_THREADS / 32) {
@@ -489,16 +499,17 @@ attn_bwd_dq(const float* __restrict__ qkv, const float* __restrict__ probs,
     const int qi = q0 + r;
     if (qi >= S) break;
     for (int d = lane; d < D; d += 32)
-      dqkv[((size_t)b * S + qi) * W3 + h * D + d] = dQ[r * D + d];
+      dqkv[((size_t)b * S + qi) * W3 + h * D + d] = from_f<T>(dQ[r * D + d]);
   }
 }
 
 // Per key row k: dv = sum_q p[q,k] do[q], dk = sum_q ds[q,k] q[q], the
 // queries a chunk of FMA_KC at a time.
+template <typename T>
 __global__ void __launch_bounds__(FMA_THREADS)
-attn_bwd_dkv(const float* __restrict__ qkv, const float* __restrict__ probs,
-             const float* __restrict__ ds_g, const float* __restrict__ dout,
-             float* __restrict__ dqkv, int S, int H, int D) {
+attn_bwd_dkv(const T* __restrict__ qkv, const T* __restrict__ probs,
+             const float* __restrict__ ds_g, const T* __restrict__ dout, T* __restrict__ dqkv,
+             int S, int H, int D) {
   extern __shared__ __align__(16) float smem[];
   constexpr int QC = FMA_KC, PT = QC + 1;  // query chunk; padded row of Pt and DSt
   const int W = H * D, W3 = 3 * W;
@@ -509,7 +520,7 @@ attn_bwd_dkv(const float* __restrict__ qkv, const float* __restrict__ probs,
   float* DSt = Pt + KT * PT;    // KT x PT, ds transposed
   float* dK = DSt + KT * PT;    // KT x D, the dk accumulators
   float* dV = dK + KT * D;      // KT x D, the dv accumulators
-  const float* base = qkv + (size_t)b * S * W3 + h * D;
+  const T* base = qkv + (size_t)b * S * W3 + h * D;
   const size_t head_off = ((size_t)b * H + h) * S * S;
   for (int idx = threadIdx.x; idx < KT * D; idx += FMA_THREADS) dK[idx] = dV[idx] = 0.f;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -519,15 +530,15 @@ attn_bwd_dkv(const float* __restrict__ qkv, const float* __restrict__ probs,
     __syncthreads();
     for (int idx = threadIdx.x; idx < nq * D; idx += FMA_THREADS) {
       const int q = idx / D, d = idx - q * D;
-      Qc[idx] = base[(size_t)(c0 + q) * W3 + d];
-      dOc[idx] = dout[((size_t)b * S + c0 + q) * W + h * D + d];
+      Qc[idx] = to_f(base[(size_t)(c0 + q) * W3 + d]);
+      dOc[idx] = to_f(dout[((size_t)b * S + c0 + q) * W + h * D + d]);
     }
     for (int idx = threadIdx.x; idx < KT * nq; idx += FMA_THREADS) {
       const int q = idx / KT, kk = idx - q * KT;
       const int k = k0 + kk;
       const bool in = k < S;
       const size_t g = head_off + (size_t)(c0 + q) * S + k;
-      Pt[kk * PT + q] = in ? probs[g] : 0.f;
+      Pt[kk * PT + q] = in ? to_f(probs[g]) : 0.f;
       DSt[kk * PT + q] = in ? ds_g[g] : 0.f;
     }
     __syncthreads();
@@ -549,16 +560,17 @@ attn_bwd_dkv(const float* __restrict__ qkv, const float* __restrict__ probs,
   for (int kk = warp; kk < KT; kk += FMA_THREADS / 32) {
     const int k = k0 + kk;
     if (k >= S) break;
-    float* out = dqkv + ((size_t)b * S + k) * W3 + h * D;
+    T* out = dqkv + ((size_t)b * S + k) * W3 + h * D;
     for (int d = lane; d < D; d += 32) {
-      out[W + d] = dK[kk * D + d];
-      out[2 * W + d] = dV[kk * D + d];
+      out[W + d] = from_f<T>(dK[kk * D + d]);
+      out[2 * W + d] = from_f<T>(dV[kk * D + d]);
     }
   }
 }
 
-// The shared-memory attributes are set once, to a block's most, so a
-// launch makes no runtime call but its own.
+// The shared-memory attributes are set once for each T, to a block's
+// most, so a launch makes no runtime call but its own.
+template <typename T>
 int launch(const void* qkv, const void* probs, const void* dout, float* ds, void* dqkv, int B,
            int S, int H, int D, cudaStream_t st) {
   static bool smem_set = false;
@@ -568,18 +580,18 @@ int launch(const void* qkv, const void* probs, const void* dout, float* ds, void
   const size_t smem_kv = sizeof(float) * dkv_words(D);
   if (smem_kv > kMaxDynSmem) return (int)cudaErrorInvalidConfiguration;
   if (!smem_set) {
-    MVLPT_TRY(cudaFuncSetAttribute(attn_bwd_dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    MVLPT_TRY(cudaFuncSetAttribute(attn_bwd_dq<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)kMaxDynSmem));
-    MVLPT_TRY(cudaFuncSetAttribute(attn_bwd_dkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    MVLPT_TRY(cudaFuncSetAttribute(attn_bwd_dkv<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)kMaxDynSmem));
     smem_set = true;
   }
-  attn_bwd_dq<<<dim3((S + qt - 1) / qt, H, B), FMA_THREADS, smem_q, st>>>(
-      (const float*)qkv, (const float*)probs, (const float*)dout, ds, (float*)dqkv, S, H, D,
+  attn_bwd_dq<T><<<dim3((S + qt - 1) / qt, H, B), FMA_THREADS, smem_q, st>>>(
+      (const T*)qkv, (const T*)probs, (const T*)dout, ds, (T*)dqkv, S, H, D,
       (float)pow((double)D, -0.5), qt);
   MVLPT_TRY(cudaGetLastError());
-  attn_bwd_dkv<<<dim3((S + KT - 1) / KT, H, B), FMA_THREADS, smem_kv, st>>>(
-      (const float*)qkv, (const float*)probs, ds, (const float*)dout, (float*)dqkv, S, H, D);
+  attn_bwd_dkv<T><<<dim3((S + KT - 1) / KT, H, B), FMA_THREADS, smem_kv, st>>>(
+      (const T*)qkv, (const T*)probs, ds, (const T*)dout, (T*)dqkv, S, H, D);
   return (int)cudaGetLastError();
 }
 
@@ -588,37 +600,38 @@ int launch(const void* qkv, const void* probs, const void* dout, float* ds, void
 // ------------------------------------------------------- the half-block
 
 // H heads of D each (Wl = H D); gy and dxh are over the model width W.
-// scratch: the bf16 route's (B, H, S) fp32 t, or the fp32 route's
-// (B, H, S, S) ds. part: stop at the fp32 dxh (no LayerNorm backward,
-// x/mu/rstd unused).
-template <typename T>
+// scratch: the tensor cores' route's (B, H, S) fp32 t, or the CUDA
+// cores' (B, H, S, S) fp32 ds. part: stop at the fp32 dxh (no LayerNorm
+// backward, x/mu/rstd unused). tensor_cores: that route (bf16 only).
+template <typename T, bool tensor_cores = std::is_same_v<T, __nv_bfloat16>>
 int attn_bwd_impl(const void* x, const float* mu, const float* rstd, const void* qkv,
                   const void* probs, const void* ln_scale, const void* qkv_w, const void* out_w,
                   const void* gy, void* dout, void* scratch, void* dqkv, float* dxh, void* dx,
                   int B, int S, int W, int H, int D, bool part, cudaStream_t st) {
-  constexpr bool tensor_cores = std::is_same_v<T, __nv_bfloat16>;
-  if (tensor_cores && D != mma::D) return (int)cudaErrorInvalidValue;  // the wrappers raise first
+  if (tensor_cores && D != mma::D) return (int)cudaErrorInvalidValue;  // the wrappers route first
   const int M = B * S, Wl = H * D;
   // do[m, i] = sum_n gy[m, n] Wout[i, n]: Wout is (Wl, W), read K-major.
-  MVLPT_TRY((wg::gemm<T, EPI_ROUND, true>(gy, out_w, M, Wl, W,
-                                          EpiArgs{nullptr, nullptr, nullptr, dout, nullptr}, st)));
+  MVLPT_TRY((wg::gemm<T, EPI_ROUND, true, tensor_cores>(
+      gy, out_w, M, Wl, W, EpiArgs{nullptr, nullptr, nullptr, dout, nullptr}, st)));
   const int rc =
       tensor_cores ? tc::launch(qkv, probs, dout, (float*)scratch, dqkv, B, S, H, Wl, st)
-                   : cuda_cores::launch(qkv, probs, dout, (float*)scratch, dqkv, B, S, H, D, st);
+                   : cuda_cores::launch<T>(qkv, probs, dout, (float*)scratch, dqkv, B, S, H, D,
+                                           st);
   if (rc != 0) return rc;
   // dxh[m, n] = sum_k dqkv[m, k] Wqkv[n, k]: Wqkv is (W, 3Wl), read K-major.
-  MVLPT_TRY((wg::gemm<T, EPI_F32, true>(dqkv, qkv_w, M, W, 3 * Wl,
-                                        EpiArgs{nullptr, nullptr, nullptr, dxh, nullptr}, st)));
+  MVLPT_TRY((wg::gemm<T, EPI_F32, true, tensor_cores>(
+      dqkv, qkv_w, M, W, 3 * Wl, EpiArgs{nullptr, nullptr, nullptr, dxh, nullptr}, st)));
   if (!part) MVLPT_TRY(launch_ln_bwd<T>(x, mu, rstd, ln_scale, dxh, gy, dx, M, W, st));
   return 0;
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores, D = 64).
-// dout (M, W) and dqkv (M, 3W) in the dtype, and dxh (M, W, fp32), are
-// caller-allocated scratch, and so is scratch: (B, H, S) fp32 in bf16,
-// (B, H, S, S) fp32 in fp32.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores, D = 64),
+// 2 = bfloat16 (CUDA cores, any D). dout (M, W) and dqkv (M, 3W) in the
+// dtype, and dxh (M, W, fp32), are caller-allocated scratch, and so is
+// scratch: (B, H, S) fp32 on the tensor cores, (B, H, S, S) fp32 on the
+// CUDA cores.
 extern "C" int mvlpt_attn_bwd(int dtype, const void* x, const void* mu, const void* rstd,
                               const void* qkv, const void* probs, const void* ln_scale,
                               const void* qkv_w, const void* out_w, const void* gy, void* dout,
@@ -634,6 +647,10 @@ extern "C" int mvlpt_attn_bwd(int dtype, const void* x, const void* mu, const vo
     return attn_bwd_impl<__nv_bfloat16>(x, (const float*)mu, (const float*)rstd, qkv, probs,
                                         ln_scale, qkv_w, out_w, gy, dout, scratch, dqkv,
                                         (float*)dxh, dx, B, S, W, H, D, false, st);
+  if (dtype == 2)
+    return attn_bwd_impl<__nv_bfloat16, false>(x, (const float*)mu, (const float*)rstd, qkv,
+                                               probs, ln_scale, qkv_w, out_w, gy, dout, scratch,
+                                               dqkv, (float*)dxh, dx, B, S, W, H, D, false, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -654,5 +671,9 @@ extern "C" int mvlpt_attn_bwd_part(int dtype, const void* qkv, const void* probs
     return attn_bwd_impl<__nv_bfloat16>(nullptr, nullptr, nullptr, qkv, probs, nullptr, qkv_w,
                                         out_w, gy, dout, scratch, dqkv, (float*)dxh, nullptr, B,
                                         S, W, H, D, true, st);
+  if (dtype == 2)
+    return attn_bwd_impl<__nv_bfloat16, false>(nullptr, nullptr, nullptr, qkv, probs, nullptr,
+                                               qkv_w, out_w, gy, dout, scratch, dqkv,
+                                               (float*)dxh, nullptr, B, S, W, H, D, true, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -35,6 +35,11 @@
 //   fp32, CUDA cores: common.cuh's GEMM and fma_attn.cuh's core, every
 //     product summed in order with fp32 FMAs (TF32 would not hold fp32's
 //     tolerance).
+// bf16 at the shapes the tensor cores' route does not take (D other than
+// 64, W or Wl off the multiples of 64: the soak's 32-wide text tower, the
+// 4-head towers of tests/test_bf16_drift.py) takes the CUDA cores' route
+// on bf16 operands (ops/block.BF16_CUDA_CORES), at the same rounding
+// points.
 #include <type_traits>
 
 #include "common.cuh"
@@ -280,17 +285,18 @@ int launch(const void* qkv, const float* mask, void* o, void* probs, int B, int 
 // H heads of D each (Wl = H D, the qkv width 3 Wl); the LN and the output
 // are over the model width W. part: fp32 partial out-projection into y,
 // without out_b or the residual. probs, mu and rstd may be null.
-template <typename T>
+// tc: the tensor cores' route (bf16 only); else the CUDA cores'.
+template <typename T, bool tc = std::is_same_v<T, __nv_bfloat16>>
 int attn_fwd_impl(const void* x, const void* ln_scale, const void* ln_bias, const void* qkv_w,
                   const void* qkv_b, const void* out_w, const void* out_b, const float* mask,
                   void* xh, void* qkv, void* o, void* probs, float* mu, float* rstd, void* y,
                   int B, int S, int W, int H, int D, float eps, bool part, cudaStream_t st) {
-  constexpr bool tc = std::is_same_v<T, __nv_bfloat16>;
-  if (tc && D != mma::D) return (int)cudaErrorInvalidValue;  // the wrappers raise first
+  if (tc && D != mma::D) return (int)cudaErrorInvalidValue;  // the wrappers route first
   const int M = B * S, Wl = H * D;
   MVLPT_TRY(launch_ln_fwd<T>(x, ln_scale, ln_bias, xh, mu, rstd, M, W, eps, st));
-  MVLPT_TRY((wg::gemm<T, EPI_BIAS>(xh, qkv_w, M, 3 * Wl, W,
-                                   EpiArgs{qkv_b, nullptr, nullptr, qkv, nullptr}, st)));
+  MVLPT_TRY((wg::gemm<T, EPI_BIAS, false, tc>(xh, qkv_w, M, 3 * Wl, W,
+                                              EpiArgs{qkv_b, nullptr, nullptr, qkv, nullptr},
+                                              st)));
   int rc;
   if constexpr (tc) {
     rc = probs != nullptr ? core::launch<true>(qkv, mask, o, probs, B, S, H, Wl, st)
@@ -303,18 +309,20 @@ int attn_fwd_impl(const void* x, const void* ln_scale, const void* ln_bias, cons
   }
   if (rc != 0) return rc;
   if (part)
-    MVLPT_TRY((wg::gemm<T, EPI_F32>(o, out_w, M, W, Wl,
-                                    EpiArgs{nullptr, nullptr, nullptr, y, nullptr}, st)));
+    MVLPT_TRY((wg::gemm<T, EPI_F32, false, tc>(o, out_w, M, W, Wl,
+                                               EpiArgs{nullptr, nullptr, nullptr, y, nullptr},
+                                               st)));
   else
-    MVLPT_TRY((wg::gemm<T, EPI_BIAS_RESID>(o, out_w, M, W, Wl,
-                                           EpiArgs{out_b, x, nullptr, y, nullptr}, st)));
+    MVLPT_TRY((wg::gemm<T, EPI_BIAS_RESID, false, tc>(o, out_w, M, W, Wl,
+                                                      EpiArgs{out_b, x, nullptr, y, nullptr},
+                                                      st)));
   return 0;
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores, D = 64).
-// probs, mu and rstd may be null (no-residual mode); xh, qkv and o are
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores, D = 64),
+// 2 = bfloat16 (CUDA cores, any D). probs, mu and rstd may be null (no-residual mode); xh, qkv and o are
 // caller-allocated scratch.
 extern "C" int mvlpt_attn_fwd(int dtype, const void* x, const void* ln_scale, const void* ln_bias,
                               const void* qkv_w, const void* qkv_b, const void* out_w,
@@ -331,6 +339,10 @@ extern "C" int mvlpt_attn_fwd(int dtype, const void* x, const void* ln_scale, co
     return attn_fwd_impl<__nv_bfloat16>(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b,
                                (const float*)mask, xh, qkv, o, probs, (float*)mu, (float*)rstd, y,
                                B, S, W, H, D, eps, false, st);
+  if (dtype == 2)
+    return attn_fwd_impl<__nv_bfloat16, false>(
+        x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b, (const float*)mask, xh, qkv, o, probs,
+        (float*)mu, (float*)rstd, y, B, S, W, H, D, eps, false, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -352,5 +364,9 @@ extern "C" int mvlpt_attn_fwd_part(int dtype, const void* x, const void* ln_scal
     return attn_fwd_impl<__nv_bfloat16>(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, nullptr,
                                (const float*)mask, xh, qkv, o, probs, (float*)mu, (float*)rstd,
                                ypart, B, S, W, H, D, eps, true, st);
+  if (dtype == 2)
+    return attn_fwd_impl<__nv_bfloat16, false>(
+        x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, nullptr, (const float*)mask, xh, qkv, o, probs,
+        (float*)mu, (float*)rstd, ypart, B, S, W, H, D, eps, true, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -163,15 +163,21 @@ fma_attn_fwd(AttnRows rows, const float* __restrict__ mask, T* __restrict__ prob
   }
 }
 
-// N (batch*head) rows of S tokens; see fma_attn_fwd.
+// N (batch*head) rows of S tokens; see fma_attn_fwd. The shared-memory
+// attribute is set once for each T, to a block's most, so a launch (in a
+// captured CUDA graph too) makes no runtime call but its own.
 template <typename T>
 int launch_fma_attn_fwd(const AttnRows& rows, int N, const float* mask, void* probs, int S, int D,
                         float scale, bool scale_q, cudaStream_t st) {
+  static bool smem_set = false;
   const int qt = fma_rows(fma_fwd_fixed(D), fma_fwd_row(S, D));
   if (qt < 1 || S < 1) return (int)cudaErrorInvalidConfiguration;
   const size_t smem = sizeof(float) * (fma_fwd_fixed(D) + (size_t)qt * fma_fwd_row(S, D));
-  MVLPT_TRY(cudaFuncSetAttribute(fma_attn_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem));
+  if (!smem_set) {
+    MVLPT_TRY(cudaFuncSetAttribute(fma_attn_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)kMaxDynSmem));
+    smem_set = true;
+  }
   fma_attn_fwd<T><<<dim3(N, (S + qt - 1) / qt), FMA_THREADS, smem, st>>>(
       rows, mask, (T*)probs, S, D, scale, scale_q, qt);
   return (int)cudaGetLastError();

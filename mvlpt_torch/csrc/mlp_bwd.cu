@@ -25,7 +25,11 @@
 // products read a weight transposed: Wproj (4W, W) as an (N = 4W,
 // K = W) matrix, Wfc (W, 4W) as an (N = W, K = 4W) one; TMA brings their
 // slabs in A's layout and no weight is copied), the QuickGELU' epilogue
-// in the GEMM's; fp32 through common.cuh's GEMM on the CUDA cores.
+// in the GEMM's; fp32 through common.cuh's GEMM on the CUDA cores. bf16
+// with W or 4W off the multiples of 64 takes common.cuh's GEMM on bf16
+// operands (ops/block.BF16_CUDA_CORES), at the same rounding points.
+#include <type_traits>
+
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -34,17 +38,18 @@ using namespace mvlpt;
 namespace {
 
 // part: stop at the fp32 dxh (no LayerNorm backward, x/mu/rstd unused).
-template <typename T>
+// tc: the tensor cores' route (bf16 only); else the CUDA cores'.
+template <typename T, bool tc = std::is_same_v<T, __nv_bfloat16>>
 int mlp_bwd_impl(const void* x, const float* mu, const float* rstd, const void* hpre,
                  const void* ln_scale, const void* fc_w, const void* proj_w, const void* gy,
                  void* dh, float* dxh, void* dx, int M, int W, int W4, bool part,
                  cudaStream_t st) {
   // da[m, j] = sum_n gy[m, n] Wproj[j, n], then dh = T(da QuickGELU'(hpre)).
-  MVLPT_TRY((wg::gemm<T, EPI_GELU_BWD, true>(gy, proj_w, M, W4, W,
-                                             EpiArgs{nullptr, nullptr, hpre, dh, nullptr}, st)));
+  MVLPT_TRY((wg::gemm<T, EPI_GELU_BWD, true, tc>(
+      gy, proj_w, M, W4, W, EpiArgs{nullptr, nullptr, hpre, dh, nullptr}, st)));
   // dxh[m, n] = sum_j dh[m, j] Wfc[n, j].
-  MVLPT_TRY((wg::gemm<T, EPI_F32, true>(dh, fc_w, M, W, W4,
-                                        EpiArgs{nullptr, nullptr, nullptr, dxh, nullptr}, st)));
+  MVLPT_TRY((wg::gemm<T, EPI_F32, true, tc>(
+      dh, fc_w, M, W, W4, EpiArgs{nullptr, nullptr, nullptr, dxh, nullptr}, st)));
   if (!part) MVLPT_TRY(launch_ln_bwd<T>(x, mu, rstd, ln_scale, dxh, gy, dx, M, W, st));
   return 0;
 }
@@ -62,8 +67,8 @@ cudaError_t gemm_kmajor(int bn, const void* A, const void* B, int M, int N, int 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. dh (M, 4W) and dxh (M, W, fp32)
-// are caller-allocated scratch.
+// dtype: 0 = float32, 1 = bfloat16 (tensor cores), 2 = bfloat16 (CUDA
+// cores). dh (M, 4W) and dxh (M, W, fp32) are caller-allocated scratch.
 extern "C" int mvlpt_mlp_bwd(int dtype, const void* x, const void* mu, const void* rstd,
                              const void* hpre, const void* ln_scale, const void* fc_w,
                              const void* proj_w, const void* gy, void* dh, void* dxh, void* dx,
@@ -76,6 +81,10 @@ extern "C" int mvlpt_mlp_bwd(int dtype, const void* x, const void* mu, const voi
     return mlp_bwd_impl<__nv_bfloat16>(x, (const float*)mu, (const float*)rstd, hpre, ln_scale,
                                        fc_w, proj_w, gy, dh, (float*)dxh, dx, M, W, W4, false,
                                        st);
+  if (dtype == 2)
+    return mlp_bwd_impl<__nv_bfloat16, false>(x, (const float*)mu, (const float*)rstd, hpre,
+                                              ln_scale, fc_w, proj_w, gy, dh, (float*)dxh, dx, M,
+                                              W, W4, false, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -92,6 +101,10 @@ extern "C" int mvlpt_mlp_bwd_part(int dtype, const void* hpre, const void* fc_w,
   if (dtype == 1)
     return mlp_bwd_impl<__nv_bfloat16>(nullptr, nullptr, nullptr, hpre, nullptr, fc_w, proj_w,
                                        gy, dh, (float*)dxh, nullptr, M, W, W4, true, st);
+  if (dtype == 2)
+    return mlp_bwd_impl<__nv_bfloat16, false>(nullptr, nullptr, nullptr, hpre, nullptr, fc_w,
+                                              proj_w, gy, dh, (float*)dxh, nullptr, M, W, W4,
+                                              true, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -24,7 +24,11 @@
 // by operations. So the products take two routes by dtype
 // (ops/block.MLP_ROUTES): bf16 on the tensor cores through wgmma.cuh's
 // GEMM (wgmma fed by TMA), fp32 through common.cuh's GEMM on the CUDA
-// cores.
+// cores. bf16 with W or 4W off the multiples of 64 (the soak's 32-wide
+// text tower) takes common.cuh's GEMM on bf16 operands
+// (ops/block.BF16_CUDA_CORES), at the same rounding points.
+#include <type_traits>
+
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -33,26 +37,28 @@ using namespace mvlpt;
 namespace {
 
 // part: fp32 partial projection into y, without proj_b or the residual.
-template <typename T>
+// tc: the tensor cores' route (bf16 only); else the CUDA cores'.
+template <typename T, bool tc = std::is_same_v<T, __nv_bfloat16>>
 int mlp_fwd_impl(const void* x, const void* ln_scale, const void* ln_bias, const void* fc_w,
                  const void* fc_b, const void* proj_w, const void* proj_b, void* xh, void* hpre,
                  void* act, float* mu, float* rstd, void* y, int M, int W, int W4, float eps,
                  bool part, cudaStream_t st) {
   MVLPT_TRY(launch_ln_fwd<T>(x, ln_scale, ln_bias, xh, mu, rstd, M, W, eps, st));
-  MVLPT_TRY((wg::gemm<T, EPI_BIAS_GELU>(xh, fc_w, M, W4, W,
-                                        EpiArgs{fc_b, nullptr, nullptr, act, hpre}, st)));
+  MVLPT_TRY((wg::gemm<T, EPI_BIAS_GELU, false, tc>(
+      xh, fc_w, M, W4, W, EpiArgs{fc_b, nullptr, nullptr, act, hpre}, st)));
   if (part)
-    MVLPT_TRY((wg::gemm<T, EPI_F32>(act, proj_w, M, W, W4,
-                                    EpiArgs{nullptr, nullptr, nullptr, y, nullptr}, st)));
+    MVLPT_TRY((wg::gemm<T, EPI_F32, false, tc>(
+        act, proj_w, M, W, W4, EpiArgs{nullptr, nullptr, nullptr, y, nullptr}, st)));
   else
-    MVLPT_TRY((wg::gemm<T, EPI_BIAS_RESID>(act, proj_w, M, W, W4,
-                                           EpiArgs{proj_b, x, nullptr, y, nullptr}, st)));
+    MVLPT_TRY((wg::gemm<T, EPI_BIAS_RESID, false, tc>(
+        act, proj_w, M, W, W4, EpiArgs{proj_b, x, nullptr, y, nullptr}, st)));
   return 0;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. hpre, mu and rstd may be null
+// dtype: 0 = float32, 1 = bfloat16 (tensor cores), 2 = bfloat16 (CUDA
+// cores). hpre, mu and rstd may be null
 // (no-residual mode); xh (M, W) and act (M, 4W) are scratch.
 extern "C" int mvlpt_mlp_fwd(int dtype, const void* x, const void* ln_scale, const void* ln_bias,
                              const void* fc_w, const void* fc_b, const void* proj_w,
@@ -66,6 +72,10 @@ extern "C" int mvlpt_mlp_fwd(int dtype, const void* x, const void* ln_scale, con
     return mlp_fwd_impl<__nv_bfloat16>(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b, xh,
                                        hpre, act, (float*)mu, (float*)rstd, y, M, W, W4, eps,
                                        false, st);
+  if (dtype == 2)
+    return mlp_fwd_impl<__nv_bfloat16, false>(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b,
+                                              xh, hpre, act, (float*)mu, (float*)rstd, y, M, W,
+                                              W4, eps, false, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -85,5 +95,9 @@ extern "C" int mvlpt_mlp_fwd_part(int dtype, const void* x, const void* ln_scale
     return mlp_fwd_impl<__nv_bfloat16>(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, nullptr, xh,
                                        hpre, act, (float*)mu, (float*)rstd, ypart, M, W, W4, eps,
                                        true, st);
+  if (dtype == 2)
+    return mlp_fwd_impl<__nv_bfloat16, false>(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, nullptr,
+                                              xh, hpre, act, (float*)mu, (float*)rstd, ypart, M,
+                                              W, W4, eps, true, st);
   return (int)cudaErrorInvalidValue;
 }

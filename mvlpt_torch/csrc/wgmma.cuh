@@ -555,13 +555,17 @@ inline cudaError_t launch_gemm_bf16(const void* A, const void* B, int M, int N, 
              : launch_gemm_bf16_tiles<EPI, 128, B_KMAJOR>(A, B, M, N, K, ep, st);
 }
 
-// C = A (M, K) @ op(B) on T's route, the half-blocks' products: bf16 on
-// this GEMM, fp32 on common.cuh's CUDA-core GEMM (TF32 would not hold
-// fp32's tolerance). B is (K, N), or (N, K) with B_KMAJOR.
-template <typename T, int EPI, bool B_KMAJOR = false>
+// C = A (M, K) @ op(B) on the half-blocks' route for T: with TC (bf16's
+// default) on this GEMM; without it on common.cuh's CUDA-core GEMM, fp32
+// (TF32 would not hold fp32's tolerance) and bf16 at the shapes this GEMM
+// does not take (K or N off the multiples of 64; ops/block.py routes
+// them). B is (K, N), or (N, K) with B_KMAJOR.
+template <typename T, int EPI, bool B_KMAJOR = false,
+          bool TC = std::is_same_v<T, __nv_bfloat16>>
 inline cudaError_t gemm(const void* A, const void* B, int M, int N, int K, EpiArgs ep,
                         cudaStream_t st) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+  static_assert(!TC || std::is_same_v<T, __nv_bfloat16>, "the wgmma GEMM is bf16's");
+  if constexpr (TC)
     return launch_gemm_bf16<EPI, B_KMAJOR>(A, B, M, N, K, ep, st);
   else
     return launch_gemm<T, B_KMAJOR, EPI>(A, B, M, N, K, ep, st);

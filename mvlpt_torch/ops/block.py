@@ -71,6 +71,12 @@ ATTN_BWD_ROUTES = {torch.bfloat16: "tensor cores (wgmma + TMA products, mma.sync
 _WG_MULTIPLE = 64
 # The head width of the bf16 attention core's fragments.
 _TC_HEAD = 64
+# bf16 at the shapes the tensor cores' routes above do not take (W, Wl or
+# 4W off the multiples of 64, a head width other than 64) runs on the CUDA
+# cores as fp32 does: the same GEMM and attention cores on bf16 operands,
+# every sum in fp32, the same rounding points (the twins'). Its C dtype code.
+BF16_CUDA_CORES = "CUDA cores (fp32 FMA on bf16 operands)"
+_BF16_CUDA_CORES_CODE = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -301,10 +307,40 @@ def _local_width(name, qkv_width, n_heads):
     return qkv_width // 3
 
 
+def tensor_core_shapes(x, wl: int, n_heads: int | None = None) -> bool:
+    """Whether the tensor cores' route takes a bf16 half-block over x
+    (B, S, W) with this rank's width ``wl`` (the attention's Wl, or the
+    MLP's hidden width) and, for the attention, its ``n_heads`` heads: W
+    and wl in multiples of 64 and a head width of 64."""
+    w = x.shape[-1]
+    return (x.dtype == torch.bfloat16 and w % _WG_MULTIPLE == 0 and wl % _WG_MULTIPLE == 0
+            and (n_heads is None or wl == _TC_HEAD * n_heads))
+
+
+def _attn_code(name, x, wl, n_heads, operands) -> int:
+    """The C entries' dtype code of an attention half-block: fp32 (0); bf16
+    on the tensor cores (1, its operands checked by ``_check_attn_route``)
+    where ``tensor_core_shapes`` takes it; else bf16 on the CUDA cores."""
+    if x.dtype == torch.bfloat16 and not tensor_core_shapes(x, wl, n_heads):
+        return _BF16_CUDA_CORES_CODE
+    _check_attn_route(name, x, wl, n_heads, operands)
+    return _DTYPE_CODE[x.dtype]
+
+
+def _mlp_code(name, x, w4, operands) -> int:
+    """``_attn_code`` for an MLP half-block of hidden width ``w4``."""
+    if x.dtype == torch.bfloat16 and not tensor_core_shapes(x, w4):
+        return _BF16_CUDA_CORES_CODE
+    _check_mlp_route(name, x, w4, operands)
+    return _DTYPE_CODE[x.dtype]
+
+
 def _check_mlp_route(name, x, w4, operands):
     """The bf16 route (MLP_ROUTES) reads its operands by TMA and writes
     16-byte pieces: W and W4 must be multiples of 64 and every base
-    16-byte aligned. It raises rather than take another route."""
+    16-byte aligned. It raises rather than take another route (the
+    wrappers send other widths to BF16_CUDA_CORES before it, so from them
+    only a misaligned base raises)."""
     w = x.shape[-1]
     if x.dtype != torch.bfloat16:
         return
@@ -320,7 +356,9 @@ def _check_attn_route(name, x, wl, n_heads, operands):
     products' operands by TMA and the core's rows in 16-byte pieces, with
     the core's fragments D = 64 wide:
     the head width must be 64, W and Wl multiples of 64 and every base
-    16-byte aligned. It raises rather than take another route."""
+    16-byte aligned. It raises rather than take another route (the
+    wrappers send other shapes to BF16_CUDA_CORES before it, so from them
+    only a misaligned base raises)."""
     if x.dtype != torch.bfloat16:
         return
     w = x.shape[-1]
@@ -346,20 +384,21 @@ def _empty(shape, like, dtype=None):
     return torch.empty(shape, dtype=dtype or like.dtype, device=like.device)
 
 
-def _attn_bwd_scratch(like, b, n_heads, s):
-    """The attention backward core's scratch on ``like``'s route
-    (ATTN_BWD_ROUTES): t = rowsum(dp p), (B, H, S) fp32, in bf16; ds,
-    (B, H, S, S), in fp32."""
-    if like.dtype == torch.bfloat16:
+def _attn_bwd_scratch(like, b, n_heads, s, code=None):
+    """The attention backward core's fp32 scratch on route ``code``
+    (``like``'s dtype code by default; ATTN_BWD_ROUTES): t = rowsum(dp p),
+    (B, H, S), on the tensor cores; ds, (B, H, S, S), on the CUDA cores."""
+    if (_DTYPE_CODE[like.dtype] if code is None else code) == 1:
         return _empty((b, n_heads, s), like, torch.float32)
-    return _empty((b, n_heads, s, s), like)
+    return _empty((b, n_heads, s, s), like, torch.float32)
 
 
 def attn_fwd(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b, mask, n_heads,
              eps=_EPS, save_residuals=True):
     """Attention half-block forward -> (y, (qkv, probs, mu, rstd) or None).
     On the card it takes the dtype's route in ``ATTN_FWD_ROUTES``: bf16 on
-    the tensor cores (D = 64), fp32 on the CUDA cores."""
+    the tensor cores (D = 64), fp32 on the CUDA cores; bf16 off the tensor
+    cores' shapes on the CUDA cores (``BF16_CUDA_CORES``)."""
     if x.device.type == "cpu":
         return attn_fwd_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b,
                               mask, n_heads, eps, save_residuals)
@@ -368,7 +407,7 @@ def attn_fwd(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b, mask, n_heads,
         raise ValueError(f"attn_fwd: width {w} does not split into {n_heads} heads")
     _check("attn_fwd", x, [(ln_scale, (w,)), (ln_bias, (w,)), (qkv_w, (w, 3 * w)),
                            (qkv_b, (3 * w,)), (out_w, (w, w)), (out_b, (w,))], mask=mask)
-    _check_attn_route("attn_fwd", x, w, n_heads, (ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b))
+    code = _attn_code("attn_fwd", x, w, n_heads, (ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b))
     f32 = torch.float32
     qkv = _empty((b, s, 3 * w), x)
     probs = _empty((b, n_heads, s, s), x) if save_residuals else None
@@ -376,7 +415,7 @@ def attn_fwd(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b, mask, n_heads,
     rstd = _empty((b, s), x, f32) if save_residuals else None
     y = torch.empty_like(x)
     xh, o = _empty((b, s, w), x), _empty((b, s, w), x)  # scratch
-    _build.call("attn_fwd", _DTYPE_CODE[x.dtype], _ptr(x), _ptr(ln_scale), _ptr(ln_bias),
+    _build.call("attn_fwd", code, _ptr(x), _ptr(ln_scale), _ptr(ln_bias),
                 _ptr(qkv_w), _ptr(qkv_b), _ptr(out_w), _ptr(out_b), _ptr(mask),
                 _ptr(xh), _ptr(qkv), _ptr(o), _ptr(probs), _ptr(mu), _ptr(rstd), _ptr(y),
                 b, s, w, n_heads, eps, _stream())
@@ -387,7 +426,8 @@ def attn_fwd(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b, mask, n_heads,
 def attn_bwd(x, mu, rstd, qkv, probs, ln_scale, qkv_w, out_w, gy, n_heads):
     """Attention half-block backward -> dx. On the card it takes the
     dtype's route in ``ATTN_BWD_ROUTES``: bf16 on the tensor cores
-    (D = 64), fp32 on the CUDA cores."""
+    (D = 64), fp32 on the CUDA cores; bf16 off the tensor cores' shapes
+    on the CUDA cores (``BF16_CUDA_CORES``)."""
     if x.device.type == "cpu":
         return attn_bwd_plain(x, mu, rstd, qkv, probs, ln_scale, qkv_w, out_w, gy, n_heads)
     b, s, w = _dims("attn_bwd", x)
@@ -395,12 +435,12 @@ def attn_bwd(x, mu, rstd, qkv, probs, ln_scale, qkv_w, out_w, gy, n_heads):
     _check("attn_bwd", x, [(qkv, (b, s, 3 * w)), (probs, (b, n_heads, s, s)),
                            (ln_scale, (w,)), (qkv_w, (w, 3 * w)), (out_w, (w, w)),
                            (gy, (b, s, w))], stats=(mu, rstd))
-    _check_attn_route("attn_bwd", x, w, n_heads, (qkv, probs, ln_scale, qkv_w, out_w, gy))
+    code = _attn_code("attn_bwd", x, w, n_heads, (qkv, probs, ln_scale, qkv_w, out_w, gy))
     dx = torch.empty_like(x)
     # scratch: do, dqkv, fp32 dxh, the core's
     dout, dqkv = _empty((b, s, w), x), _empty((b, s, 3 * w), x)
-    dxh, core = _empty((b, s, w), x, torch.float32), _attn_bwd_scratch(x, b, n_heads, s)
-    _build.call("attn_bwd", _DTYPE_CODE[x.dtype], _ptr(x), _ptr(mu), _ptr(rstd), _ptr(qkv),
+    dxh, core = _empty((b, s, w), x, torch.float32), _attn_bwd_scratch(x, b, n_heads, s, code)
+    _build.call("attn_bwd", code, _ptr(x), _ptr(mu), _ptr(rstd), _ptr(qkv),
                 _ptr(probs), _ptr(ln_scale), _ptr(qkv_w), _ptr(out_w), _ptr(gy),
                 _ptr(dout), _ptr(core), _ptr(dqkv), _ptr(dxh), _ptr(dx), b, s, w, n_heads,
                 _stream())
@@ -412,7 +452,8 @@ def mlp_fwd(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b, eps=_EPS,
             save_residuals=True):
     """MLP half-block forward -> (y, (hpre, mu, rstd) or None). On the
     card its two products take the dtype's route in ``MLP_ROUTES``: bf16
-    on the tensor cores (wgmma fed by TMA), fp32 on the CUDA cores."""
+    on the tensor cores (wgmma fed by TMA), fp32 on the CUDA cores; bf16
+    off the tensor cores' widths on the CUDA cores (``BF16_CUDA_CORES``)."""
     if x.device.type == "cpu":
         return mlp_fwd_plain(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b, eps,
                              save_residuals)
@@ -420,14 +461,14 @@ def mlp_fwd(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b, eps=_EPS,
     w4 = fc_b.shape[0]
     _check("mlp_fwd", x, [(ln_scale, (w,)), (ln_bias, (w,)), (fc_w, (w, w4)), (fc_b, (w4,)),
                           (proj_w, (w4, w)), (proj_b, (w,))])
-    _check_mlp_route("mlp_fwd", x, w4, (fc_w, fc_b, proj_w, proj_b))
+    code = _mlp_code("mlp_fwd", x, w4, (fc_w, fc_b, proj_w, proj_b))
     f32 = torch.float32
     hpre = _empty((b, s, w4), x) if save_residuals else None
     mu = _empty((b, s), x, f32) if save_residuals else None
     rstd = _empty((b, s), x, f32) if save_residuals else None
     y = torch.empty_like(x)
     xh, act = _empty((b, s, w), x), _empty((b, s, w4), x)  # scratch
-    _build.call("mlp_fwd", _DTYPE_CODE[x.dtype], _ptr(x), _ptr(ln_scale), _ptr(ln_bias),
+    _build.call("mlp_fwd", code, _ptr(x), _ptr(ln_scale), _ptr(ln_bias),
                 _ptr(fc_w), _ptr(fc_b), _ptr(proj_w), _ptr(proj_b), _ptr(xh), _ptr(hpre),
                 _ptr(act), _ptr(mu), _ptr(rstd), _ptr(y), b * s, w, w4, eps, _stream())
     _build.LAUNCHES["mlp_fwd" if save_residuals else "mlp_fwd_infer"] += 1
@@ -444,10 +485,10 @@ def mlp_bwd(x, mu, rstd, hpre, ln_scale, fc_w, proj_w, gy):
     gy = gy.to(x.dtype).contiguous()
     _check("mlp_bwd", x, [(hpre, (b, s, w4)), (ln_scale, (w,)), (fc_w, (w, w4)),
                           (proj_w, (w4, w)), (gy, (b, s, w))], stats=(mu, rstd))
-    _check_mlp_route("mlp_bwd", x, w4, (hpre, ln_scale, fc_w, proj_w, gy))
+    code = _mlp_code("mlp_bwd", x, w4, (hpre, ln_scale, fc_w, proj_w, gy))
     dx = torch.empty_like(x)
     dh, dxh = _empty((b, s, w4), x), _empty((b, s, w), x, torch.float32)  # scratch
-    _build.call("mlp_bwd", _DTYPE_CODE[x.dtype], _ptr(x), _ptr(mu), _ptr(rstd), _ptr(hpre),
+    _build.call("mlp_bwd", code, _ptr(x), _ptr(mu), _ptr(rstd), _ptr(hpre),
                 _ptr(ln_scale), _ptr(fc_w), _ptr(proj_w), _ptr(gy), _ptr(dh), _ptr(dxh),
                 _ptr(dx), b * s, w, w4, _stream())
     _build.LAUNCHES["mlp_bwd"] += 1
@@ -464,13 +505,13 @@ def attn_fwd_part(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, mask, n_heads, eps=
     wl = _local_width("attn_fwd_part", qkv_w.shape[-1], n_heads)
     _check("attn_fwd_part", x, [(ln_scale, (w,)), (ln_bias, (w,)), (qkv_w, (w, 3 * wl)),
                                 (qkv_b, (3 * wl,)), (out_w, (wl, w))], mask=mask)
-    _check_attn_route("attn_fwd_part", x, wl, n_heads, (ln_scale, ln_bias, qkv_w, qkv_b, out_w))
+    code = _attn_code("attn_fwd_part", x, wl, n_heads, (ln_scale, ln_bias, qkv_w, qkv_b, out_w))
     f32 = torch.float32
     ypart = _empty((b, s, w), x, f32)
     qkv, probs = _empty((b, s, 3 * wl), x), _empty((b, n_heads, s, s), x)
     mu, rstd = _empty((b, s), x, f32), _empty((b, s), x, f32)
     xh, o = _empty((b, s, w), x), _empty((b, s, wl), x)  # scratch
-    _build.call("attn_fwd_part", _DTYPE_CODE[x.dtype], _ptr(x), _ptr(ln_scale), _ptr(ln_bias),
+    _build.call("attn_fwd_part", code, _ptr(x), _ptr(ln_scale), _ptr(ln_bias),
                 _ptr(qkv_w), _ptr(qkv_b), _ptr(out_w), _ptr(mask), _ptr(xh), _ptr(qkv), _ptr(o),
                 _ptr(probs), _ptr(mu), _ptr(rstd), _ptr(ypart), b, s, w, n_heads,
                 wl // n_heads, eps, _stream())
@@ -488,12 +529,12 @@ def attn_bwd_part(qkv, probs, qkv_w, out_w, gy, n_heads):
     wl = _local_width("attn_bwd_part", qkv.shape[-1], n_heads)
     _check("attn_bwd_part", gy, [(qkv, (b, s, 3 * wl)), (probs, (b, n_heads, s, s)),
                                  (qkv_w, (w, 3 * wl)), (out_w, (wl, w))])
-    _check_attn_route("attn_bwd_part", gy, wl, n_heads, (qkv, probs, qkv_w, out_w))
+    code = _attn_code("attn_bwd_part", gy, wl, n_heads, (qkv, probs, qkv_w, out_w))
     dxh = _empty((b, s, w), gy, torch.float32)
     # scratch: do, dqkv, the core's
     dout, dqkv = _empty((b, s, wl), gy), _empty((b, s, 3 * wl), gy)
-    core = _attn_bwd_scratch(gy, b, n_heads, s)
-    _build.call("attn_bwd_part", _DTYPE_CODE[gy.dtype], _ptr(qkv), _ptr(probs), _ptr(qkv_w),
+    core = _attn_bwd_scratch(gy, b, n_heads, s, code)
+    _build.call("attn_bwd_part", code, _ptr(qkv), _ptr(probs), _ptr(qkv_w),
                 _ptr(out_w), _ptr(gy), _ptr(dout), _ptr(core), _ptr(dqkv), _ptr(dxh), b, s, w,
                 n_heads, wl // n_heads, _stream())
     _build.LAUNCHES["attn_bwd_tp"] += 1
@@ -509,12 +550,12 @@ def mlp_fwd_part(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, eps=_EPS):
     w4 = fc_b.shape[0]
     _check("mlp_fwd_part", x, [(ln_scale, (w,)), (ln_bias, (w,)), (fc_w, (w, w4)),
                                (fc_b, (w4,)), (proj_w, (w4, w))])
-    _check_mlp_route("mlp_fwd_part", x, w4, (fc_w, fc_b, proj_w))
+    code = _mlp_code("mlp_fwd_part", x, w4, (fc_w, fc_b, proj_w))
     f32 = torch.float32
     ypart, hpre = _empty((b, s, w), x, f32), _empty((b, s, w4), x)
     mu, rstd = _empty((b, s), x, f32), _empty((b, s), x, f32)
     xh, act = _empty((b, s, w), x), _empty((b, s, w4), x)  # scratch
-    _build.call("mlp_fwd_part", _DTYPE_CODE[x.dtype], _ptr(x), _ptr(ln_scale), _ptr(ln_bias),
+    _build.call("mlp_fwd_part", code, _ptr(x), _ptr(ln_scale), _ptr(ln_bias),
                 _ptr(fc_w), _ptr(fc_b), _ptr(proj_w), _ptr(xh), _ptr(hpre), _ptr(act), _ptr(mu),
                 _ptr(rstd), _ptr(ypart), b * s, w, w4, eps, _stream())
     _build.LAUNCHES["mlp_fwd_tp"] += 1
@@ -530,10 +571,10 @@ def mlp_bwd_part(hpre, fc_w, proj_w, gy):
     b, s, w = _dims("mlp_bwd_part", gy)
     w4 = hpre.shape[-1]
     _check("mlp_bwd_part", gy, [(hpre, (b, s, w4)), (fc_w, (w, w4)), (proj_w, (w4, w))])
-    _check_mlp_route("mlp_bwd_part", gy, w4, (hpre, fc_w, proj_w))
+    code = _mlp_code("mlp_bwd_part", gy, w4, (hpre, fc_w, proj_w))
     dxh = _empty((b, s, w), gy, torch.float32)
     dh = _empty((b, s, w4), gy)  # scratch
-    _build.call("mlp_bwd_part", _DTYPE_CODE[gy.dtype], _ptr(hpre), _ptr(fc_w), _ptr(proj_w),
+    _build.call("mlp_bwd_part", code, _ptr(hpre), _ptr(fc_w), _ptr(proj_w),
                 _ptr(gy), _ptr(dh), _ptr(dxh), b * s, w, w4, _stream())
     _build.LAUNCHES["mlp_bwd_tp"] += 1
     return dxh

@@ -182,27 +182,45 @@ def test_attn_bwd_scratch_is_the_routes():
                          ids=["attn_bwd-D32", "attn_bwd-W96", "attn_bwd_part-D32",
                               "attn_bwd_part-W96", "attn_bwd_part-Wl96"])
 def test_attn_bwd_wrappers_raise_off_the_bf16_route(entry, w, wl, h, monkeypatch):
-    """attn_bwd and attn_bwd_part run the route check before any launch
-    or allocation: bf16 off the route (D = 32, W = 96, and for the part
-    Wl = 96) raises, with no fall-back to the CUDA-core kernels or the
-    twin. (Meta tensors, with the wrappers' device check lifted, reach
-    the check without a card.)"""
+    """attn_bwd and attn_bwd_part pick the bf16 route before any launch:
+    off the tensor cores' shapes (D = 32, W = 96, and for the part Wl =
+    96) they launch the CUDA cores' route on bf16 operands (dtype code 2)
+    with its (B, H, S, S) fp32 ds scratch, not the twin; at the tensor
+    cores' shapes a misaligned base raises, with nothing launched. (Meta
+    tensors, with the wrappers' device check lifted, reach the launch
+    without a card; it is recorded, not made.)"""
     monkeypatch.setattr(block, "_dims", lambda name, x: x.shape)
-
-    def no_launch(*args):
-        raise AssertionError("launched a kernel off the bf16 route")
-
-    monkeypatch.setattr(block._build, "call", no_launch)
-    monkeypatch.setattr(block, "_empty", no_launch)
+    monkeypatch.setattr(block._build, "LAUNCHES", dict(block._build.LAUNCHES))
+    monkeypatch.setattr(block, "_stream", lambda: None)
+    calls = []
+    monkeypatch.setattr(block._build, "call",
+                        lambda name, code, *args: calls.append((name, code, args)))
     b, s = 2, 3
 
     def z(*shape, dtype=torch.bfloat16):
         return torch.zeros(shape, dtype=dtype, device="meta")
 
-    gy, stats = z(b, s, w), z(b, s, dtype=torch.float32)
-    with pytest.raises(ValueError, match=f"{entry}: the bf16 tensor-core route"):
+    def run(w, wl, h, qkv_w=None):
+        gy, stats = z(b, s, w), z(b, s, dtype=torch.float32)
         if entry == "attn_bwd":
-            block.attn_bwd(z(b, s, w), stats, stats, z(b, s, 3 * w), z(b, h, s, s), z(w),
-                           z(w, 3 * w), z(w, w), gy, h)
-        else:
-            block.attn_bwd_part(z(b, s, 3 * wl), z(b, h, s, s), z(w, 3 * wl), z(wl, w), gy, h)
+            return block.attn_bwd(z(b, s, w), stats, stats, z(b, s, 3 * w), z(b, h, s, s), z(w),
+                                  z(w, 3 * w) if qkv_w is None else qkv_w, z(w, w), gy, h)
+        return block.attn_bwd_part(z(b, s, 3 * wl), z(b, h, s, s),
+                                   z(w, 3 * wl) if qkv_w is None else qkv_w, z(wl, w), gy, h)
+
+    run(w, wl, h)
+    [(name, code, args)] = calls
+    assert (name, code) == (entry, 2)
+    calls.clear()
+    with pytest.raises(ValueError, match=f"{entry}: the bf16 tensor-core route needs 16-byte"):
+        run(128, 128, 2, torch.zeros(128 * 384 + 1, dtype=torch.bfloat16,
+                                     device="meta")[1:].view(128, 384))
+    assert calls == []
+
+
+def test_attn_bwd_cuda_core_route_scratch():
+    """The bf16 CUDA cores' route keeps the CUDA cores' (B, H, S, S) fp32
+    ds scratch, as fp32 does."""
+    like = torch.zeros(2, 5, 96, dtype=torch.bfloat16)
+    ds = block._attn_bwd_scratch(like, 2, 3, 5, 2)
+    assert (tuple(ds.shape), ds.dtype) == ((2, 3, 5, 5), torch.float32)

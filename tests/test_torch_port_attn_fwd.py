@@ -204,28 +204,39 @@ def test_attn_bf16_route_checks_head_width_widths_and_alignment():
 
 @pytest.mark.parametrize("entry", ["attn_fwd", "attn_fwd_part"])
 def test_attn_fwd_wrappers_raise_off_the_bf16_route(entry, monkeypatch):
-    """attn_fwd and attn_fwd_part run the route check before any launch:
-    bf16 at D = 32 raises, with nothing launched (tensors on the meta
-    device, the device check of _dims passed over)."""
+    """attn_fwd and attn_fwd_part pick the bf16 route before any launch:
+    at D = 32, off the tensor cores' shapes, they launch the CUDA cores'
+    route on bf16 operands (dtype code 2, BF16_CUDA_CORES); at D = 64 a
+    base off the 16-byte alignment of the tensor cores' route raises,
+    with nothing launched. (Tensors on the meta device, the device check
+    of _dims passed over; the launch is recorded, not made.)"""
     monkeypatch.setattr(block, "_dims", lambda name, x: x.shape)
-
-    def no_launch(*args):
-        raise AssertionError("launched a kernel off the bf16 route")
-
-    monkeypatch.setattr(block._build, "call", no_launch)
-    w, h = 128, 4  # D = 32
+    monkeypatch.setattr(block._build, "LAUNCHES", dict(block._build.LAUNCHES))
+    monkeypatch.setattr(block, "_stream", lambda: None)
+    calls = []
+    monkeypatch.setattr(block._build, "call", lambda name, code, *args: calls.append((name, code)))
     bf, meta = torch.bfloat16, "meta"
 
     def z(*shape):
         return torch.zeros(shape, dtype=bf, device=meta)
 
-    x = z(2, 3, w)
-    with pytest.raises(ValueError, match="head width of 64"):
+    def run(w, h, out_w=None):
+        x = z(2, 3, w)
         if entry == "attn_fwd":
-            block.attn_fwd(x, z(w), z(w), z(w, 3 * w), z(3 * w), z(w, w), z(w), None, h)
-        else:
-            block.attn_fwd_part(x, z(w), z(w), z(w, 3 * w // 2), z(3 * w // 2), z(w // 2, w),
-                                None, h // 2)
+            return block.attn_fwd(x, z(w), z(w), z(w, 3 * w), z(3 * w),
+                                  z(w, w) if out_w is None else out_w, z(w), None, h)
+        return block.attn_fwd_part(x, z(w), z(w), z(w, 3 * w // 2), z(3 * w // 2),
+                                   z(w // 2, w) if out_w is None else out_w, None, h // 2)
+
+    run(128, 4)  # D = 32
+    assert calls == [(entry, 2)]
+    assert block.BF16_CUDA_CORES.startswith("CUDA cores")
+    calls.clear()
+    w = 256  # D = 64 (the part: 2 heads of 64 on 128 columns)
+    bad = torch.zeros(w * w + 1, dtype=bf, device=meta)[1:]
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        run(w, 4, bad.view(w, w) if entry == "attn_fwd" else bad[:w * w // 2].view(w // 2, w))
+    assert calls == []
 
 
 @pytest.mark.parametrize("kind", ["none", "packed"])

@@ -158,6 +158,7 @@ def test_kernel_selection_and_cpu_launch_counts():
     from mvlpt_torch.ops.attention import fused_attention, select_attn_fn
 
     assert select_attn_fn("auto") == block.BlockKernels()
+    assert select_attn_fn("block") == block.BlockKernels()
     assert select_attn_fn("block", inference=True).inference
     assert select_attn_fn("off") is None
     # 'on' selects the standalone fused attention, with one forward for
@@ -290,6 +291,53 @@ def test_mlp_bf16_route_checks_widths_and_alignment():
     block._check_mlp_route("t", torch.zeros(2, 3, 96), 384, ())  # fp32: any width
 
 
+@pytest.mark.parametrize("w, heads, takes", [(64, 1, True), (128, 2, True), (32, 2, False),
+                                              (128, 4, False), (96, 1, False)])
+def test_bf16_blocks_take_the_tensor_cores_or_the_cuda_cores_by_shape(w, heads, takes,
+                                                                      monkeypatch):
+    """``tensor_core_shapes``: widths in multiples of 64 and a head width
+    of 64. Under 'auto' every block runs the half-block kernels, whatever
+    its shapes: on the CPU their twins, equal to fused_residual_block
+    (not to the plain layers); on the card each of the four wrappers
+    launches bf16 on the tensor cores (dtype code 1) at the shapes they
+    take and on the CUDA cores (code 2) at the others, fp32 on the CUDA
+    cores (code 0). (Meta tensors with _dims lifted and _build.call
+    recorded stand for the card.)"""
+    from mvlpt_torch.ops.attention import select_attn_fn
+
+    rng = np.random.RandomState(3)
+    p_np = block_params_np(rng, w)
+    tp = {k: {n: torch.from_numpy(a).to(torch.bfloat16) for n, a in v.items()}
+          for k, v in p_np.items()}
+    x = torch.from_numpy(rng.randn(2, 5, w).astype(np.float32)).to(torch.bfloat16)
+    assert block.tensor_core_shapes(x, w, heads) is takes
+    assert block.tensor_core_shapes(x, 4 * w) is (w % 64 == 0)
+    assert not block.tensor_core_shapes(x.float(), w, heads)
+    fused = block.fused_residual_block(x, tp, heads, None)
+    assert not torch.equal(layers.residual_block(x, tp, heads), fused)
+    assert torch.equal(layers.residual_block(x, tp, heads, kernels=select_attn_fn("auto")), fused)
+
+    monkeypatch.setattr(block, "_dims", lambda name, t: t.shape)
+    monkeypatch.setattr(block._build, "LAUNCHES", dict(block._build.LAUNCHES))
+    monkeypatch.setattr(block, "_stream", lambda: None)
+    calls = []
+    monkeypatch.setattr(block._build, "call", lambda name, code, *args: calls.append((name, code)))
+    for dtype, attn_code, mlp_code in ((torch.bfloat16, 1 if takes else 2,
+                                        1 if w % 64 == 0 else 2), (torch.float32, 0, 0)):
+        def z(*shape, dt=dtype):
+            return torch.zeros(shape, dtype=dt, device="meta")
+
+        xm, stats = z(2, 5, w), z(2, 5, dt=torch.float32)
+        block.attn_fwd(xm, z(w), z(w), z(w, 3 * w), z(3 * w), z(w, w), z(w), None, heads)
+        block.attn_bwd(xm, stats, stats, z(2, 5, 3 * w), z(2, heads, 5, 5), z(w), z(w, 3 * w),
+                       z(w, w), xm, heads)
+        block.mlp_fwd(xm, z(w), z(w), z(w, 4 * w), z(4 * w), z(4 * w, w), z(w))
+        block.mlp_bwd(xm, stats, stats, z(2, 5, 4 * w), z(w), z(w, 4 * w), z(4 * w, w), xm)
+        assert calls == [("attn_fwd", attn_code), ("attn_bwd", attn_code), ("mlp_fwd", mlp_code),
+                         ("mlp_bwd", mlp_code)]
+        calls.clear()
+
+
 # --------------------------------------------------- MLP backward twins
 
 def _jax_mlp_bwd_part(hpre, fc_w, proj_w, gy):
@@ -365,20 +413,32 @@ def test_mlp_bwd_part_twin_matches_pallas_part_kernel(dtype):
 
 
 def test_mlp_bwd_wrappers_check_the_bf16_route(monkeypatch):
-    """mlp_bwd and mlp_bwd_part check the bf16 route (MLP_ROUTES) as the
-    forwards do, before any launch: a bf16 width off the multiple of 64
-    raises, with no fall-back to the CUDA-core GEMM or the twin. (Meta
-    tensors, with the wrappers' device check lifted, reach the check
-    without a card.)"""
+    """mlp_bwd and mlp_bwd_part pick the bf16 route as the forwards do,
+    before any launch: a bf16 width off the multiple of 64 launches the
+    CUDA cores' route on bf16 operands (dtype code 2), not the twin; at
+    the tensor cores' widths a misaligned base raises, with nothing
+    launched. (Meta tensors, with the wrappers' device check lifted,
+    reach the launch without a card; it is recorded, not made.)"""
     monkeypatch.setattr(block, "_dims", lambda name, x: x.shape)
-    b, s, w, w4 = 2, 3, 96, 384
+    monkeypatch.setattr(block._build, "LAUNCHES", dict(block._build.LAUNCHES))
+    monkeypatch.setattr(block, "_stream", lambda: None)
+    calls = []
+    monkeypatch.setattr(block._build, "call", lambda name, code, *args: calls.append((name, code)))
+    b, s = 2, 3
 
     def meta(*shape, dtype=torch.bfloat16):
         return torch.empty(shape, dtype=dtype, device="meta")
 
-    x, gy, hpre = meta(b, s, w), meta(b, s, w), meta(b, s, w4)
-    stats = meta(b, s, dtype=torch.float32)
-    with pytest.raises(ValueError, match="mlp_bwd: the bf16 tensor-core route takes W and 4W"):
-        block.mlp_bwd(x, stats, stats, hpre, meta(w), meta(w, w4), meta(w4, w), gy)
-    with pytest.raises(ValueError, match="mlp_bwd_part: the bf16 tensor-core route takes W"):
-        block.mlp_bwd_part(hpre, meta(w, w4), meta(w4, w), gy)
+    def run(w, w4, fc_w=None):
+        x, gy, hpre = meta(b, s, w), meta(b, s, w), meta(b, s, w4)
+        stats = meta(b, s, dtype=torch.float32)
+        fc_w = meta(w, w4) if fc_w is None else fc_w
+        block.mlp_bwd(x, stats, stats, hpre, meta(w), fc_w, meta(w4, w), gy)
+        block.mlp_bwd_part(hpre, fc_w, meta(w4, w), gy)
+
+    run(96, 384)
+    assert calls == [("mlp_bwd", 2), ("mlp_bwd_part", 2)]
+    calls.clear()
+    with pytest.raises(ValueError, match="mlp_bwd: the bf16 tensor-core route needs 16-byte"):
+        run(128, 512, meta(128 * 512 + 1)[1:].view(128, 512))
+    assert calls == []

@@ -1,5 +1,6 @@
 """The port stands alone: no module of mvlpt_torch, not chip_smoke.py, not
-scripts/torch_port_pod_loss_check.py, and not the entry modules of the
+scripts/torch_port_pod_loss_check.py, scripts/torch_port_bf16_drift_train.py
+or scripts/torch_port_soak_synthetic.py, and not the entry modules of the
 tensor-parallel and mesh tests' spawned ranks imports
 JAX, the JAX package, or a package the GPU host lacks (regex, yaml,
 optax, scikit-learn, timm, torchvision: the model zoo holds its own
@@ -26,7 +27,9 @@ FORBIDDEN = ("jax", "jaxlib", "mvlpt_tpu", "regex", "yaml", "optax", "flax", "sk
 LAZY = ("transformers", "matplotlib")
 SOURCES = sorted((ROOT / "mvlpt_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "torch_port_tp_child.py",
-    ROOT / "tests" / "torch_port_mesh_child.py", ROOT / "scripts" / "torch_port_pod_loss_check.py"]
+    ROOT / "tests" / "torch_port_mesh_child.py", ROOT / "scripts" / "torch_port_pod_loss_check.py",
+    ROOT / "scripts" / "torch_port_bf16_drift_train.py",
+    ROOT / "scripts" / "torch_port_soak_synthetic.py"]
 
 
 def _imported(path: Path) -> set[str]:
@@ -50,7 +53,10 @@ def test_importing_every_module_loads_no_forbidden_package():
         "import importlib, pkgutil, sys, mvlpt_torch\n"
         "for m in pkgutil.walk_packages(mvlpt_torch.__path__, 'mvlpt_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, runpy\n"
+        # The accuracy scripts, imported as modules (not run).
+        "for script in ('torch_port_bf16_drift_train', 'torch_port_soak_synthetic'):\n"
+        "    runpy.run_path(f'scripts/{script}.py', run_name=script)\n"
         "from tests import torch_port_mesh_child, torch_port_tp_child\n"
         # The entry functions of the spawned ranks (chip_smoke's train[tp2]
         # and the CPU tests') are module-level, so a spawned child imports
