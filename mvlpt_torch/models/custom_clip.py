@@ -30,6 +30,8 @@ from mvlpt_torch.prompts import (
     upt_couple,
     vpt_prepare,
 )
+from mvlpt_torch.utils import profiler
+from mvlpt_torch.utils.tree import tree_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +52,11 @@ class TaskClassRanges:
 # JAX package does.
 COCOOP_CHUNK_ROWS = 4096
 COCOOP_REMAT_ROWS = 8192
+
+# The forward's spans (utils.profiler), by grad mode: a train step's
+# (coupler, image tower, text tower, head) and an eval's.
+_SPANS = {True: ("step.coupler.fwd", "step.image.fwd", "step.text.fwd", "step.head"),
+          False: ("eval.coupler", "eval.image", "eval.text", "eval.head")}
 
 
 def _auto_chunk(batch: int, n_cls: int) -> int:
@@ -91,16 +98,21 @@ class MVLPTModel(nn.Module):
 
     def encode_image(self, backbone, prompt_params, images, vpt_shallow=None,
                      vpt_deep=None, pre_embedded=False, rng=None):
+        """The image tower with the VPT tokens; with tracing on, its
+        backward from the features to the VPT tokens is the span
+        ``step.image.bwd``."""
         vpt_shallow, vpt_deep = vpt_prepare(prompt_params, self.spec, vpt_shallow, vpt_deep, rng)
         if vpt_shallow is not None:
             vpt_shallow = vpt_shallow.to(self.compute_dtype)
         if vpt_deep is not None:
             vpt_deep = vpt_deep.to(self.compute_dtype)
-        return vit_mod.encode_image(
+        features = vit_mod.encode_image(
             backbone["visual"], images, patch_size=self.clip_cfg.vision_patch_size,
             n_heads=self.clip_cfg.vision_heads, vpt_shallow=vpt_shallow,
             vpt_deep=vpt_deep, kernels=self.kernels, pre_embedded=pre_embedded,
             remat=self.remat)
+        profiler.backward_span("step.image.bwd", [features], [vpt_shallow, vpt_deep])
+        return features
 
     def encode_text_prompts(self, backbone, prompts, eot_idx):
         return text_mod.encode_text_embeds_packed(
@@ -123,11 +135,18 @@ class MVLPTModel(nn.Module):
         """Forward with precomputed text features: the image tower and the
         logits only (the eval fast path with ``rng`` None, and a pure-VPT
         window's train steps)."""
-        _, vpt_sh, vpt_dp = upt_couple(prompt_params, self.spec)
-        image_features = self.encode_image(backbone, prompt_params, images, vpt_sh, vpt_dp,
-                                           pre_embedded=pre_embedded, rng=rng)
-        logits = clip_core.clip_logits(image_features, text_features, backbone["logit_scale"])
-        return _apply_task_mask(logits, tasks, task_ranges)
+        coupler, image, _, head = _SPANS[torch.is_grad_enabled()]
+        with profiler.span(coupler):
+            _, vpt_sh, vpt_dp = upt_couple(prompt_params, self.spec)
+        with profiler.span(image):
+            image_features = self.encode_image(backbone, prompt_params, images, vpt_sh, vpt_dp,
+                                               pre_embedded=pre_embedded, rng=rng)
+        with profiler.span(head):
+            logits = clip_core.clip_logits(image_features, text_features,
+                                           backbone["logit_scale"])
+            logits = _apply_task_mask(logits, tasks, task_ranges)
+        self._coupler_backward_span(prompt_params, (vpt_sh, vpt_dp))
+        return logits
 
     def forward(self, backbone: dict, prompt_params: dict, consts: PromptConsts,
                 images: torch.Tensor, tasks: torch.Tensor | None = None,
@@ -136,18 +155,43 @@ class MVLPTModel(nn.Module):
         """Full forward -> (B, n_cls) fp32 logits. ``pre_embedded``:
         ``images`` is the (B, 1+N, width) output of :meth:`embed_image`.
         ``rng``: the train step's VPT dropout key (``layers.dropout_key``),
-        None at eval."""
-        coop_ctx, vpt_sh, vpt_dp = upt_couple(prompt_params, self.spec)
-        image_features = self.encode_image(backbone, prompt_params, images, vpt_sh, vpt_dp,
-                                           pre_embedded=pre_embedded, rng=rng)
+        None at eval.
+
+        With tracing on (``utils.profiler``) the coupler, the image tower,
+        the prompt assembly with the text tower (CoCoOp's: its meta-net,
+        text chunks and logits), and the logits with the task mask are
+        spans (``_SPANS``), and so are the towers' and the coupler's
+        backwards, which autograd hooks open and close."""
+        coupler, image, text, head = _SPANS[torch.is_grad_enabled()]
+        with profiler.span(coupler):
+            coop_ctx, vpt_sh, vpt_dp = upt_couple(prompt_params, self.spec)
+        with profiler.span(image):
+            image_features = self.encode_image(backbone, prompt_params, images, vpt_sh, vpt_dp,
+                                               pre_embedded=pre_embedded, rng=rng)
         if self.spec.has_cocoop:
-            logits = self._cocoop_logits(backbone, prompt_params, consts, image_features)
+            with profiler.span(text):
+                logits = self._cocoop_logits(backbone, prompt_params, consts, image_features)
+            with profiler.span(head):
+                logits = _apply_task_mask(logits, tasks, task_ranges)
         else:
-            prompts = coop_assemble(coop_ctx, consts, self.spec)
-            text_features = self.encode_text_prompts(backbone, prompts, consts.eot_idx)
-            logits = clip_core.clip_logits(image_features, text_features,
-                                           backbone["logit_scale"])
-        return _apply_task_mask(logits, tasks, task_ranges)
+            with profiler.span(text):
+                prompts = coop_assemble(coop_ctx, consts, self.spec)
+                text_features = self.encode_text_prompts(backbone, prompts, consts.eot_idx)
+            profiler.backward_span("step.text.bwd", [text_features], [prompts])
+            with profiler.span(head):
+                logits = clip_core.clip_logits(image_features, text_features,
+                                               backbone["logit_scale"])
+                logits = _apply_task_mask(logits, tasks, task_ranges)
+        self._coupler_backward_span(prompt_params, (coop_ctx, vpt_sh, vpt_dp))
+        return logits
+
+    def _coupler_backward_span(self, prompt_params, outputs) -> None:
+        """With tracing on, the span ``step.coupler.bwd``: the UPT
+        coupler's backward, from its outputs' gradients to every prompt
+        leaf's. Registered after the towers' spans, whose hooks on the
+        same tensors then run first."""
+        if self.spec.has_coupler and profiler.tracing():
+            profiler.backward_span("step.coupler.bwd", outputs, tree_leaves(prompt_params))
 
     def _cocoop_logits(self, backbone, prompt_params, consts, image_features):
         """CoCoOp's (B, n_cls) fp32 logits: every image shifts the context
@@ -185,6 +229,7 @@ class MVLPTModel(nn.Module):
             else:
                 feats.append(chunk_features(ctx_c))
         text_features = torch.cat(feats)  # (B, n_cls, E)
+        profiler.backward_span("step.text.bwd", [text_features], [ctx])
         scale = torch.exp(backbone["logit_scale"].float())
         return scale * torch.einsum("be,bce->bc", img_n, text_features)
 

@@ -21,7 +21,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd", "attend_fwd", "attend_bwd")
+SOURCES = ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd", "attend_fwd", "attend_bwd", "stamp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,6 +42,8 @@ _SIGNATURES = {
     "gemm_kmajor": ("mlp_bwd", "mvlpt_gemm_kmajor", [_I, _I] + [_P] * 4 + [_I] * 3 + [_P]),
     "attend_fwd": ("attend_fwd", "mvlpt_attend_fwd", [_I] + [_P] * 5 + [_I, _I, _I, _P]),
     "attend_bwd": ("attend_bwd", "mvlpt_attend_bwd", [_I] + [_P] * 11 + [_I, _I, _I, _P]),
+    # The spans' device clock (utils/profiler.py); not a kernel of the model.
+    "stamp": ("stamp", "mvlpt_stamp", [_P, _P, _I, _I, _P]),
 }
 
 # Kernel launches per wrapper (ops/block.py, ops/attention.py): one for

@@ -42,6 +42,7 @@ import torch
 import torch.distributed as dist
 
 from mvlpt_torch.ops import _build
+from mvlpt_torch.utils import profiler
 
 _EPS = 1e-5
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -399,28 +400,30 @@ def attn_fwd(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b, mask, n_heads,
     On the card it takes the dtype's route in ``ATTN_FWD_ROUTES``: bf16 on
     the tensor cores (D = 64), fp32 on the CUDA cores; bf16 off the tensor
     cores' shapes on the CUDA cores (``BF16_CUDA_CORES``)."""
-    if x.device.type == "cpu":
-        return attn_fwd_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b,
-                              mask, n_heads, eps, save_residuals)
-    b, s, w = _dims("attn_fwd", x)
-    if w % n_heads:
-        raise ValueError(f"attn_fwd: width {w} does not split into {n_heads} heads")
-    _check("attn_fwd", x, [(ln_scale, (w,)), (ln_bias, (w,)), (qkv_w, (w, 3 * w)),
-                           (qkv_b, (3 * w,)), (out_w, (w, w)), (out_b, (w,))], mask=mask)
-    code = _attn_code("attn_fwd", x, w, n_heads, (ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b))
-    f32 = torch.float32
-    qkv = _empty((b, s, 3 * w), x)
-    probs = _empty((b, n_heads, s, s), x) if save_residuals else None
-    mu = _empty((b, s), x, f32) if save_residuals else None
-    rstd = _empty((b, s), x, f32) if save_residuals else None
-    y = torch.empty_like(x)
-    xh, o = _empty((b, s, w), x), _empty((b, s, w), x)  # scratch
-    _build.call("attn_fwd", code, _ptr(x), _ptr(ln_scale), _ptr(ln_bias),
-                _ptr(qkv_w), _ptr(qkv_b), _ptr(out_w), _ptr(out_b), _ptr(mask),
-                _ptr(xh), _ptr(qkv), _ptr(o), _ptr(probs), _ptr(mu), _ptr(rstd), _ptr(y),
-                b, s, w, n_heads, eps, _stream())
-    _build.LAUNCHES["attn_fwd" if save_residuals else "attn_fwd_infer"] += 1
-    return y, ((qkv, probs, mu, rstd) if save_residuals else None)
+    with profiler.span("block.attn_fwd" if save_residuals else "block.attn_infer", kernel=True):
+        if x.device.type == "cpu":
+            return attn_fwd_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b,
+                                  mask, n_heads, eps, save_residuals)
+        b, s, w = _dims("attn_fwd", x)
+        if w % n_heads:
+            raise ValueError(f"attn_fwd: width {w} does not split into {n_heads} heads")
+        _check("attn_fwd", x, [(ln_scale, (w,)), (ln_bias, (w,)), (qkv_w, (w, 3 * w)),
+                               (qkv_b, (3 * w,)), (out_w, (w, w)), (out_b, (w,))], mask=mask)
+        code = _attn_code("attn_fwd", x, w, n_heads,
+                          (ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b))
+        f32 = torch.float32
+        qkv = _empty((b, s, 3 * w), x)
+        probs = _empty((b, n_heads, s, s), x) if save_residuals else None
+        mu = _empty((b, s), x, f32) if save_residuals else None
+        rstd = _empty((b, s), x, f32) if save_residuals else None
+        y = torch.empty_like(x)
+        xh, o = _empty((b, s, w), x), _empty((b, s, w), x)  # scratch
+        _build.call("attn_fwd", code, _ptr(x), _ptr(ln_scale), _ptr(ln_bias),
+                    _ptr(qkv_w), _ptr(qkv_b), _ptr(out_w), _ptr(out_b), _ptr(mask),
+                    _ptr(xh), _ptr(qkv), _ptr(o), _ptr(probs), _ptr(mu), _ptr(rstd), _ptr(y),
+                    b, s, w, n_heads, eps, _stream())
+        _build.LAUNCHES["attn_fwd" if save_residuals else "attn_fwd_infer"] += 1
+        return y, ((qkv, probs, mu, rstd) if save_residuals else None)
 
 
 def attn_bwd(x, mu, rstd, qkv, probs, ln_scale, qkv_w, out_w, gy, n_heads):
@@ -428,24 +431,25 @@ def attn_bwd(x, mu, rstd, qkv, probs, ln_scale, qkv_w, out_w, gy, n_heads):
     dtype's route in ``ATTN_BWD_ROUTES``: bf16 on the tensor cores
     (D = 64), fp32 on the CUDA cores; bf16 off the tensor cores' shapes
     on the CUDA cores (``BF16_CUDA_CORES``)."""
-    if x.device.type == "cpu":
-        return attn_bwd_plain(x, mu, rstd, qkv, probs, ln_scale, qkv_w, out_w, gy, n_heads)
-    b, s, w = _dims("attn_bwd", x)
-    gy = gy.to(x.dtype).contiguous()
-    _check("attn_bwd", x, [(qkv, (b, s, 3 * w)), (probs, (b, n_heads, s, s)),
-                           (ln_scale, (w,)), (qkv_w, (w, 3 * w)), (out_w, (w, w)),
-                           (gy, (b, s, w))], stats=(mu, rstd))
-    code = _attn_code("attn_bwd", x, w, n_heads, (qkv, probs, ln_scale, qkv_w, out_w, gy))
-    dx = torch.empty_like(x)
-    # scratch: do, dqkv, fp32 dxh, the core's
-    dout, dqkv = _empty((b, s, w), x), _empty((b, s, 3 * w), x)
-    dxh, core = _empty((b, s, w), x, torch.float32), _attn_bwd_scratch(x, b, n_heads, s, code)
-    _build.call("attn_bwd", code, _ptr(x), _ptr(mu), _ptr(rstd), _ptr(qkv),
-                _ptr(probs), _ptr(ln_scale), _ptr(qkv_w), _ptr(out_w), _ptr(gy),
-                _ptr(dout), _ptr(core), _ptr(dqkv), _ptr(dxh), _ptr(dx), b, s, w, n_heads,
-                _stream())
-    _build.LAUNCHES["attn_bwd"] += 1
-    return dx
+    with profiler.span("block.attn_bwd", kernel=True):
+        if x.device.type == "cpu":
+            return attn_bwd_plain(x, mu, rstd, qkv, probs, ln_scale, qkv_w, out_w, gy, n_heads)
+        b, s, w = _dims("attn_bwd", x)
+        gy = gy.to(x.dtype).contiguous()
+        _check("attn_bwd", x, [(qkv, (b, s, 3 * w)), (probs, (b, n_heads, s, s)),
+                               (ln_scale, (w,)), (qkv_w, (w, 3 * w)), (out_w, (w, w)),
+                               (gy, (b, s, w))], stats=(mu, rstd))
+        code = _attn_code("attn_bwd", x, w, n_heads, (qkv, probs, ln_scale, qkv_w, out_w, gy))
+        dx = torch.empty_like(x)
+        # scratch: do, dqkv, fp32 dxh, the core's
+        dout, dqkv = _empty((b, s, w), x), _empty((b, s, 3 * w), x)
+        dxh, core = _empty((b, s, w), x, torch.float32), _attn_bwd_scratch(x, b, n_heads, s, code)
+        _build.call("attn_bwd", code, _ptr(x), _ptr(mu), _ptr(rstd), _ptr(qkv),
+                    _ptr(probs), _ptr(ln_scale), _ptr(qkv_w), _ptr(out_w), _ptr(gy),
+                    _ptr(dout), _ptr(core), _ptr(dqkv), _ptr(dxh), _ptr(dx), b, s, w, n_heads,
+                    _stream())
+        _build.LAUNCHES["attn_bwd"] += 1
+        return dx
 
 
 def mlp_fwd(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b, eps=_EPS,
@@ -454,130 +458,138 @@ def mlp_fwd(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b, eps=_EPS,
     card its two products take the dtype's route in ``MLP_ROUTES``: bf16
     on the tensor cores (wgmma fed by TMA), fp32 on the CUDA cores; bf16
     off the tensor cores' widths on the CUDA cores (``BF16_CUDA_CORES``)."""
-    if x.device.type == "cpu":
-        return mlp_fwd_plain(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b, eps,
-                             save_residuals)
-    b, s, w = _dims("mlp_fwd", x)
-    w4 = fc_b.shape[0]
-    _check("mlp_fwd", x, [(ln_scale, (w,)), (ln_bias, (w,)), (fc_w, (w, w4)), (fc_b, (w4,)),
-                          (proj_w, (w4, w)), (proj_b, (w,))])
-    code = _mlp_code("mlp_fwd", x, w4, (fc_w, fc_b, proj_w, proj_b))
-    f32 = torch.float32
-    hpre = _empty((b, s, w4), x) if save_residuals else None
-    mu = _empty((b, s), x, f32) if save_residuals else None
-    rstd = _empty((b, s), x, f32) if save_residuals else None
-    y = torch.empty_like(x)
-    xh, act = _empty((b, s, w), x), _empty((b, s, w4), x)  # scratch
-    _build.call("mlp_fwd", code, _ptr(x), _ptr(ln_scale), _ptr(ln_bias),
-                _ptr(fc_w), _ptr(fc_b), _ptr(proj_w), _ptr(proj_b), _ptr(xh), _ptr(hpre),
-                _ptr(act), _ptr(mu), _ptr(rstd), _ptr(y), b * s, w, w4, eps, _stream())
-    _build.LAUNCHES["mlp_fwd" if save_residuals else "mlp_fwd_infer"] += 1
-    return y, ((hpre, mu, rstd) if save_residuals else None)
+    with profiler.span("block.mlp_fwd" if save_residuals else "block.mlp_infer", kernel=True):
+        if x.device.type == "cpu":
+            return mlp_fwd_plain(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, proj_b, eps,
+                                 save_residuals)
+        b, s, w = _dims("mlp_fwd", x)
+        w4 = fc_b.shape[0]
+        _check("mlp_fwd", x, [(ln_scale, (w,)), (ln_bias, (w,)), (fc_w, (w, w4)), (fc_b, (w4,)),
+                              (proj_w, (w4, w)), (proj_b, (w,))])
+        code = _mlp_code("mlp_fwd", x, w4, (fc_w, fc_b, proj_w, proj_b))
+        f32 = torch.float32
+        hpre = _empty((b, s, w4), x) if save_residuals else None
+        mu = _empty((b, s), x, f32) if save_residuals else None
+        rstd = _empty((b, s), x, f32) if save_residuals else None
+        y = torch.empty_like(x)
+        xh, act = _empty((b, s, w), x), _empty((b, s, w4), x)  # scratch
+        _build.call("mlp_fwd", code, _ptr(x), _ptr(ln_scale), _ptr(ln_bias),
+                    _ptr(fc_w), _ptr(fc_b), _ptr(proj_w), _ptr(proj_b), _ptr(xh), _ptr(hpre),
+                    _ptr(act), _ptr(mu), _ptr(rstd), _ptr(y), b * s, w, w4, eps, _stream())
+        _build.LAUNCHES["mlp_fwd" if save_residuals else "mlp_fwd_infer"] += 1
+        return y, ((hpre, mu, rstd) if save_residuals else None)
 
 
 def mlp_bwd(x, mu, rstd, hpre, ln_scale, fc_w, proj_w, gy):
     """MLP half-block backward -> dx; its two products route as
     ``mlp_fwd``'s (``MLP_ROUTES``)."""
-    if x.device.type == "cpu":
-        return mlp_bwd_plain(x, mu, rstd, hpre, ln_scale, fc_w, proj_w, gy)
-    b, s, w = _dims("mlp_bwd", x)
-    w4 = hpre.shape[-1]
-    gy = gy.to(x.dtype).contiguous()
-    _check("mlp_bwd", x, [(hpre, (b, s, w4)), (ln_scale, (w,)), (fc_w, (w, w4)),
-                          (proj_w, (w4, w)), (gy, (b, s, w))], stats=(mu, rstd))
-    code = _mlp_code("mlp_bwd", x, w4, (hpre, ln_scale, fc_w, proj_w, gy))
-    dx = torch.empty_like(x)
-    dh, dxh = _empty((b, s, w4), x), _empty((b, s, w), x, torch.float32)  # scratch
-    _build.call("mlp_bwd", code, _ptr(x), _ptr(mu), _ptr(rstd), _ptr(hpre),
-                _ptr(ln_scale), _ptr(fc_w), _ptr(proj_w), _ptr(gy), _ptr(dh), _ptr(dxh),
-                _ptr(dx), b * s, w, w4, _stream())
-    _build.LAUNCHES["mlp_bwd"] += 1
-    return dx
+    with profiler.span("block.mlp_bwd", kernel=True):
+        if x.device.type == "cpu":
+            return mlp_bwd_plain(x, mu, rstd, hpre, ln_scale, fc_w, proj_w, gy)
+        b, s, w = _dims("mlp_bwd", x)
+        w4 = hpre.shape[-1]
+        gy = gy.to(x.dtype).contiguous()
+        _check("mlp_bwd", x, [(hpre, (b, s, w4)), (ln_scale, (w,)), (fc_w, (w, w4)),
+                              (proj_w, (w4, w)), (gy, (b, s, w))], stats=(mu, rstd))
+        code = _mlp_code("mlp_bwd", x, w4, (hpre, ln_scale, fc_w, proj_w, gy))
+        dx = torch.empty_like(x)
+        dh, dxh = _empty((b, s, w4), x), _empty((b, s, w), x, torch.float32)  # scratch
+        _build.call("mlp_bwd", code, _ptr(x), _ptr(mu), _ptr(rstd), _ptr(hpre),
+                    _ptr(ln_scale), _ptr(fc_w), _ptr(proj_w), _ptr(gy), _ptr(dh), _ptr(dxh),
+                    _ptr(dx), b * s, w, w4, _stream())
+        _build.LAUNCHES["mlp_bwd"] += 1
+        return dx
 
 
 def attn_fwd_part(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, mask, n_heads, eps=_EPS):
     """Tensor-parallel attention part over ``n_heads`` local heads (qkv_w
     (W, 3Wl), qkv_b (3Wl), out_w (Wl, W)) -> (fp32 partial (B, S, W),
     (qkv, probs, mu, rstd)); routes as ``attn_fwd``."""
-    if x.device.type == "cpu":
-        return attn_fwd_part_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, mask, n_heads, eps)
-    b, s, w = _dims("attn_fwd_part", x)
-    wl = _local_width("attn_fwd_part", qkv_w.shape[-1], n_heads)
-    _check("attn_fwd_part", x, [(ln_scale, (w,)), (ln_bias, (w,)), (qkv_w, (w, 3 * wl)),
-                                (qkv_b, (3 * wl,)), (out_w, (wl, w))], mask=mask)
-    code = _attn_code("attn_fwd_part", x, wl, n_heads, (ln_scale, ln_bias, qkv_w, qkv_b, out_w))
-    f32 = torch.float32
-    ypart = _empty((b, s, w), x, f32)
-    qkv, probs = _empty((b, s, 3 * wl), x), _empty((b, n_heads, s, s), x)
-    mu, rstd = _empty((b, s), x, f32), _empty((b, s), x, f32)
-    xh, o = _empty((b, s, w), x), _empty((b, s, wl), x)  # scratch
-    _build.call("attn_fwd_part", code, _ptr(x), _ptr(ln_scale), _ptr(ln_bias),
-                _ptr(qkv_w), _ptr(qkv_b), _ptr(out_w), _ptr(mask), _ptr(xh), _ptr(qkv), _ptr(o),
-                _ptr(probs), _ptr(mu), _ptr(rstd), _ptr(ypart), b, s, w, n_heads,
-                wl // n_heads, eps, _stream())
-    _build.LAUNCHES["attn_fwd_tp"] += 1
-    return ypart, (qkv, probs, mu, rstd)
+    with profiler.span("block.attn_fwd", kernel=True):
+        if x.device.type == "cpu":
+            return attn_fwd_part_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, mask, n_heads,
+                                       eps)
+        b, s, w = _dims("attn_fwd_part", x)
+        wl = _local_width("attn_fwd_part", qkv_w.shape[-1], n_heads)
+        _check("attn_fwd_part", x, [(ln_scale, (w,)), (ln_bias, (w,)), (qkv_w, (w, 3 * wl)),
+                                    (qkv_b, (3 * wl,)), (out_w, (wl, w))], mask=mask)
+        code = _attn_code("attn_fwd_part", x, wl, n_heads,
+                          (ln_scale, ln_bias, qkv_w, qkv_b, out_w))
+        f32 = torch.float32
+        ypart = _empty((b, s, w), x, f32)
+        qkv, probs = _empty((b, s, 3 * wl), x), _empty((b, n_heads, s, s), x)
+        mu, rstd = _empty((b, s), x, f32), _empty((b, s), x, f32)
+        xh, o = _empty((b, s, w), x), _empty((b, s, wl), x)  # scratch
+        _build.call("attn_fwd_part", code, _ptr(x), _ptr(ln_scale), _ptr(ln_bias),
+                    _ptr(qkv_w), _ptr(qkv_b), _ptr(out_w), _ptr(mask), _ptr(xh), _ptr(qkv),
+                    _ptr(o), _ptr(probs), _ptr(mu), _ptr(rstd), _ptr(ypart), b, s, w, n_heads,
+                    wl // n_heads, eps, _stream())
+        _build.LAUNCHES["attn_fwd_tp"] += 1
+        return ypart, (qkv, probs, mu, rstd)
 
 
 def attn_bwd_part(qkv, probs, qkv_w, out_w, gy, n_heads):
     """Tensor-parallel attention backward part -> fp32 partial dxh (B, S,
     W); routes as ``attn_bwd``."""
-    if qkv.device.type == "cpu":
-        return attn_bwd_part_plain(qkv, probs, qkv_w, out_w, gy, n_heads)
-    gy = gy.to(qkv.dtype).contiguous()
-    b, s, w = _dims("attn_bwd_part", gy)
-    wl = _local_width("attn_bwd_part", qkv.shape[-1], n_heads)
-    _check("attn_bwd_part", gy, [(qkv, (b, s, 3 * wl)), (probs, (b, n_heads, s, s)),
-                                 (qkv_w, (w, 3 * wl)), (out_w, (wl, w))])
-    code = _attn_code("attn_bwd_part", gy, wl, n_heads, (qkv, probs, qkv_w, out_w))
-    dxh = _empty((b, s, w), gy, torch.float32)
-    # scratch: do, dqkv, the core's
-    dout, dqkv = _empty((b, s, wl), gy), _empty((b, s, 3 * wl), gy)
-    core = _attn_bwd_scratch(gy, b, n_heads, s, code)
-    _build.call("attn_bwd_part", code, _ptr(qkv), _ptr(probs), _ptr(qkv_w),
-                _ptr(out_w), _ptr(gy), _ptr(dout), _ptr(core), _ptr(dqkv), _ptr(dxh), b, s, w,
-                n_heads, wl // n_heads, _stream())
-    _build.LAUNCHES["attn_bwd_tp"] += 1
-    return dxh
+    with profiler.span("block.attn_bwd", kernel=True):
+        if qkv.device.type == "cpu":
+            return attn_bwd_part_plain(qkv, probs, qkv_w, out_w, gy, n_heads)
+        gy = gy.to(qkv.dtype).contiguous()
+        b, s, w = _dims("attn_bwd_part", gy)
+        wl = _local_width("attn_bwd_part", qkv.shape[-1], n_heads)
+        _check("attn_bwd_part", gy, [(qkv, (b, s, 3 * wl)), (probs, (b, n_heads, s, s)),
+                                     (qkv_w, (w, 3 * wl)), (out_w, (wl, w))])
+        code = _attn_code("attn_bwd_part", gy, wl, n_heads, (qkv, probs, qkv_w, out_w))
+        dxh = _empty((b, s, w), gy, torch.float32)
+        # scratch: do, dqkv, the core's
+        dout, dqkv = _empty((b, s, wl), gy), _empty((b, s, 3 * wl), gy)
+        core = _attn_bwd_scratch(gy, b, n_heads, s, code)
+        _build.call("attn_bwd_part", code, _ptr(qkv), _ptr(probs), _ptr(qkv_w),
+                    _ptr(out_w), _ptr(gy), _ptr(dout), _ptr(core), _ptr(dqkv), _ptr(dxh), b, s, w,
+                    n_heads, wl // n_heads, _stream())
+        _build.LAUNCHES["attn_bwd_tp"] += 1
+        return dxh
 
 
 def mlp_fwd_part(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, eps=_EPS):
     """Tensor-parallel MLP part over the hidden units of fc_w (W, W4) ->
     (fp32 partial (B, S, W), (hpre, mu, rstd)); routes as ``mlp_fwd``."""
-    if x.device.type == "cpu":
-        return mlp_fwd_part_plain(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, eps)
-    b, s, w = _dims("mlp_fwd_part", x)
-    w4 = fc_b.shape[0]
-    _check("mlp_fwd_part", x, [(ln_scale, (w,)), (ln_bias, (w,)), (fc_w, (w, w4)),
-                               (fc_b, (w4,)), (proj_w, (w4, w))])
-    code = _mlp_code("mlp_fwd_part", x, w4, (fc_w, fc_b, proj_w))
-    f32 = torch.float32
-    ypart, hpre = _empty((b, s, w), x, f32), _empty((b, s, w4), x)
-    mu, rstd = _empty((b, s), x, f32), _empty((b, s), x, f32)
-    xh, act = _empty((b, s, w), x), _empty((b, s, w4), x)  # scratch
-    _build.call("mlp_fwd_part", code, _ptr(x), _ptr(ln_scale), _ptr(ln_bias),
-                _ptr(fc_w), _ptr(fc_b), _ptr(proj_w), _ptr(xh), _ptr(hpre), _ptr(act), _ptr(mu),
-                _ptr(rstd), _ptr(ypart), b * s, w, w4, eps, _stream())
-    _build.LAUNCHES["mlp_fwd_tp"] += 1
-    return ypart, (hpre, mu, rstd)
+    with profiler.span("block.mlp_fwd", kernel=True):
+        if x.device.type == "cpu":
+            return mlp_fwd_part_plain(x, ln_scale, ln_bias, fc_w, fc_b, proj_w, eps)
+        b, s, w = _dims("mlp_fwd_part", x)
+        w4 = fc_b.shape[0]
+        _check("mlp_fwd_part", x, [(ln_scale, (w,)), (ln_bias, (w,)), (fc_w, (w, w4)),
+                                   (fc_b, (w4,)), (proj_w, (w4, w))])
+        code = _mlp_code("mlp_fwd_part", x, w4, (fc_w, fc_b, proj_w))
+        f32 = torch.float32
+        ypart, hpre = _empty((b, s, w), x, f32), _empty((b, s, w4), x)
+        mu, rstd = _empty((b, s), x, f32), _empty((b, s), x, f32)
+        xh, act = _empty((b, s, w), x), _empty((b, s, w4), x)  # scratch
+        _build.call("mlp_fwd_part", code, _ptr(x), _ptr(ln_scale), _ptr(ln_bias),
+                    _ptr(fc_w), _ptr(fc_b), _ptr(proj_w), _ptr(xh), _ptr(hpre), _ptr(act),
+                    _ptr(mu), _ptr(rstd), _ptr(ypart), b * s, w, w4, eps, _stream())
+        _build.LAUNCHES["mlp_fwd_tp"] += 1
+        return ypart, (hpre, mu, rstd)
 
 
 def mlp_bwd_part(hpre, fc_w, proj_w, gy):
     """Tensor-parallel MLP backward part -> fp32 partial dxh (B, S, W);
     routes as ``mlp_bwd``."""
-    if hpre.device.type == "cpu":
-        return mlp_bwd_part_plain(hpre, fc_w, proj_w, gy)
-    gy = gy.to(hpre.dtype).contiguous()
-    b, s, w = _dims("mlp_bwd_part", gy)
-    w4 = hpre.shape[-1]
-    _check("mlp_bwd_part", gy, [(hpre, (b, s, w4)), (fc_w, (w, w4)), (proj_w, (w4, w))])
-    code = _mlp_code("mlp_bwd_part", gy, w4, (hpre, fc_w, proj_w))
-    dxh = _empty((b, s, w), gy, torch.float32)
-    dh = _empty((b, s, w4), gy)  # scratch
-    _build.call("mlp_bwd_part", code, _ptr(hpre), _ptr(fc_w), _ptr(proj_w),
-                _ptr(gy), _ptr(dh), _ptr(dxh), b * s, w, w4, _stream())
-    _build.LAUNCHES["mlp_bwd_tp"] += 1
-    return dxh
+    with profiler.span("block.mlp_bwd", kernel=True):
+        if hpre.device.type == "cpu":
+            return mlp_bwd_part_plain(hpre, fc_w, proj_w, gy)
+        gy = gy.to(hpre.dtype).contiguous()
+        b, s, w = _dims("mlp_bwd_part", gy)
+        w4 = hpre.shape[-1]
+        _check("mlp_bwd_part", gy, [(hpre, (b, s, w4)), (fc_w, (w, w4)), (proj_w, (w4, w))])
+        code = _mlp_code("mlp_bwd_part", gy, w4, (hpre, fc_w, proj_w))
+        dxh = _empty((b, s, w), gy, torch.float32)
+        dh = _empty((b, s, w4), gy)  # scratch
+        _build.call("mlp_bwd_part", code, _ptr(hpre), _ptr(fc_w), _ptr(proj_w),
+                    _ptr(gy), _ptr(dh), _ptr(dxh), b * s, w, w4, _stream())
+        _build.LAUNCHES["mlp_bwd_tp"] += 1
+        return dxh
 
 
 # ------------------------------------------------------- autograd glue

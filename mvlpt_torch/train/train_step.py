@@ -21,6 +21,7 @@ rank's rows of each batch and gather the logits over the data group.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Callable
 
@@ -117,8 +118,9 @@ def apply_gradients(state, loss, logits, labels, mesh=None) -> tuple:
     step = state.step + 1 if profiler.nan_debugging() else None
     if step is not None:
         profiler.check_finite(step, "loss", [loss])
-    grads = _grads(loss, leaves, step)
-    with torch.no_grad():
+    with profiler.span("step.bwd"):
+        grads = _grads(loss, leaves, step)
+    with torch.no_grad(), profiler.span("step.optim"):
         loss, acc = loss.detach(), accuracy(logits, labels)
         _data_mean(grads + (loss, acc), mesh)
         grad_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
@@ -156,12 +158,14 @@ def make_train_step(model: MVLPTModel, task_ranges: TaskClassRanges | None = Non
         if mesh is not None and not local_rows:
             batch = local_batch(batch, mesh)
         task_ranges = _ranges_on(task_ranges, batch["image"].device)
-        imgs, pre = ((batch["image"], True) if pre_embedded
-                     else _prep_images(model, backbone, batch["image"], normalize))
-        logits = model(backbone, state.prompt_params, consts, imgs, tasks=batch.get("task"),
-                       task_ranges=task_ranges, pre_embedded=pre, rng=step_rng(model, state))
-        loss = soft_cross_entropy(logits, batch["label"])
-        values = apply_gradients(state, loss, logits, batch["label"], mesh)
+        with profiler.span("step"):
+            imgs, pre = ((batch["image"], True) if pre_embedded
+                         else _prep_images(model, backbone, batch["image"], normalize))
+            logits = model(backbone, state.prompt_params, consts, imgs, tasks=batch.get("task"),
+                           task_ranges=task_ranges, pre_embedded=pre, rng=step_rng(model, state))
+            with profiler.span("step.loss"):
+                loss = soft_cross_entropy(logits, batch["label"])
+            values = apply_gradients(state, loss, logits, batch["label"], mesh)
         return state, dict(zip(WINDOW_METRICS, values))
 
     return step_fn
@@ -211,11 +215,15 @@ class _Captured:
     index: torch.Tensor          # (1,) int64: the step's slot in the window
     out: dict                    # WINDOW_METRICS -> (capacity,) fp32
     served: tuple                # _served(...) of what it was captured against
+    spans: list                  # the step's spans (utils.profiler.capturing), or empty
+
+    def reads(self, state, backbone, consts) -> bool:
+        """Whether it reads and writes these objects."""
+        now = _served(state, backbone, consts)
+        return len(now) == len(self.served) and all(a is b for a, b in zip(now, self.served))
 
     def serves(self, state, backbone, consts, k: int) -> bool:
-        now = _served(state, backbone, consts)
-        return (k <= self.inputs["label"].shape[0] and len(now) == len(self.served)
-                and all(a is b for a, b in zip(now, self.served)))
+        return k <= self.inputs["label"].shape[0] and self.reads(state, backbone, consts)
 
 
 def _served(state: WindowState, backbone, consts) -> tuple:
@@ -226,27 +234,43 @@ def _served(state: WindowState, backbone, consts) -> tuple:
             state.seed)
 
 
+# Why a windowed step captured its graph (``WindowStep.capture_causes``):
+# the first window of its batch shape, another state, backbone or consts,
+# a window longer than the graph's static tensors, tracing turned on or off.
+CAPTURE_CAUSES = ("shape", "state", "window", "tracing")
+
+
 class WindowStep:
     """The windowed train step that ``make_train_step_multi`` returns;
-    ``captures`` and ``replays`` say what its CUDA graphs did. A replay
-    calls no kernel wrapper, so ``ops._build.LAUNCHES`` does not count
-    the kernels it launches: a device trace does."""
+    ``captures`` (by cause in ``capture_causes``) and ``replays`` say what
+    its CUDA graphs did; ``utils.profiler.spans()`` reports them. A
+    replay calls no kernel wrapper, so ``ops._build.LAUNCHES`` does not
+    count the kernels it launches: a device trace does, and with tracing
+    on (``utils.profiler``) the captured step's spans, whose device
+    stamps every replay writes again, in the row of its step."""
 
     def __init__(self, model: MVLPTModel, task_ranges, pre_embed: bool, normalize, capture: bool,
                  mesh=None):
         self.model, self.task_ranges, self.mesh = model, task_ranges, mesh
         self.pre_embed, self.normalize, self.capture = pre_embed, normalize, capture
         self._graphs: dict = {}
-        self.captures = 0            # steps captured into a graph
+        self.capture_causes = collections.Counter()   # steps captured into a graph, by cause
         self.replays = 0             # graph replays, over every window
+        profiler.watch(self)
+
+    @property
+    def captures(self) -> int:
+        """Steps captured into a graph."""
+        return sum(self.capture_causes.values())
 
     def __call__(self, state: WindowState, backbone, consts, batches):
         device = batches["image"].device
         self.task_ranges = _ranges_on(self.task_ranges, device)
-        inputs = self._window_inputs(backbone, batches)
+        with profiler.span("window.pre_embed"):
+            inputs = self._window_inputs(backbone, batches)
         text = None
         if self.model.spec.text_is_static:
-            with torch.no_grad():
+            with torch.no_grad(), profiler.span("window.text_static"):
                 text = self.model.compute_text_features(backbone, state.prompt_params, consts)
         k = inputs["image"].shape[0]
         if device.type == "cuda" and self.capture and not profiler.nan_debugging():
@@ -286,40 +310,63 @@ class WindowStep:
         advanced. It reads nothing back to the host (but under
         ``profiler.enable_nan_debugging``, which runs the window eagerly)."""
         model, params = self.model, state.prompt_params
-        batch = {name: t.index_select(0, index)[0] for name, t in inputs.items()}
-        rng = step_rng(model, state)
-        if text is not None:
-            logits = model.forward_with_text(backbone, params, batch["image"], text,
-                                             tasks=batch.get("task"),
-                                             task_ranges=self.task_ranges,
-                                             pre_embedded=self.pre_embed, rng=rng)
-        else:
-            logits = model(backbone, params, consts, batch["image"], tasks=batch.get("task"),
-                           task_ranges=self.task_ranges, pre_embedded=self.pre_embed, rng=rng)
-        loss = soft_cross_entropy(logits, batch["label"])
-        values = apply_gradients(state, loss, logits, batch["label"], self.mesh)
+        with profiler.span("step"):
+            batch = {name: t.index_select(0, index)[0] for name, t in inputs.items()}
+            rng = step_rng(model, state)
+            if text is not None:
+                logits = model.forward_with_text(backbone, params, batch["image"], text,
+                                                 tasks=batch.get("task"),
+                                                 task_ranges=self.task_ranges,
+                                                 pre_embedded=self.pre_embed, rng=rng)
+            else:
+                logits = model(backbone, params, consts, batch["image"], tasks=batch.get("task"),
+                               task_ranges=self.task_ranges, pre_embedded=self.pre_embed,
+                               rng=rng)
+            with profiler.span("step.loss"):
+                loss = soft_cross_entropy(logits, batch["label"])
+            values = apply_gradients(state, loss, logits, batch["label"], self.mesh)
+            with torch.no_grad():
+                for name, v in zip(WINDOW_METRICS, values):
+                    out[name].index_copy_(0, index, v.reshape(1))
         with torch.no_grad():
-            for name, v in zip(WINDOW_METRICS, values):
-                out[name].index_copy_(0, index, v.reshape(1))
+            # After the step's span: a captured step's stamps write row ``index``.
             index.add_(1)
 
     def _replayed(self, state, backbone, consts, inputs, text, k: int) -> dict:
+        """The window through its graph. A graph is kept for each batch
+        shape and tracing state (``utils.profiler.tracing`` and
+        ``kernel_marks``): turning tracing on captures a step with its
+        spans, which no window with tracing off replays, and the other way
+        round."""
         key = (tuple((name, tuple(t.shape[1:]), t.dtype) for name, t in sorted(inputs.items())),
-               None if text is None else tuple(text.shape))
+               None if text is None else tuple(text.shape),
+               (profiler.tracing(), profiler.kernel_marks()))
         cap = self._graphs.get(key)
         if cap is not None and cap.serves(state, backbone, consts, k):
-            for name, t in inputs.items():
-                cap.inputs[name][:k].copy_(t)
-            if text is not None:
-                cap.text.copy_(text)
-            cap.index.zero_()
+            # The samples of the graph's last window, read before it replays again.
+            profiler.collect()
+            with profiler.span("window.stage"):
+                for name, t in inputs.items():
+                    cap.inputs[name][:k].copy_(t)
+                if text is not None:
+                    cap.text.copy_(text)
+                cap.index.zero_()
             done = 0
         else:
+            if cap is not None:
+                cause = "window" if cap.reads(state, backbone, consts) else "state"
+            else:
+                cause = ("tracing" if any(other[:-1] == key[:-1] for other in self._graphs)
+                         else "shape")
+            self.capture_causes[cause] += 1
             self._graphs.pop(key, None)
-            cap = self._graphs[key] = self._capture(state, backbone, consts, inputs, text)
+            with profiler.span("window.capture"):
+                cap = self._graphs[key] = self._capture(state, backbone, consts, inputs, text)
             done = 1
-        for _ in range(k - done):
-            cap.graph.replay()
+        with profiler.span("window.replay"):
+            for _ in range(k - done):
+                cap.graph.replay()
+            profiler.replayed(cap.spans, range(done, k))
         self.replays += k - done
         return {name: buf[:k].clone() for name, buf in cap.out.items()}
 
@@ -342,15 +389,15 @@ class WindowStep:
         torch.cuda.current_stream(device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph):
+            with (profiler.capturing(index, static["image"].shape[0]) as spans,
+                  torch.cuda.graph(graph)):
                 self._step(state, backbone, consts, static, static_text, index, out)
         except RuntimeError as e:
             raise RuntimeError("make_train_step_multi: capturing the train step as a CUDA graph "
                                f"failed ({e}); run it with capture=False to run the window "
                                "eagerly") from e
-        self.captures += 1
         return _Captured(graph, static, static_text, index, out,
-                         _served(state, backbone, consts))
+                         _served(state, backbone, consts), spans)
 
 
 def make_train_step_multi(model: MVLPTModel, task_ranges: TaskClassRanges | None = None,
@@ -459,9 +506,10 @@ def make_eval_step(model: MVLPTModel, task_ranges: TaskClassRanges | None = None
     def eval_fn(backbone, prompt_params, consts, batch):
         nonlocal task_ranges
         task_ranges = _ranges_on(task_ranges, batch["image"].device)
-        imgs, pre = _prep_images(model, backbone, batch["image"], normalize)
-        return model(backbone, prompt_params, consts, imgs, tasks=batch.get("task"),
-                     task_ranges=task_ranges, pre_embedded=pre)
+        with profiler.span("eval.batch"):
+            imgs, pre = _prep_images(model, backbone, batch["image"], normalize)
+            return model(backbone, prompt_params, consts, imgs, tasks=batch.get("task"),
+                         task_ranges=task_ranges, pre_embedded=pre)
 
     return _over_data(eval_fn, mesh)
 
@@ -489,9 +537,10 @@ def make_cached_text_eval(model: MVLPTModel, task_ranges: TaskClassRanges | None
     def eval_fn(backbone, prompt_params, text_features, batch):
         nonlocal task_ranges
         task_ranges = _ranges_on(task_ranges, batch["image"].device)
-        imgs, pre = _prep_images(model, backbone, batch["image"], normalize)
-        return model.forward_with_text(backbone, prompt_params, imgs, text_features,
-                                       tasks=batch.get("task"), task_ranges=task_ranges,
-                                       pre_embedded=pre)
+        with profiler.span("eval.batch"):
+            imgs, pre = _prep_images(model, backbone, batch["image"], normalize)
+            return model.forward_with_text(backbone, prompt_params, imgs, text_features,
+                                           tasks=batch.get("task"), task_ranges=task_ranges,
+                                           pre_embedded=pre)
 
     return text_fn, _over_data(eval_fn, mesh)

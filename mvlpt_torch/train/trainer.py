@@ -76,6 +76,7 @@ from mvlpt_torch.train.train_step import (
     make_train_step,
     make_train_step_multi,
 )
+from mvlpt_torch.utils import profiler
 from mvlpt_torch.utils.device import resolve_device
 from mvlpt_torch.utils.pipeline import pipelined_inference
 from mvlpt_torch.utils.registry import TRAINER_REGISTRY
@@ -446,7 +447,8 @@ class PromptTrainer:
         while True:
             t0 = time.perf_counter()
             try:
-                batch = next(it)
+                with profiler.span("loader.next", device=False):
+                    batch = next(it)
             except StopIteration:
                 record["loader_s"] += time.perf_counter() - t0
                 return
@@ -551,7 +553,8 @@ class PromptTrainer:
             if not pending:
                 return
             full = len(pending) == window or bool(min_tail and len(pending) >= min_tail)
-            stacked = self._stage_window(pending) if full else None
+            with profiler.span("window.stage_host", device=False):
+                stacked = self._stage_window(pending) if full else None
             settle()
             if not full:
                 # Short tail: a step a call.

@@ -19,6 +19,8 @@ from typing import Callable, Iterable, Iterator
 import numpy as np
 import torch
 
+from mvlpt_torch.utils import profiler
+
 
 def _to_numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
@@ -44,9 +46,12 @@ class _Pending:
             self.value = host
 
     def read(self) -> np.ndarray:
-        if self.event is not None:
-            self.event.synchronize()
-        return _to_numpy(self.value)
+        """The result on the host; the wait for it is the span
+        ``eval.read`` (``utils.profiler``)."""
+        with profiler.span("eval.read", device=False):
+            if self.event is not None:
+                self.event.synchronize()
+            return _to_numpy(self.value)
 
 
 def pipelined_inference(loader: Iterable[dict], dispatch: Callable[[dict], object],

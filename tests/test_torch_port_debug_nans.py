@@ -6,8 +6,8 @@ NaN in the CLIP checkpoint's image projection, which every image's
 features pass through). The port raises at the first non-finite loss,
 gradient or updated parameter, naming the step, in the per-step path and
 in a window (which then runs eagerly); the same step without the NaN
-runs; the mode turns off again. Also the module's ``trace`` and
-``StepTimer``."""
+runs; the mode turns off again. Also the module's ``trace``, with the
+program's spans in it, and the JAX package's ``StepTimer``."""
 
 import sys
 
@@ -103,23 +103,33 @@ def test_both_clis_raise_on_the_same_nan(env, tmp_path, monkeypatch, nan_debuggi
 
 
 def test_trace_and_step_timer(tmp_path):
-    """``trace`` writes a Chrome trace of what ran inside it; ``StepTimer``
-    skips its warm-up steps and reports items a second, as the JAX
-    package's does."""
+    """``trace`` writes a Chrome trace of what ran inside it, the program's
+    spans beside the operations (the port has no step timer: its spans
+    time the step); the JAX package's ``StepTimer`` skips its warm-up
+    steps and reports items a second."""
     import json
 
     from mvlpt_tpu.utils.profiler import StepTimer as JTimer
 
-    from mvlpt_torch.utils.profiler import StepTimer, trace
+    from mvlpt_torch.ops.block import attn_block
+    from mvlpt_torch.utils.profiler import span, trace
 
+    x = torch.ones(1, 4, 8)
+    ln = {"scale": torch.ones(8), "bias": torch.zeros(8)}
+    attn = {"qkv_w": torch.ones(8, 24), "qkv_b": torch.zeros(24), "out_w": torch.ones(8, 8),
+            "out_b": torch.zeros(8)}
     with trace(str(tmp_path / "trace")):
-        torch.ones(8, 8) @ torch.ones(8, 8)
+        with span("step"):
+            torch.ones(8, 8) @ torch.ones(8, 8)
+            attn_block(x, ln, attn, None, 2)
     (path,) = (tmp_path / "trace").iterdir()
-    assert any("mm" in ev.get("name", "") for ev in json.loads(path.read_text())["traceEvents"])
-    for timer in (StepTimer(warmup=1), JTimer(warmup=1)):
-        assert timer.throughput() == 0.0
-        for _ in range(3):
-            timer.start()
-            timer.stop(n_items=4)
-        assert timer.count == 3 and timer.elapsed > 0
-        assert timer.throughput() == pytest.approx(8 / timer.elapsed)
+    names = {ev.get("name", "") for ev in json.loads(path.read_text())["traceEvents"]}
+    assert any("mm" in name for name in names)
+    assert {"mvlpt.step", "mvlpt.step/block.attn_fwd"} <= names
+    timer = JTimer(warmup=1)
+    assert timer.throughput() == 0.0
+    for _ in range(3):
+        timer.start()
+        timer.stop(n_items=4)
+    assert timer.count == 3 and timer.elapsed > 0
+    assert timer.throughput() == pytest.approx(8 / timer.elapsed)
