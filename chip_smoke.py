@@ -18,6 +18,11 @@
    ViT-L/14@336px width and length (W = 1024, H = 16, S = 581, batch 4);
    the attention half-blocks (#1, #2, #5, and #7/#8 at tp = 2) at
    S = 1024 under a causal mask, past the bf16 cores' windows of keys;
+   #1, #2, #5 and #7 on each side of the bf16 forward core's switch
+   (S = 256, the one-pass core's longest row; S = 257, the windowed
+   core's shortest; causal), #7 also at the ELEVATER-20 towers' rows,
+   each bf16 attention forward row naming the core its launch counted
+   (core_route, held to block.RESIDENT_KEYS);
    and the standalone attention (forward and backward) at the image
    train and eval shapes, the packed text rows, CLIP's full text context,
    the edges of the tensor-core tiling (S = 1, 17, 261, each bf16
@@ -384,18 +389,26 @@ WINDOW_CONTROLS = {"batch k+1 at step k": tuple(WINDOW_REL),
                    "lr frozen at its first value": ("displacement",)}
 # The kernel that each wrapper of the windowed paths launches exactly
 # once a call on its bf16 route, by its name in a device trace:
-# attn_fwd.cu's core that writes the probabilities, attn_bwd.cu's dq pass,
+# attn_fwd.cu's core that writes the probabilities (the one-pass
+# attn_core_res up to block.RESIDENT_KEYS keys, the windowed attn_core_tc
+# past them), attn_bwd.cu's dq pass,
 # the wgmma products with the EPI_BIAS_GELU (4) and EPI_GELU_BWD (5)
 # epilogues, which only mlp_fwd.cu and mlp_bwd.cu instantiate, and the
 # standalone attention's tensor-core forward and dq pass. A graph replay
 # calls no wrapper, so ops._build.LAUNCHES cannot count its launches: the
 # replayed window's trace counts them by these names.
-TRACE_MARKS = {"attn_fwd": r"[\s:]attn_core_tc<true>\(",
+TRACE_MARKS = {"attn_fwd": r"[\s:]attn_core_(?:tc<|res<\d+, ?)true>\(",
                "attn_bwd": r"[\s:]attn_bwd_dq_tc\(",
                "mlp_fwd": r"[\s:]wgmma_gemm_kernel<4,",
                "mlp_bwd": r"[\s:]wgmma_gemm_kernel<5,",
                "attend_fwd": r"[\s:]attend_fwd_tc[<(]",
                "attend_bwd": r"[\s:]attend_bwd_dq_tc[<(]"}
+# ops._build.LAUNCHES' counters of the bf16 attention forwards' core
+# route (block.RESIDENT_KEYS): they split attn_fwd's, attn_fwd_infer's and
+# attn_fwd_tp's launches, not counting a wrapper's own, so the paths'
+# launch checks leave them out (_kernel_launches) and the check rows read
+# them (core_route).
+ROUTE_COUNTERS = ("attn_core_resident", "attn_core_windowed")
 
 def card_line() -> str:
     out = subprocess.run(
@@ -622,7 +635,11 @@ def check_kernels(shapes: dict) -> list[dict]:
         for name, mode, kern, twin, flops, nbytes, lib in (
                 c for c in cases if c[1] in modes or (c[0], c[1]) in modes):
             row_t0 = time.perf_counter()
+            before = _route_counts()
             got, alloc = requested(kern)
+            core_route = _core_route(f"{name} ({mode}, {tower}, {dtype_name})", before,
+                                     name == "attn_fwd" and dtype == torch.bfloat16 and tc["attn"],
+                                     s)
             ref64 = twin(torch.float64) if dtype == torch.bfloat16 else None
             bound_ms, bound_by = bound(flops, nbytes, dtype_name)
             outputs = ATTN_FWD_OUTPUTS if (name, mode) == ("attn_fwd", "train") else None
@@ -654,7 +671,8 @@ def check_kernels(shapes: dict) -> list[dict]:
                 route = block.BF16_CUDA_CORES if dtype == torch.bfloat16 and not on_tc else (
                     routes[dtype])
                 row.update(route=route, gemm_library_ms=cuda_ms(gemm_lib[name]),
-                           requested_bytes=alloc, want_bytes=want)
+                           requested_bytes=alloc, want_bytes=want,
+                           **({"core_route": core_route} if core_route else {}))
                 if dtype == torch.bfloat16 and alloc != want:
                     raise AssertionError(f"{name} ({mode}, {tower}, bf16): requested {alloc} "
                                          f"bytes, not those of its outputs and scratch ({want})")
@@ -662,6 +680,27 @@ def check_kernels(shapes: dict) -> list[dict]:
             rows.append(row)
             print("kernel-check " + json.dumps(row), flush=True)
     return _fail_on_disagreement(rows)
+
+
+def _route_counts() -> dict:
+    from mvlpt_torch.ops import _build
+
+    return {k: _build.LAUNCHES[k] for k in ROUTE_COUNTERS}
+
+
+def _core_route(what: str, before: dict, tc_core: bool, s: int) -> str | None:
+    """The core route (ROUTE_COUNTERS) one call counted since ``before``:
+    on the bf16 tensor cores' attention route (``tc_core``) exactly one
+    launch of the route that block.RESIDENT_KEYS gives S, elsewhere
+    none."""
+    from mvlpt_torch.ops import block
+
+    moved = {k: n - before[k] for k, n in _route_counts().items() if n != before[k]}
+    want = ({"attn_core_resident" if s <= block.RESIDENT_KEYS else "attn_core_windowed": 1}
+            if tc_core else {})
+    if moved != want:
+        raise AssertionError(f"{what}: the core route counters moved by {moved}, want {want}")
+    return next(iter(moved), None)
 
 
 def requested(fn):
@@ -857,7 +896,11 @@ def check_tp_kernels(shapes: dict) -> list[dict]:
         ]
         for name, kern, twin, flops, nbytes, lib in (c for c in cases if c[0] in names):
             row_t0 = time.perf_counter()
+            before = _route_counts()
             got, alloc = requested(kern)
+            core_route = _core_route(f"{name} ({tower}, {dtype_name})", before,
+                                     name == "attn_fwd_tp" and bf16
+                                     and block.tensor_core_shapes(x, wl, hl), s)
             bound_ms, bound_by = bound(flops, nbytes, dtype_name)
             row = dict(name=name, mode="part", tower=tower, dtype=dtype_name,
                        shape=[b, s, w, hl if "attn" in name else w4l], tp=TP,
@@ -873,7 +916,8 @@ def check_tp_kernels(shapes: dict) -> list[dict]:
                 row.update(route=block.ATTN_FWD_ROUTES[dtype],
                            gemm_library_ms=cuda_ms(attn_gemm_library(
                                *attn_args(0)[:5], shards[0]["attn"]["out_w"], mask, hl)),
-                           requested_bytes=alloc, want_bytes=want)
+                           requested_bytes=alloc, want_bytes=want,
+                           **({"core_route": core_route} if core_route else {}))
                 if bf16 and alloc != want:
                     raise AssertionError(f"attn_fwd_tp ({tower}, bf16): requested {alloc} bytes, "
                                          f"not those of its outputs and scratch ({want})")
@@ -1125,17 +1169,20 @@ def check_gemm_kmajor(shapes: dict) -> list[dict]:
 # bf16 route of attend_fwd.cu / attend_bwd.cu (one kernel a register
 # bucket NT), the wgmma GEMM in attn_fwd.cu, attn_bwd.cu, mlp_fwd.cu and
 # mlp_bwd.cu (one an epilogue EPI, tile width BN and B layout, KMAJOR 1 for
-# a B read transposed), attn_fwd.cu's mma.sync core (PROBS 1 where it
-# writes the probabilities) and attn_bwd.cu's two mma.sync core launches.
-# Each pattern of a source must name at least one kernel.
+# a B read transposed), attn_fwd.cu's two mma.sync cores (PROBS 1 where
+# they write the probabilities: the windowed attn_core_tc, and the
+# one-pass attn_core_res, one a bucket of NT key tiles) and attn_bwd.cu's
+# two mma.sync core launches. Each pattern of a source must name at least
+# one kernel.
 TC_KERNELS = {"attend_fwd": (r"attend_fwd_tc",), "attend_bwd": (r"attend_bwd_(?:dq|dkv)_tc",),
-              "attn_fwd": (r"attn_core_tc", r"wgmma_gemm_kernel"),
+              "attn_fwd": (r"attn_core_tc", r"wgmma_gemm_kernel", r"attn_core_res"),
               "attn_bwd": (r"attn_bwd_(?:dq|dkv)_tc", r"wgmma_gemm_kernel"),
               "mlp_fwd": (r"wgmma_gemm_kernel",), "mlp_bwd": (r"wgmma_gemm_kernel",)}
 # The template arguments of each tensor-core kernel, in order (none for a
 # plain function).
 TC_TEMPLATE_ARGS = {"attend_fwd_tc": ("NT",), "attend_bwd_dq_tc": ("NT",),
                     "attend_bwd_dkv_tc": ("NT",), "attn_core_tc": ("PROBS",),
+                    "attn_core_res": ("NT", "PROBS"),
                     "attn_bwd_dq_tc": (), "attn_bwd_dkv_tc": (),
                     "wgmma_gemm_kernel": ("EPI", "BN", "KMAJOR")}
 # Sources whose bf16 products must reach wgmma (HGMMA in their SASS), and
@@ -1217,15 +1264,21 @@ def check_hgmma() -> None:
                                      f"{what}")
 
 
+def _kernel_launches() -> dict:
+    """ops._build.LAUNCHES without ROUTE_COUNTERS: a count a kernel wrapper."""
+    from mvlpt_torch.ops import _build
+
+    return {k: v for k, v in _build.LAUNCHES.items() if k not in ROUTE_COUNTERS}
+
+
 def _launches(path: str, kernels: tuple, per: int) -> dict:
     """The launch counts of the path just driven; each of ``kernels``
     must have launched ``per`` times, every other kernel never."""
-    from mvlpt_torch.ops import _build
-
-    return _launches_of(path, dict(_build.LAUNCHES), kernels, per)
+    return _launches_of(path, _kernel_launches(), kernels, per)
 
 
 def _launches_of(path: str, got: dict, kernels: tuple, per: int) -> dict:
+    got = {name: n for name, n in got.items() if name not in ROUTE_COUNTERS}
     want = {name: (per if name in kernels else 0) for name in got}
     if got != want:
         raise AssertionError(f"{path}: launches {got}, want {want}")
@@ -1430,7 +1483,7 @@ def _tp_rank(rank: int, world: int, workdir: str) -> None:
             times.append(time.perf_counter() - t0)
             losses.append(metrics["loss"].item())
             grad_norms.append(metrics["grad_norm"].item())
-        launches, peak = dict(_build.LAUNCHES), _peak_gib()
+        launches, peak = _kernel_launches(), _peak_gib()
         # After the path's counts, in fp32, where no bf16 rounding flips:
         # layer 0 again, and one step on the first batch, which holds the
         # path to fp32 'auto' tightly.
@@ -1672,9 +1725,7 @@ def _replayed_launches(path: str, counts: dict, kernels: tuple, per: int) -> dic
     trace by TRACE_MARKS: each of ``kernels`` ``per`` times, every other
     marked kernel never. The replay must have called no wrapper, else a
     step ran eagerly."""
-    from mvlpt_torch.ops import _build
-
-    called = {name: n for name, n in _build.LAUNCHES.items() if n}
+    called = {name: n for name, n in _kernel_launches().items() if n}
     if called:
         raise AssertionError(f"{path}: the replayed window called the kernel wrappers {called}")
     return _launches_of(path, _marked(counts), kernels, per)
@@ -2184,7 +2235,7 @@ def drive_trainer_cli() -> dict:
                                    "OPTIM.MAX_EPOCH", "2"], keep_first=True)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        launches = dict(_build.LAUNCHES)
+        launches = _kernel_launches()
         peak = _peak_gib()
         logits = _test_logits(trainer)
         # the CLI's --eval-only rerun from the trained run's directory
@@ -2346,7 +2397,7 @@ def drive_trainer_cli_native(cli: dict) -> dict:
                                    "native"], keep_first=True)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        launches = {k: v for k, v in _kernel_launches().items() if v}
     finally:
         os.environ.pop("MVLPT_TPU_RANDOM_CLIP", None)
     if set(launches) != set(cli["launches"]):
@@ -2655,7 +2706,7 @@ def drive_trainer_elevater() -> dict:
                                "4", *ELEV_OPTS, "OPTIM.MAX_EPOCH", str(ELEV_EPOCHS)], probe)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        launches = dict(_build.LAUNCHES)
+        launches = _kernel_launches()
         peak_after = _peak_gib()
         logits = _test_logits(trainer)
         evaluated, _ = _cli_run([*common, "--output-dir", str(out_dir / "eval"), "--eval-only",
@@ -2683,7 +2734,7 @@ def drive_trainer_elevater() -> dict:
                                 "--model-dir", str(out_dir / "train"), "--output-dir",
                                 str(out_dir / "transfer"), *ELEV_OPTS, "OPTIM.MAX_EPOCH", "1"],
                                tprobe)
-        t_launches = {name: n for name, n in _build.LAUNCHES.items() if n}
+        t_launches = {name: n for name, n in _kernel_launches().items() if n}
     finally:
         os.environ.pop("MVLPT_TPU_RANDOM_CLIP", None)
 
@@ -2726,7 +2777,7 @@ def drive_trainer_elevater() -> dict:
     (_, traced_m), trace, trace_tries = _traced_replay(lambda: probe.steps[0](
         probe.state, trainer.backbone, trainer.consts,
         {name: t[:ELEV_TRACE_K] for name, t in probe.kept.items()}), probe.state, want_marks)
-    called = {name: n for name, n in _build.LAUNCHES.items() if n}
+    called = {name: n for name, n in _kernel_launches().items() if n}
     marked = _marked(trace)
     if called or marked != want_marks or probe.steps[0].captures != 1:
         raise AssertionError(f"{path}: the traced replay called the wrappers {called} and "
@@ -2866,7 +2917,7 @@ def drive_zeroshot_cli(elevater_data: Path) -> dict:
             _build.reset_launch_counts()
             trainer, _ = _cli_run([*argv, "--config-file", yaml, "--output-dir", str(run_dir),
                                    "--eval-only", "--no-train"])
-            launches = _launches_of(f"{path} {name}", dict(_build.LAUNCHES),
+            launches = _launches_of(f"{path} {name}", _kernel_launches(),
                                     ("attn_fwd_infer", "mlp_fwd_infer"),
                                     _build.LAUNCHES["attn_fwd_infer"])
             if not launches["attn_fwd_infer"]:
@@ -3112,7 +3163,7 @@ def drive_trainer_cocoop() -> dict:
             run_s = time.perf_counter() - t0
         finally:
             trainer_mod.make_train_step = steps_probe.make
-        launches, peak = dict(_build.LAUNCHES), _peak_gib()
+        launches, peak = _kernel_launches(), _peak_gib()
         shapes = dict(s=trainer.spec.context_length,
                       train_rows=cocoop_chunk_rows(trainer.cfg.DATALOADER.TRAIN_X.BATCH_SIZE,
                                                    trainer.num_classes),
@@ -3133,7 +3184,7 @@ def drive_trainer_cocoop() -> dict:
         _build.reset_launch_counts()
         tested, _ = _cli_run(_cocoop_argv(data, out_dir / "test_new", "new", flags=(
             "--model-dir", str(out_dir / "train_base"), "--eval-only")))
-        test_launches = dict(_build.LAUNCHES)
+        test_launches = _kernel_launches()
         shapes["test_rows"] = cocoop_chunk_rows(tested.cfg.DATALOADER.TEST.BATCH_SIZE,
                                                 tested.num_classes)
         new_classes, new_tests = tested.num_classes, tested.timings["tests"]
@@ -3148,7 +3199,7 @@ def drive_trainer_cocoop() -> dict:
             data, out_dir / "window", "base",
             opts=("TRAIN.STEPS_PER_DISPATCH", str(COCOOP_WINDOW_K), "TEST.NO_TEST", "True")),
             probe)
-        w_launches = dict(_build.LAUNCHES)
+        w_launches = _kernel_launches()
     finally:
         os.environ.pop("MVLPT_TPU_RANDOM_CLIP", None)
 
@@ -3228,7 +3279,7 @@ def drive_trainer_cocoop() -> dict:
     (_, traced_m), trace, trace_tries = _traced_replay(lambda: step(
         probe.state, wtrainer.backbone, wtrainer.consts,
         {name: t[:COCOOP_TRACE_K] for name, t in probe.kept.items()}), probe.state, want_marks)
-    called = {name: n for name, n in _build.LAUNCHES.items() if n}
+    called = {name: n for name, n in _kernel_launches().items() if n}
     marked = _marked(trace)
     if called or marked != want_marks or step.captures != 1:
         raise AssertionError(f"{wpath}: the traced replay called the wrappers {called} and "
@@ -3397,7 +3448,7 @@ def cocoop_step_memory(n_cls: int, chunk_remat: bool | None = None) -> dict:
         state, metrics = make_train_step(model)(state, backbone, consts, batch)
         torch.cuda.synchronize()
         step_ms = 1e3 * (time.perf_counter() - t0)
-        launches = dict(_build.LAUNCHES)
+        launches = _kernel_launches()
     finally:
         custom_clip.COCOOP_REMAT_ROWS = rule
     return dict(n_cls=n_cls, rows=32 * n_cls, chunk=custom_clip._auto_chunk(32, n_cls),
@@ -3608,7 +3659,7 @@ def drive_lpclip() -> dict:
             with _Timed(pipeline, "dump_split_features") as dumps, _BatchTimes() as batches:
                 lpclip.cli(argv)
             wall = time.perf_counter() - t0
-            _launches_of(f"{path} {name}", dict(_build.LAUNCHES), (), 0)
+            _launches_of(f"{path} {name}", _kernel_launches(), (), 0)
             peak = _peak_gib()
             counts = _split_counts(feat_dir, RN50_SD["embed"])
             if counts != {"train": CLI_CLASSES * CLI_SHOTS, "val": CLI_CLASSES * CLI_VAL,
@@ -3800,7 +3851,7 @@ def drive_lpclip_native(lp: dict) -> dict:
     finally:
         pipeline.dump_split_features = dump
         os.environ.pop("MVLPT_TPU_RANDOM_CLIP", None)
-    _launches_of(path, dict(_build.LAUNCHES), (), 0)
+    _launches_of(path, _kernel_launches(), (), 0)
     splits = ("train", "val", "test")
     counts = _split_counts(feat_dir, RN50_SD["embed"])
     for split in splits:
@@ -3877,7 +3928,7 @@ def drive_extract_features() -> dict:
         if shapes != {row}:
             raise AssertionError(f"{path}: the run's blocks (B, S, W, H) {shapes} are not its "
                                  f"check row's {row}")
-        launches = _launches_of(path, dict(_build.LAUNCHES), ("attn_fwd_infer", "mlp_fwd_infer"),
+        launches = _launches_of(path, _kernel_launches(), ("attn_fwd_infer", "mlp_fwd_infer"),
                                 12 * batches)
         with np.load(out_dir / "text.npz", allow_pickle=True) as z:
             tf, names = z["text_features"], list(z["classnames"])
@@ -4000,7 +4051,7 @@ def drive_zoo_extract(rows: dict) -> dict:
         with _Timed(zoo, "get_model") as load, _Timed(pipeline, "dump_split_features") as dumps, \
                 _BatchTimes() as batches:
             extract_features.cli(argv)
-        _launches_of(f"{path} {name}", dict(_build.LAUNCHES), (), 0)
+        _launches_of(f"{path} {name}", _kernel_launches(), (), 0)
         peak = _peak_gib()
         counts = _split_counts(out_dir, dim)
         if counts != rows:
@@ -4095,7 +4146,7 @@ def drive_interpret_prompt() -> dict:
         t0 = time.perf_counter()
         rows = interpret_prompt.cli([str(ckpt), str(INTERPRET_TOPK)])
         wall = time.perf_counter() - t0
-        _launches_of(path, dict(_build.LAUNCHES), (), 0)
+        _launches_of(path, _kernel_launches(), (), 0)
         cfg = get_cfg_default()
         cfg.MODEL.BACKBONE.NAME = "ViT-B/16"
         emb = load_clip_backbone(cfg, torch.float32, "cuda")[0]["text"]["token_embedding"]
@@ -4243,7 +4294,7 @@ def drive_trainer_adamw_dropout(sgd_window: dict | None) -> dict:
                                    *DROPOUT_OPTS, "OPTIM.MAX_EPOCH", "2"], probe)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        launches = dict(_build.LAUNCHES)
+        launches = _kernel_launches()
     finally:
         os.environ.pop("MVLPT_TPU_RANDOM_CLIP", None)
 
@@ -4431,7 +4482,7 @@ def drive_debug_nans() -> dict:
         _, metrics = trainer.train_step(trainer.state, trainer.backbone, trainer.consts, batch)
         loss = metrics["loss"].item()
         step_s = time.perf_counter() - t0
-        launches = dict(_build.LAUNCHES)
+        launches = _kernel_launches()
         if not math.isfinite(loss) or trainer.state.step != 1:
             raise AssertionError(f"{path}: the clean step's loss {loss}, step {trainer.state.step}")
     finally:
@@ -4495,7 +4546,7 @@ def drive_post_run() -> dict:
                                  "--model-dir", str(out_dir / "avg"), *CLI_OPTS])
         torch.cuda.synchronize()
         eval_s = time.perf_counter() - t1
-        launches = dict(_build.LAUNCHES)
+        launches = _kernel_launches()
     finally:
         os.environ.pop("MVLPT_TPU_RANDOM_CLIP", None)
     if not launches.get("attn_fwd_infer"):
@@ -4559,7 +4610,7 @@ def drive_finetune_cli() -> dict:
         trainer, _ = _cli_run([*common, "--output-dir", str(out_dir / "train"), *FT_OPTS])
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        launches = {k: v for k, v in _kernel_launches().items() if v}
         peak = _peak_gib()
         logits = _test_logits(trainer)
         # the first step's bf16 loss against fp32 on the same batch and weights
@@ -4705,7 +4756,6 @@ def drive_bf16_drift() -> dict:
     import torch
 
     from mvlpt_torch.core.clip import CLIPConfig, init_clip_params
-    from mvlpt_torch.ops import _build
 
     drift = _script("torch_port_bf16_drift_train")
     card = card_line()
@@ -4717,7 +4767,7 @@ def drive_bf16_drift() -> dict:
     per_step = clip_cfg.vision_layers + clip_cfg.transformer_layers
     legs = out["legs"]
     b, d = legs["B prod-windowed s0"], legs["D bf16-plain-window s0"]
-    got = {name: out["launches_B"].get(name, 0) for name in _build.LAUNCHES}
+    got = {name: out["launches_B"].get(name, 0) for name in _kernel_launches()}
     # The window's first step runs eagerly as the warm-up, its second is
     # captured; the rest are replays of that graph.
     launches = _launches_of("bf16_drift[B]", got, TRAIN_KERNELS["auto"], 2 * per_step)
@@ -4796,7 +4846,7 @@ def drive_soak() -> dict:
         res = soak.run(SOAK_ARGV, device="cuda", workdir=str(work))
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
+    launches = _kernel_launches()
     trainer = res["trainer"]
     timings = _cli_timings(trainer)
     used = {k for k, v in launches.items() if v}
@@ -4922,9 +4972,9 @@ def _mesh_cli_rank(rank: int, world: int, workdir: str, ports: list) -> None:
             probed.steps = []
 
             def tested(self, split=None):
-                before = dict(_build.LAUNCHES)
+                before = _kernel_launches()
                 result = test(self, split)
-                after = dict(_build.LAUNCHES)
+                after = _kernel_launches()
                 tests.append({k: after.get(k, 0) - before.get(k, 0) for k in after})
                 end.update(after)
                 if split in (None, "test"):
@@ -5334,6 +5384,10 @@ def half_block_shapes() -> tuple[dict, dict]:
         # The attention half-blocks at S = 1024 (causal), four windows of
         # the bf16 cores' keys (or queries).
         "s1024": (2, 1024, 768, 12, causal_mask(1024, device="cuda"), 1024, 2, attn_only),
+        # Each side of the bf16 attention core's switch (block.RESIDENT_KEYS):
+        # the one-pass core's longest row, and the windowed core's shortest.
+        "s256": (2, 256, 768, 12, causal_mask(256, device="cuda"), 256, 2, attn_only),
+        "s257": (2, 257, 768, 12, causal_mask(257, device="cuda"), 257, 2, attn_only),
         # The ELEVATER-20 text tower of trainer_elevater (1151 classes,
         # CoOp ctx 16): its s, G and packed rows, causal within each class.
         "text_elevater": (rows_e, g_e * s_e, 512, 8, mask_e, s_e, n_e, every),
@@ -5370,7 +5424,13 @@ def half_block_shapes() -> tuple[dict, dict]:
         "text": (rows, g * s, 512, 8, packed_mask, s, 100, TP_KERNELS),
         "vitl336": (4, s_l336, 1024, 16, None, s_l336, 4, ("attn_fwd_tp", "attn_bwd_tp")),
         "s1024": (2, 1024, 768, 12, causal_mask(1024, device="cuda"), 1024, 2,
-                  ("attn_fwd_tp", "attn_bwd_tp"))}
+                  ("attn_fwd_tp", "attn_bwd_tp")),
+        "s256": (2, 256, 768, 12, causal_mask(256, device="cuda"), 256, 2, ("attn_fwd_tp",)),
+        "s257": (2, 257, 768, 12, causal_mask(257, device="cuda"), 257, 2, ("attn_fwd_tp",)),
+        # #7 at the ELEVATER-20 towers' rows: the image tower with 16 VPT
+        # rows (S = 213) and the text tower (s = 70, causal).
+        "image_elevater": (32, s_ei, 768, 12, None, s_ei, 32, ("attn_fwd_tp",)),
+        "text_elevater": (rows_e, g_e * s_e, 512, 8, mask_e, s_e, n_e, ("attn_fwd_tp",))}
     return kernel_shapes, tp_shapes
 
 

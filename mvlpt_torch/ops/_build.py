@@ -51,10 +51,14 @@ _SIGNATURES = {
 # twins are not counted. The no-residual forwards (the eval kernels
 # attn_block_infer / mlp_block_infer of the JAX package) and the
 # tensor-parallel parts (attn_block_tp / mlp_block_tp) count apart from
-# the single-device training kernels.
+# the single-device training kernels. The last two split the attention
+# forwards' launches on the bf16 tensor cores' route by the core they
+# take (ops/block.py, RESIDENT_KEYS): the one-pass core over a row held
+# whole, or the two-pass core over windows of keys.
 LAUNCHES = {name: 0 for name in ("attn_fwd", "attn_fwd_infer", "attn_bwd", "mlp_fwd",
                                  "mlp_fwd_infer", "mlp_bwd", "attend_fwd", "attend_bwd",
-                                 "attn_fwd_tp", "attn_bwd_tp", "mlp_fwd_tp", "mlp_bwd_tp")}
+                                 "attn_fwd_tp", "attn_bwd_tp", "mlp_fwd_tp", "mlp_bwd_tp",
+                                 "attn_core_resident", "attn_core_windowed")}
 
 
 def reset_launch_counts() -> None:

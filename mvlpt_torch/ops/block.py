@@ -55,8 +55,8 @@ MLP_ROUTES = {torch.bfloat16: "tensor cores (wgmma + TMA, bf16)",
 # The routes of the attention half-block forwards (attn_fwd, its no-grad
 # form, attn_fwd_part), by dtype: in bf16 the qkv and out-projection
 # products on csrc/wgmma.cuh's GEMM and the attention core on mma.sync
-# (csrc/attn_fwd.cu, attn_core_tc); in fp32 csrc/common.cuh's GEMM and
-# csrc/fma_attn.cuh's core.
+# (csrc/attn_fwd.cu: attn_core_res up to RESIDENT_KEYS keys, attn_core_tc
+# past them); in fp32 csrc/common.cuh's GEMM and csrc/fma_attn.cuh's core.
 ATTN_FWD_ROUTES = {torch.bfloat16: "tensor cores (wgmma + TMA products, mma.sync core, bf16)",
                    torch.float32: "CUDA cores (fp32 FMA)"}
 # The routes of the attention half-block backwards (attn_bwd,
@@ -72,6 +72,11 @@ ATTN_BWD_ROUTES = {torch.bfloat16: "tensor cores (wgmma + TMA products, mma.sync
 _WG_MULTIPLE = 64
 # The head width of the bf16 attention core's fragments.
 _TC_HEAD = 64
+# The bf16 attention core's route by the row's keys (csrc/attn_fwd.cu's
+# launch_core, whose res::MAX_KEYS is the same number): up to this many
+# the one-pass core over a row held whole on the chip, past it the
+# two-pass core over windows of keys. _count_core counts each launch's.
+RESIDENT_KEYS = 256
 # bf16 at the shapes the tensor cores' routes above do not take (W, Wl or
 # 4W off the multiples of 64, a head width other than 64) runs on the CUDA
 # cores as fp32 does: the same GEMM and attention cores on bf16 operands,
@@ -373,6 +378,13 @@ def _check_attn_route(name, x, wl, n_heads, operands):
         raise ValueError(f"{name}: the bf16 tensor-core route needs 16-byte-aligned tensors")
 
 
+def _count_core(code, s):
+    """Counts the attention core's route (RESIDENT_KEYS) of a forward
+    launched on the bf16 tensor cores' route (dtype code 1)."""
+    if code == 1:
+        _build.LAUNCHES["attn_core_resident" if s <= RESIDENT_KEYS else "attn_core_windowed"] += 1
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -423,6 +435,7 @@ def attn_fwd(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b, mask, n_heads,
                     _ptr(xh), _ptr(qkv), _ptr(o), _ptr(probs), _ptr(mu), _ptr(rstd), _ptr(y),
                     b, s, w, n_heads, eps, _stream())
         _build.LAUNCHES["attn_fwd" if save_residuals else "attn_fwd_infer"] += 1
+        _count_core(code, s)
         return y, ((qkv, probs, mu, rstd) if save_residuals else None)
 
 
@@ -525,6 +538,7 @@ def attn_fwd_part(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, mask, n_heads, eps=
                     _ptr(o), _ptr(probs), _ptr(mu), _ptr(rstd), _ptr(ypart), b, s, w, n_heads,
                     wl // n_heads, eps, _stream())
         _build.LAUNCHES["attn_fwd_tp"] += 1
+        _count_core(code, s)
         return ypart, (qkv, probs, mu, rstd)
 
 

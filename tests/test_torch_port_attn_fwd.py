@@ -6,10 +6,13 @@ width (D = 64) at a ragged length (S = 17) and at the ViT-L/14@336px
 image tower's length with 4 VPT rows (S = 581), with and without a
 causal mask. Also ``select_attn_fn``'s reading of ``TPU.USE_PALLAS``
 against the reference's, value by value; the bf16 route's checks
-(``ATTN_FWD_ROUTES``, ``_check_attn_route``); and, at D = 64, the
-identity the bf16 core relies on: the half-block twin's scores T(q D^-1/2)
+(``ATTN_FWD_ROUTES``, ``_check_attn_route``) and its core's route by S
+(``RESIDENT_KEYS``, counted in ``LAUNCHES``); and, at D = 64, the
+identities the bf16 cores rely on: the half-block twin's scores T(q D^-1/2)
 k^T + mask equal the standalone convention's fl(q k^T D^-1/2) + mask bit
-for bit."""
+for bit, and the one-pass core's softmax (exact row max, one exponential
+a score, an fp32 sum, the IEEE divide, one rounding) gives the twin's
+probabilities within one bf16 ulp."""
 
 import functools
 
@@ -265,3 +268,73 @@ def test_half_block_scores_equal_the_standalone_convention_at_d64(kind):
     assert torch.equal(half_block, standalone)
     _, probs = block._mha_plain(qkv, mask, h)
     assert torch.equal(probs, attention._scores(q, k, mask).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("s, route", [(17, "attn_core_resident"), (70, "attn_core_resident"),
+                                      (126, "attn_core_resident"), (201, "attn_core_resident"),
+                                      (213, "attn_core_resident"), (256, "attn_core_resident"),
+                                      (257, "attn_core_windowed"), (581, "attn_core_windowed")])
+@pytest.mark.parametrize("entry", ["attn_fwd", "attn_fwd_infer", "attn_fwd_tp"])
+def test_attn_fwd_core_route_counts_by_s(entry, s, route, monkeypatch):
+    """On the bf16 tensor cores' route each attention forward launch
+    counts the core it takes by the row's keys, as csrc/attn_fwd.cu's
+    launch_core picks it: the one-pass core up to RESIDENT_KEYS (256),
+    the windowed core past it. Each call bumps exactly one route counter,
+    beside its own wrapper's count. (Meta tensors, as above.)"""
+    monkeypatch.setattr(block, "_dims", lambda name, x: x.shape)
+    monkeypatch.setattr(block._build, "LAUNCHES", dict.fromkeys(block._build.LAUNCHES, 0))
+    monkeypatch.setattr(block, "_stream", lambda: None)
+    calls = []
+    monkeypatch.setattr(block._build, "call", lambda name, code, *args: calls.append((name, code)))
+    assert block.RESIDENT_KEYS == 256
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.bfloat16, device="meta")
+
+    w, h = 256, 4  # D = 64 (the part: 2 heads of 64 on 128 columns)
+    x = z(2, s, w)
+    for _ in range(2):
+        if entry == "attn_fwd_tp":
+            block.attn_fwd_part(x, z(w), z(w), z(w, 3 * w // 2), z(3 * w // 2), z(w // 2, w),
+                                None, h // 2)
+        else:
+            block.attn_fwd(x, z(w), z(w), z(w, 3 * w), z(3 * w), z(w, w), z(w), None, h,
+                           save_residuals=entry == "attn_fwd")
+    assert calls == [(entry.removesuffix("_infer").replace("_tp", "_part"), 1)] * 2
+    want = dict.fromkeys(block._build.LAUNCHES, 0)
+    want.update({entry: 2, route: 2})
+    assert block._build.LAUNCHES == want
+
+
+def _one_pass_probs(qkv, mask, h):
+    """The one-pass core's probabilities (csrc/attn_fwd.cu, res), written
+    out in fp32: s = fl(q k^T / 8) + mask, the row's exact max, exp(s -
+    max), the fp32 sum of a row, the IEEE divide, one rounding to bf16."""
+    b, s, wl3 = qkv.shape
+    q, k, _ = qkv.view(b, s, 3, h, wl3 // 3 // h).permute(2, 0, 3, 1, 4)
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * 0.125
+    if mask is not None:
+        scores = scores + mask
+    e = torch.exp(scores - scores.amax(-1, keepdim=True))
+    return (e / e.sum(-1, keepdim=True, dtype=torch.float32)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("kind", ["none", "causal"])
+@pytest.mark.parametrize("s", [17, 201])
+def test_one_pass_softmax_within_one_ulp_of_the_twin(s, kind):
+    """The one-pass core's contract against the half-block twin
+    (ops/block._mha_plain) on seeded bf16 qkv: every probability within
+    one bf16 ulp (probabilities are not negative, so neighbouring bf16
+    values are neighbouring bit patterns). The twin's torch.softmax sums
+    in its own order, so the two need not agree bit for bit."""
+    b, h, d = 2, 3, 64
+    rng = np.random.RandomState(23 + s)
+    qkv = torch.from_numpy(rng.randn(b, s, 3 * h * d).astype(np.float32)).to(torch.bfloat16)
+    mask = layers.causal_mask(s) if kind == "causal" else None
+    _, twin = block._mha_plain(qkv, mask, h)
+    got = _one_pass_probs(qkv, mask, h)
+    bits = (got.view(torch.int16).int() - twin.view(torch.int16).int()).abs()
+    assert (got >= 0).all() and (twin >= 0).all()
+    assert bits.max().item() <= 1
+    if kind == "causal":
+        assert (got[..., torch.triu(torch.ones(s, s, dtype=torch.bool), 1)] == 0).all()

@@ -177,7 +177,8 @@ def test_kernel_selection_and_cpu_launch_counts():
     assert _build.LAUNCHES == {"attn_fwd": 0, "attn_fwd_infer": 0, "attn_bwd": 0, "mlp_fwd": 0,
                                "mlp_fwd_infer": 0, "mlp_bwd": 0, "attend_fwd": 0,
                                "attend_bwd": 0, "attn_fwd_tp": 0, "attn_bwd_tp": 0,
-                               "mlp_fwd_tp": 0, "mlp_bwd_tp": 0}
+                               "mlp_fwd_tp": 0, "mlp_bwd_tp": 0, "attn_core_resident": 0,
+                               "attn_core_windowed": 0}
 
 
 # --------------------------------------------------- MLP forwards in bf16

@@ -182,12 +182,15 @@ _MLP_CLEAN = [(_WG.format(4, 256, 0), 0, 168), (_WG.format(3, 128, 0), 0, 168),
 _BWD_CLEAN = [(_WG.format(5, 256, 1), 0, 168), (_WG.format(1, 128, 1), 0, 168),
               ("gemm_kernelIfLb1ELi5EEEvPKT_S3_iiiNS_7EpiArgsE", 0, 80)]
 _FWD_TC, _BWD_TC = [("attend_fwd_tcILi26EEEv", 0, 230)], [("attend_bwd_dq_tcILi26EEEv", 0, 127)]
-# attn_fwd.cu: the mma.sync core attn_core_tc<PROBS> and the wgmma GEMM of
-# its two products (EPI_BIAS, EPI_BIAS_RESID), beside the fp32 route.
+# attn_fwd.cu: the mma.sync cores, windowed attn_core_tc<PROBS> and one-pass
+# attn_core_res<NT, PROBS>, and the wgmma GEMM of its two products
+# (EPI_BIAS, EPI_BIAS_RESID), beside the fp32 route.
 _CORE = "4core12attn_core_tcILb{}EEEvPK13__nv_bfloat16PKfPS2_S7_iiii"
+_RES = "3res13attn_core_resILi{}ELb{}EEEv14CUtensorMap_stPK13__nv_bfloat16PKfPS4_S9_iii"
 _ATTN_CLEAN = [(_CORE.format(0), 0, 125), (_CORE.format(1), 0, 128),
                (_WG.format(2, 256, 0), 0, 168), (_WG.format(3, 128, 0), 0, 168),
-               ("gemm_kernelIfLb0ELi2EEEvPKT_S3_iiiNS_7EpiArgsE", 0, 80)]
+               ("gemm_kernelIfLb0ELi2EEEvPKT_S3_iiiNS_7EpiArgsE", 0, 80),
+               (_RES.format(26, 0), 0, 154), (_RES.format(26, 1), 0, 168)]
 # attn_bwd.cu: the two mma.sync core launches and the wgmma GEMM of its two
 # products (EPI_ROUND, EPI_F32; B K-major), beside the fp32 route's core.
 _DQ = "2tc14attn_bwd_dq_tcEPK13__nv_bfloat16S3_S3_PfPS1_iiii"
@@ -222,7 +225,12 @@ _ATTNB_CLEAN = [(_DQ, 0, 136), (_DKV, 0, 157), (_WG.format(0, 128, 1), 0, 168),
     (_FWD_TC, _BWD_TC, _MLP_CLEAN, _BWD_CLEAN, _ATTN_CLEAN[:2] + _ATTN_CLEAN[4:],
      "no tensor-core kernel in attn_fwd.cu's build log matches wgmma_gemm_kernel", _ATTNB_CLEAN),
     (_FWD_TC, _BWD_TC, _MLP_CLEAN, _BWD_CLEAN,
-     _ATTN_CLEAN[:2] + [(_WG.format(2, 256, 0), 0, 160)], "below 168 registers", _ATTNB_CLEAN),
+     _ATTN_CLEAN[:2] + [(_WG.format(2, 256, 0), 0, 160)] + _ATTN_CLEAN[5:], "below 168 registers",
+     _ATTNB_CLEAN),
+    (_FWD_TC, _BWD_TC, _MLP_CLEAN, _BWD_CLEAN,
+     _ATTN_CLEAN[:6] + [(_RES.format(26, 1), 16, 168)], "spill", _ATTNB_CLEAN),
+    (_FWD_TC, _BWD_TC, _MLP_CLEAN, _BWD_CLEAN, _ATTN_CLEAN[:5],
+     "no tensor-core kernel in attn_fwd.cu's build log matches attn_core_res", _ATTNB_CLEAN),
     (_FWD_TC, _BWD_TC, _MLP_CLEAN, _BWD_CLEAN, _ATTN_CLEAN, "spill",
      [(_DQ, 0, 136), (_DKV, 24, 168)] + _ATTNB_CLEAN[2:]),
     (_FWD_TC, _BWD_TC, _MLP_CLEAN, _BWD_CLEAN, _ATTN_CLEAN,
@@ -232,13 +240,14 @@ _ATTNB_CLEAN = [(_DQ, 0, 136), (_DKV, 0, 157), (_WG.format(0, 128, 1), 0, 168),
      _ATTNB_CLEAN[:2] + _ATTNB_CLEAN[4:]),
 ], ids=["clean", "spill", "no-tc-kernel", "wgmma-spill", "no-wgmma-kernel", "wgmma-short",
         "kmajor-spill", "no-kmajor-kernel", "attn-core-spill", "no-attn-core",
-        "no-attn-wgmma", "attn-wgmma-short", "attn-bwd-core-spill", "no-attn-bwd-core",
-        "no-attn-bwd-wgmma"])
+        "no-attn-wgmma", "attn-wgmma-short", "attn-res-spill", "no-attn-res",
+        "attn-bwd-core-spill", "no-attn-bwd-core", "no-attn-bwd-wgmma"])
 def test_chip_smoke_spill_check_reads_each_attention_kernel(fwd, bwd, mlp, mlp_bwd, attn, error,
                                                             attn_bwd, capsys):
     """The spill check reads the tensor-core kernels of each source: the
-    standalone attention's, the attention half-blocks' mma.sync cores and
-    wgmma GEMMs (forward and backward), and the wgmma GEMM's of mlp_fwd and
+    standalone attention's, the attention half-blocks' mma.sync cores (the
+    forward's windowed and one-pass ones) and wgmma GEMMs (forward and
+    backward), and the wgmma GEMM's of mlp_fwd and
     mlp_bwd (B read K-major in the backwards); each wgmma GEMM must also
     hold the registers setmaxnreg's split needs, and a source must name a
     kernel of each of its patterns."""
@@ -257,6 +266,8 @@ def test_chip_smoke_spill_check_reads_each_attention_kernel(fwd, bwd, mlp, mlp_b
         out = capsys.readouterr().out
         assert "attend_fwd_tc<NT=26>: 230 registers, 0 bytes of spills" in out
         assert "attn_fwd attn_core_tc<PROBS=1>: 128 registers, 0 bytes of spills" in out
+        assert "attn_fwd attn_core_res<NT=26,PROBS=1>: 168 registers, 0 bytes of spills" in out
+        assert "attn_fwd attn_core_res<NT=26,PROBS=0>: 154 registers, 0 bytes of spills" in out
         assert ("attn_fwd wgmma_gemm_kernel<EPI=2,BN=256,KMAJOR=0>: 168 registers, 0 bytes of "
                 "spills") in out
         assert ("mlp_fwd wgmma_gemm_kernel<EPI=4,BN=256,KMAJOR=0>: 168 registers, 0 bytes of "
