@@ -47,6 +47,7 @@
 #include "common.cuh"
 #include "fma_attn.cuh"
 #include "mma.cuh"
+#include "stamp.cuh"
 #include "wgmma.cuh"
 
 using namespace mvlpt;
@@ -603,21 +604,26 @@ int launch(const void* qkv, const void* probs, const void* dout, float* ds, void
 // scratch: the tensor cores' route's (B, H, S) fp32 t, or the CUDA
 // cores' (B, H, S, S) fp32 ds. part: stop at the fp32 dxh (no LayerNorm
 // backward, x/mu/rstd unused). tensor_cores: that route (bf16 only).
+// marks: stamped right before and after the core, its dq and dkv kernels
+// (a null table: none).
 template <typename T, bool tensor_cores = std::is_same_v<T, __nv_bfloat16>>
 int attn_bwd_impl(const void* x, const float* mu, const float* rstd, const void* qkv,
                   const void* probs, const void* ln_scale, const void* qkv_w, const void* out_w,
                   const void* gy, void* dout, void* scratch, void* dqkv, float* dxh, void* dx,
-                  int B, int S, int W, int H, int D, bool part, cudaStream_t st) {
+                  int B, int S, int W, int H, int D, bool part, const Marks& marks,
+                  cudaStream_t st) {
   if (tensor_cores && D != mma::D) return (int)cudaErrorInvalidValue;  // the wrappers route first
   const int M = B * S, Wl = H * D;
   // do[m, i] = sum_n gy[m, n] Wout[i, n]: Wout is (Wl, W), read K-major.
   MVLPT_TRY((wg::gemm<T, EPI_ROUND, true, tensor_cores>(
       gy, out_w, M, Wl, W, EpiArgs{nullptr, nullptr, nullptr, dout, nullptr}, st)));
+  MVLPT_TRY(mark(marks, 0, st));
   const int rc =
       tensor_cores ? tc::launch(qkv, probs, dout, (float*)scratch, dqkv, B, S, H, Wl, st)
                    : cuda_cores::launch<T>(qkv, probs, dout, (float*)scratch, dqkv, B, S, H, D,
                                            st);
   if (rc != 0) return rc;
+  MVLPT_TRY(mark(marks, 1, st));
   // dxh[m, n] = sum_k dqkv[m, k] Wqkv[n, k]: Wqkv is (W, 3Wl), read K-major.
   MVLPT_TRY((wg::gemm<T, EPI_F32, true, tensor_cores>(
       dqkv, qkv_w, M, W, 3 * Wl, EpiArgs{nullptr, nullptr, nullptr, dxh, nullptr}, st)));
@@ -631,26 +637,30 @@ int attn_bwd_impl(const void* x, const float* mu, const float* rstd, const void*
 // 2 = bfloat16 (CUDA cores, any D). dout (M, W) and dqkv (M, 3W) in the
 // dtype, and dxh (M, W, fp32), are caller-allocated scratch, and so is
 // scratch: (B, H, S) fp32 on the tensor cores, (B, H, S, S) fp32 on the
-// CUDA cores.
+// CUDA cores. mark_*: the core's marks (stamp.cuh's Marks; a null
+// mark_table: none).
 extern "C" int mvlpt_attn_bwd(int dtype, const void* x, const void* mu, const void* rstd,
                               const void* qkv, const void* probs, const void* ln_scale,
                               const void* qkv_w, const void* out_w, const void* gy, void* dout,
                               void* scratch, void* dqkv, void* dxh, void* dx, int B, int S,
-                              int W, int H, void* stream) {
+                              int W, int H, void* mark_table, const void* mark_row,
+                              int mark_width, int mark_col, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int D = W / H;
+  const Marks marks{(long long*)mark_table, (const long long*)mark_row, mark_width, mark_col};
   if (dtype == 0)
     return attn_bwd_impl<float>(x, (const float*)mu, (const float*)rstd, qkv, probs, ln_scale,
                                 qkv_w, out_w, gy, dout, scratch, dqkv, (float*)dxh, dx, B, S, W,
-                                H, D, false, st);
+                                H, D, false, marks, st);
   if (dtype == 1)
     return attn_bwd_impl<__nv_bfloat16>(x, (const float*)mu, (const float*)rstd, qkv, probs,
                                         ln_scale, qkv_w, out_w, gy, dout, scratch, dqkv,
-                                        (float*)dxh, dx, B, S, W, H, D, false, st);
+                                        (float*)dxh, dx, B, S, W, H, D, false, marks, st);
   if (dtype == 2)
     return attn_bwd_impl<__nv_bfloat16, false>(x, (const float*)mu, (const float*)rstd, qkv,
                                                probs, ln_scale, qkv_w, out_w, gy, dout, scratch,
-                                               dqkv, (float*)dxh, dx, B, S, W, H, D, false, st);
+                                               dqkv, (float*)dxh, dx, B, S, W, H, D, false, marks,
+                                               st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -661,19 +671,23 @@ extern "C" int mvlpt_attn_bwd(int dtype, const void* x, const void* mu, const vo
 extern "C" int mvlpt_attn_bwd_part(int dtype, const void* qkv, const void* probs,
                                    const void* qkv_w, const void* out_w, const void* gy,
                                    void* dout, void* scratch, void* dqkv, void* dxh, int B, int S,
-                                   int W, int H, int D, void* stream) {
+                                   int W, int H, int D, void* mark_table,
+                                   const void* mark_row, int mark_width, int mark_col,
+                                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const Marks marks{(long long*)mark_table, (const long long*)mark_row, mark_width, mark_col};
   if (dtype == 0)
     return attn_bwd_impl<float>(nullptr, nullptr, nullptr, qkv, probs, nullptr, qkv_w, out_w, gy,
                                 dout, scratch, dqkv, (float*)dxh, nullptr, B, S, W, H, D, true,
-                                st);
+                                marks, st);
   if (dtype == 1)
     return attn_bwd_impl<__nv_bfloat16>(nullptr, nullptr, nullptr, qkv, probs, nullptr, qkv_w,
                                         out_w, gy, dout, scratch, dqkv, (float*)dxh, nullptr, B,
-                                        S, W, H, D, true, st);
+                                        S, W, H, D, true, marks, st);
   if (dtype == 2)
     return attn_bwd_impl<__nv_bfloat16, false>(nullptr, nullptr, nullptr, qkv, probs, nullptr,
                                                qkv_w, out_w, gy, dout, scratch, dqkv,
-                                               (float*)dxh, nullptr, B, S, W, H, D, true, st);
+                                               (float*)dxh, nullptr, B, S, W, H, D, true, marks,
+                                               st);
   return (int)cudaErrorInvalidValue;
 }

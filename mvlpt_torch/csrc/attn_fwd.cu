@@ -47,6 +47,7 @@
 #include "common.cuh"
 #include "fma_attn.cuh"
 #include "mma.cuh"
+#include "stamp.cuh"
 #include "wgmma.cuh"
 
 using namespace mvlpt;
@@ -702,18 +703,21 @@ int launch_core(const void* qkv, const float* mask, void* o, void* probs, int B,
 // H heads of D each (Wl = H D, the qkv width 3 Wl); the LN and the output
 // are over the model width W. part: fp32 partial out-projection into y,
 // without out_b or the residual. probs, mu and rstd may be null.
-// tc: the tensor cores' route (bf16 only); else the CUDA cores'.
+// tc: the tensor cores' route (bf16 only); else the CUDA cores'. marks:
+// stamped right before and after the attention core (a null table: none).
 template <typename T, bool tc = std::is_same_v<T, __nv_bfloat16>>
 int attn_fwd_impl(const void* x, const void* ln_scale, const void* ln_bias, const void* qkv_w,
                   const void* qkv_b, const void* out_w, const void* out_b, const float* mask,
                   void* xh, void* qkv, void* o, void* probs, float* mu, float* rstd, void* y,
-                  int B, int S, int W, int H, int D, float eps, bool part, cudaStream_t st) {
+                  int B, int S, int W, int H, int D, float eps, bool part, const Marks& marks,
+                  cudaStream_t st) {
   if (tc && D != mma::D) return (int)cudaErrorInvalidValue;  // the wrappers route first
   const int M = B * S, Wl = H * D;
   MVLPT_TRY(launch_ln_fwd<T>(x, ln_scale, ln_bias, xh, mu, rstd, M, W, eps, st));
   MVLPT_TRY((wg::gemm<T, EPI_BIAS, false, tc>(xh, qkv_w, M, 3 * Wl, W,
                                               EpiArgs{qkv_b, nullptr, nullptr, qkv, nullptr},
                                               st)));
+  MVLPT_TRY(mark(marks, 0, st));
   int rc;
   if constexpr (tc) {
     rc = probs != nullptr ? launch_core<true>(qkv, mask, o, probs, B, S, H, Wl, st)
@@ -725,6 +729,7 @@ int attn_fwd_impl(const void* x, const void* ln_scale, const void* ln_bias, cons
                                           (float)pow((double)D, -0.5), true, st);
   }
   if (rc != 0) return rc;
+  MVLPT_TRY(mark(marks, 1, st));
   if (part)
     MVLPT_TRY((wg::gemm<T, EPI_F32, false, tc>(o, out_w, M, W, Wl,
                                                EpiArgs{nullptr, nullptr, nullptr, y, nullptr},
@@ -740,26 +745,29 @@ int attn_fwd_impl(const void* x, const void* ln_scale, const void* ln_bias, cons
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores, D = 64),
 // 2 = bfloat16 (CUDA cores, any D). probs, mu and rstd may be null (no-residual mode); xh, qkv and o are
-// caller-allocated scratch.
+// caller-allocated scratch. mark_*: the core's marks (stamp.cuh's Marks;
+// a null mark_table: none).
 extern "C" int mvlpt_attn_fwd(int dtype, const void* x, const void* ln_scale, const void* ln_bias,
                               const void* qkv_w, const void* qkv_b, const void* out_w,
                               const void* out_b, const void* mask, void* xh, void* qkv, void* o,
                               void* probs, void* mu, void* rstd, void* y, int B, int S, int W,
-                              int H, float eps, void* stream) {
+                              int H, float eps, void* mark_table, const void* mark_row,
+                              int mark_width, int mark_col, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int D = W / H;
+  const Marks marks{(long long*)mark_table, (const long long*)mark_row, mark_width, mark_col};
   if (dtype == 0)
     return attn_fwd_impl<float>(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b,
                                 (const float*)mask, xh, qkv, o, probs, (float*)mu, (float*)rstd,
-                                y, B, S, W, H, D, eps, false, st);
+                                y, B, S, W, H, D, eps, false, marks, st);
   if (dtype == 1)
     return attn_fwd_impl<__nv_bfloat16>(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b,
                                (const float*)mask, xh, qkv, o, probs, (float*)mu, (float*)rstd, y,
-                               B, S, W, H, D, eps, false, st);
+                               B, S, W, H, D, eps, false, marks, st);
   if (dtype == 2)
     return attn_fwd_impl<__nv_bfloat16, false>(
         x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b, (const float*)mask, xh, qkv, o, probs,
-        (float*)mu, (float*)rstd, y, B, S, W, H, D, eps, false, st);
+        (float*)mu, (float*)rstd, y, B, S, W, H, D, eps, false, marks, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -771,19 +779,22 @@ extern "C" int mvlpt_attn_fwd_part(int dtype, const void* x, const void* ln_scal
                                    const void* ln_bias, const void* qkv_w, const void* qkv_b,
                                    const void* out_w, const void* mask, void* xh, void* qkv,
                                    void* o, void* probs, void* mu, void* rstd, void* ypart, int B,
-                                   int S, int W, int H, int D, float eps, void* stream) {
+                                   int S, int W, int H, int D, float eps, void* mark_table,
+                                   const void* mark_row, int mark_width, int mark_col,
+                                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const Marks marks{(long long*)mark_table, (const long long*)mark_row, mark_width, mark_col};
   if (dtype == 0)
     return attn_fwd_impl<float>(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, nullptr,
                                 (const float*)mask, xh, qkv, o, probs, (float*)mu, (float*)rstd,
-                                ypart, B, S, W, H, D, eps, true, st);
+                                ypart, B, S, W, H, D, eps, true, marks, st);
   if (dtype == 1)
     return attn_fwd_impl<__nv_bfloat16>(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, nullptr,
                                (const float*)mask, xh, qkv, o, probs, (float*)mu, (float*)rstd,
-                               ypart, B, S, W, H, D, eps, true, st);
+                               ypart, B, S, W, H, D, eps, true, marks, st);
   if (dtype == 2)
     return attn_fwd_impl<__nv_bfloat16, false>(
         x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, nullptr, (const float*)mask, xh, qkv, o, probs,
-        (float*)mu, (float*)rstd, ypart, B, S, W, H, D, eps, true, st);
+        (float*)mu, (float*)rstd, ypart, B, S, W, H, D, eps, true, marks, st);
   return (int)cudaErrorInvalidValue;
 }

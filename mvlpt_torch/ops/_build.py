@@ -26,14 +26,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# The attention entries' core marks (csrc/stamp.cuh's Marks: table, row,
+# width, column), before the stream; utils/profiler.py's core_marks_args.
+_MARKS = [_P, _P, _I, _I]
 # C entry points (see the .cu files): entry name -> (source, C function,
 # argument types). The tensor-parallel parts share their source with the
 # single-device kernels.
 _SIGNATURES = {
-    "attn_fwd": ("attn_fwd", "mvlpt_attn_fwd", [_I] + [_P] * 15 + [_I, _I, _I, _I, _F, _P]),
-    "attn_fwd_part": ("attn_fwd", "mvlpt_attn_fwd_part", [_I] + [_P] * 14 + [_I] * 5 + [_F, _P]),
-    "attn_bwd": ("attn_bwd", "mvlpt_attn_bwd", [_I] + [_P] * 14 + [_I, _I, _I, _I, _P]),
-    "attn_bwd_part": ("attn_bwd", "mvlpt_attn_bwd_part", [_I] + [_P] * 9 + [_I] * 5 + [_P]),
+    "attn_fwd": ("attn_fwd", "mvlpt_attn_fwd",
+                 [_I] + [_P] * 15 + [_I, _I, _I, _I, _F] + _MARKS + [_P]),
+    "attn_fwd_part": ("attn_fwd", "mvlpt_attn_fwd_part",
+                      [_I] + [_P] * 14 + [_I] * 5 + [_F] + _MARKS + [_P]),
+    "attn_bwd": ("attn_bwd", "mvlpt_attn_bwd", [_I] + [_P] * 14 + [_I, _I, _I, _I] + _MARKS + [_P]),
+    "attn_bwd_part": ("attn_bwd", "mvlpt_attn_bwd_part",
+                      [_I] + [_P] * 9 + [_I] * 5 + _MARKS + [_P]),
     "mlp_fwd": ("mlp_fwd", "mvlpt_mlp_fwd", [_I] + [_P] * 13 + [_I, _I, _I, _F, _P]),
     "mlp_fwd_part": ("mlp_fwd", "mvlpt_mlp_fwd_part", [_I] + [_P] * 12 + [_I] * 3 + [_F, _P]),
     "mlp_bwd": ("mlp_bwd", "mvlpt_mlp_bwd", [_I] + [_P] * 11 + [_I, _I, _I, _P]),
@@ -54,11 +60,13 @@ _SIGNATURES = {
 # the single-device training kernels. The last two split the attention
 # forwards' launches on the bf16 tensor cores' route by the core they
 # take (ops/block.py, RESIDENT_KEYS): the one-pass core over a row held
-# whole, or the two-pass core over windows of keys.
+# whole, or the two-pass core over windows of keys. core_marks counts the
+# attention launches (forward or backward) whose launcher stamped its core
+# (utils/profiler.py's core marks).
 LAUNCHES = {name: 0 for name in ("attn_fwd", "attn_fwd_infer", "attn_bwd", "mlp_fwd",
                                  "mlp_fwd_infer", "mlp_bwd", "attend_fwd", "attend_bwd",
                                  "attn_fwd_tp", "attn_bwd_tp", "mlp_fwd_tp", "mlp_bwd_tp",
-                                 "attn_core_resident", "attn_core_windowed")}
+                                 "attn_core_resident", "attn_core_windowed", "core_marks")}
 
 
 def reset_launch_counts() -> None:

@@ -433,7 +433,7 @@ def attn_fwd(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b, mask, n_heads,
         _build.call("attn_fwd", code, _ptr(x), _ptr(ln_scale), _ptr(ln_bias),
                     _ptr(qkv_w), _ptr(qkv_b), _ptr(out_w), _ptr(out_b), _ptr(mask),
                     _ptr(xh), _ptr(qkv), _ptr(o), _ptr(probs), _ptr(mu), _ptr(rstd), _ptr(y),
-                    b, s, w, n_heads, eps, _stream())
+                    b, s, w, n_heads, eps, *profiler.core_marks_args("core.attn_fwd"), _stream())
         _build.LAUNCHES["attn_fwd" if save_residuals else "attn_fwd_infer"] += 1
         _count_core(code, s)
         return y, ((qkv, probs, mu, rstd) if save_residuals else None)
@@ -460,7 +460,7 @@ def attn_bwd(x, mu, rstd, qkv, probs, ln_scale, qkv_w, out_w, gy, n_heads):
         _build.call("attn_bwd", code, _ptr(x), _ptr(mu), _ptr(rstd), _ptr(qkv),
                     _ptr(probs), _ptr(ln_scale), _ptr(qkv_w), _ptr(out_w), _ptr(gy),
                     _ptr(dout), _ptr(core), _ptr(dqkv), _ptr(dxh), _ptr(dx), b, s, w, n_heads,
-                    _stream())
+                    *profiler.core_marks_args("core.attn_bwd"), _stream())
         _build.LAUNCHES["attn_bwd"] += 1
         return dx
 
@@ -536,7 +536,7 @@ def attn_fwd_part(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, mask, n_heads, eps=
         _build.call("attn_fwd_part", code, _ptr(x), _ptr(ln_scale), _ptr(ln_bias),
                     _ptr(qkv_w), _ptr(qkv_b), _ptr(out_w), _ptr(mask), _ptr(xh), _ptr(qkv),
                     _ptr(o), _ptr(probs), _ptr(mu), _ptr(rstd), _ptr(ypart), b, s, w, n_heads,
-                    wl // n_heads, eps, _stream())
+                    wl // n_heads, eps, *profiler.core_marks_args("core.attn_fwd"), _stream())
         _build.LAUNCHES["attn_fwd_tp"] += 1
         _count_core(code, s)
         return ypart, (qkv, probs, mu, rstd)
@@ -560,7 +560,7 @@ def attn_bwd_part(qkv, probs, qkv_w, out_w, gy, n_heads):
         core = _attn_bwd_scratch(gy, b, n_heads, s, code)
         _build.call("attn_bwd_part", code, _ptr(qkv), _ptr(probs), _ptr(qkv_w),
                     _ptr(out_w), _ptr(gy), _ptr(dout), _ptr(core), _ptr(dqkv), _ptr(dxh), b, s, w,
-                    n_heads, wl // n_heads, _stream())
+                    n_heads, wl // n_heads, *profiler.core_marks_args("core.attn_bwd"), _stream())
         _build.LAUNCHES["attn_bwd_tp"] += 1
         return dxh
 

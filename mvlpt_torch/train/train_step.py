@@ -334,13 +334,16 @@ class WindowStep:
 
     def _replayed(self, state, backbone, consts, inputs, text, k: int) -> dict:
         """The window through its graph. A graph is kept for each batch
-        shape and tracing state (``utils.profiler.tracing`` and
-        ``kernel_marks``): turning tracing on captures a step with its
-        spans, which no window with tracing off replays, and the other way
-        round."""
+        shape, captured in one tracing state (``utils.profiler.tracing``,
+        ``kernel_marks`` and ``core_marks``): turning tracing on captures a
+        step with its spans, which no window with tracing off replays, and
+        the other way round. The new graph replaces that of the other state:
+        each holds a step's activations in a pool of its own (about 19 GB
+        at ViT-L/14@336px's shapes, batch 32), which four states would not
+        fit on an 80 GB card beside each other."""
         key = (tuple((name, tuple(t.shape[1:]), t.dtype) for name, t in sorted(inputs.items())),
                None if text is None else tuple(text.shape),
-               (profiler.tracing(), profiler.kernel_marks()))
+               (profiler.tracing(), profiler.kernel_marks(), profiler.core_marks()))
         cap = self._graphs.get(key)
         if cap is not None and cap.serves(state, backbone, consts, k):
             # The samples of the graph's last window, read before it replays again.
@@ -359,7 +362,9 @@ class WindowStep:
                 cause = ("tracing" if any(other[:-1] == key[:-1] for other in self._graphs)
                          else "shape")
             self.capture_causes[cause] += 1
-            self._graphs.pop(key, None)
+            cap = None
+            for other in [o for o in self._graphs if o[:-1] == key[:-1]]:
+                del self._graphs[other]
             with profiler.span("window.capture"):
                 cap = self._graphs[key] = self._capture(state, backbone, consts, inputs, text)
             done = 1

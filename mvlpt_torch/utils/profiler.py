@@ -21,6 +21,11 @@ each step a window replayed. A stamp in a captured step costs its
 replays about 2 us of idle device, as a timing event's record node does;
 the half-blocks' spans (``span(..., kernel=True)``) hold most of a
 step's, so ``enable_tracing(kernels=False)`` leaves them to the host.
+The attention cores' marks are a level of their own, off unless
+``enable_tracing(cores=True)``: a device-only span (``core.attn_fwd``,
+``core.attn_bwd``) whose two stamps the half-block's launcher writes
+right before and after its attention core (``core_marks_args``), so it
+holds the core alone, without the half-block's LayerNorm and products.
 ``spans()`` returns the log with the device times read (after a
 synchronize) and the counters the program already keeps:
 ``ops._build.LAUNCHES`` and the windowed steps' captures (by cause) and
@@ -101,6 +106,7 @@ def check_finite(step: int, what: str, tensors) -> None:
 
 _TRACING = False
 _KERNELS = False               # whether the kernels' spans stamp the device too
+_CORES = False                 # whether the attention launchers stamp their cores
 _CUDA = False                  # whether spans stamp the device (a card is present)
 _LOG: list = []                # closed spans (Span) and replayed samples (_Samples), in order
 _UNREAD: list = []             # logged entries whose stamps are not read yet
@@ -168,12 +174,18 @@ class _Stamps:
                                        device=self.device))
         self.used = 0
 
-    def stamp(self) -> tuple:
-        """Stamp the current stream; returns the slot (table, column)."""
-        if self.used == self.WIDTH:
+    def reserve(self, n: int = 1) -> tuple:
+        """``n`` consecutive slots of one table; returns (table, first
+        column)."""
+        if self.used + n > self.WIDTH:
             self._table()
         table, col = self.tables[-1], self.used
-        self.used += 1
+        self.used += n
+        return table, col
+
+    def stamp(self) -> tuple:
+        """Stamp the current stream; returns the slot (table, column)."""
+        table, col = self.reserve()
         rc = self.launch(table.data_ptr(), self.row_ptr, self.WIDTH, col,
                          torch._C._cuda_getCurrentRawStream(self.device))
         if rc:
@@ -226,15 +238,16 @@ class _Span:
         return False
 
 
-def enable_tracing(on: bool = True, kernels: bool = True) -> None:
+def enable_tracing(on: bool = True, kernels: bool = True, cores: bool = False) -> None:
     """Turn the spans on or off. Off, ``span`` costs a read of this flag.
     ``kernels=False``: the kernels' spans (``span(..., kernel=True)``, the
     half-blocks) keep their host time only. Each stamp in a captured step
     costs its replays about 2 us of idle device, and the half-blocks take
     most of a step's stamps (at ViT-B/16, about 190 of 210): without
-    them a step's spans cost it under 1%."""
-    global _TRACING, _KERNELS, _CUDA
-    _TRACING, _KERNELS = bool(on), bool(on and kernels)
+    them a step's spans cost it under 1%. ``cores=True`` adds the
+    attention cores' marks (``core_marks_args``), two stamps a core."""
+    global _TRACING, _KERNELS, _CORES, _CUDA
+    _TRACING, _KERNELS, _CORES = bool(on), bool(on and kernels), bool(on and cores)
     _CUDA = _TRACING and torch.cuda.is_available()
     if _CUDA and not _EAGER:
         _EAGER.append(_Stamps())
@@ -249,6 +262,43 @@ def tracing() -> bool:
 def kernel_marks() -> bool:
     """Whether the kernels' spans stamp the device (``enable_tracing``)."""
     return _KERNELS
+
+
+def core_marks() -> bool:
+    """Whether the attention cores' marks are on (``enable_tracing``)."""
+    return _CORES
+
+
+# A launcher's marks arguments when there are none: a null table.
+NO_MARKS = (None, None, 0, 0)
+
+
+def core_marks_args(name: str) -> tuple:
+    """The marks of span ``name`` around one attention core, as the
+    launcher's C arguments (table, row, width, first column: its start's
+    slot, the end's the next): ``NO_MARKS`` unless ``core_marks()`` on the
+    card. The span is a child of the innermost open span, with no host
+    time; in a capture, of the innermost one that stamps the device, so
+    that its replayed samples keep their step."""
+    if not (_CORES and _CUDA):
+        return NO_MARKS
+    from mvlpt_torch.ops import _build
+
+    parent = _OPEN[-1] if _OPEN else None
+    path = f"{parent.path}/{name}" if parent else name
+    stamps = _CAPTURE[2] if _CAPTURE else _EAGER[0]
+    table, col = stamps.reserve(2)
+    marks = ((table, col), (table, col + 1))
+    if _CAPTURE:
+        depth, captured, _ = _CAPTURE
+        up = next((o for o in reversed(_OPEN[depth:]) if o.start is not None), None)
+        captured.append((path.split("/", depth)[-1], next(_IDS), up.id if up else None, marks))
+    else:
+        s = Span(path, next(_IDS), parent.id if parent else None, None, marks=(marks, 0))
+        _LOG.append(s)
+        _UNREAD.append(s)
+    _build.LAUNCHES["core_marks"] += 1
+    return table.data_ptr(), stamps.row_ptr or None, stamps.WIDTH, col
 
 
 def span(name: str, device: bool = True, kernel: bool = False):

@@ -10,12 +10,13 @@ and seed), warms it up, then measures its loop for ``--seconds`` in three
 states in turns, ``--rounds`` of each: tracing off, on without the
 kernels' stamps (``kernels=False``), and on with them: images a second on
 the host clock, as the benchmark counts them. A train cell keeps one
-captured graph for each state (the instrumented ones captured in untimed
-windows first). Then it traces one stretch of each state with
-torch.profiler and reports the device's busy time a step (a train cell:
-a window's union of device activity over its K steps) or a batch (an
-eval cell: a pass over the pool over its batches). One JSON line a cell,
-with the card's name and power limit. Needs a card.
+captured graph, captured again when the state changes, so each timed
+window follows an untimed one in its state (the capture). Then it
+traces one stretch of each state with torch.profiler and reports the
+device's busy time a step (a train cell: a window's union of device
+activity over its K steps) or a batch (an eval cell: a pass over the
+pool over its batches). One JSON line a cell, with the card's name and
+power limit. Needs a card.
 """
 
 from __future__ import annotations
@@ -53,16 +54,16 @@ def _cell_cost(name: str, seconds: float, rounds: int, seed: int) -> dict:
             profiler.enable_tracing(False)
             profiler.reset_spans()
 
-    for state in ("steps", "kernels"):
-        run(state, loop.stretch)     # a train cell captures this state's step here
     rates = {state: [] for state in states}
     for _ in range(rounds):
         for state in states:
+            run(state, loop.stretch)     # a train cell captures this state's step here
             window = run(state, lambda: loop.measure(seconds, cells.clock))
             rates[state].append(window["images"] / window["seconds"])
     unit = "step" if train else "batch"
     out = {"cell": name}
     for state in states:
+        run(state, loop.stretch)
         busy = run(state, lambda: 1e3 * tracing.traced(loop.stretch).busy_s / per)
         out[f"img_s_{state}"] = rates[state]
         out[f"img_s_{state}_over_off"] = (statistics.median(rates[state])

@@ -218,27 +218,29 @@ class _CpuStamps:
 
     WIDTH = 4
     clock = 0
+    row_ptr = 0
 
     def __init__(self, rows=1, row=None):
         self.rows, self.row, self.tables, self.used = rows, row, [], self.WIDTH
 
-    def stamp(self):
-        if self.used == self.WIDTH:
+    def reserve(self, n=1):
+        if self.used + n > self.WIDTH:
             self.tables.append(torch.zeros((self.rows, self.WIDTH), dtype=torch.int64))
             self.used = 0
-        _CpuStamps.clock += 1_000_000
         table, col = self.tables[-1], self.used
+        self.used += n
+        return table, col
+
+    def stamp(self):
+        _CpuStamps.clock += 1_000_000
+        table, col = self.reserve()
         table[0 if self.row is None else int(self.row[0]), col] = _CpuStamps.clock
-        self.used += 1
         return table, col
 
 
-def test_captured_spans_log_a_sample_each_replayed_step(monkeypatch):
-    """A captured step's spans keep their stamps' slots with the graph;
-    ``replayed`` logs a sample of them for each row (step) replayed,
-    under the span open then and with ids of its own, and ``collect``
-    reads each sample's row. (The stamps and the step index run on the
-    CPU here, with a counter for the device's timer.)"""
+def _cpu_card(monkeypatch):
+    """The profiler's card on the CPU: ``_CpuStamps`` for the stamp
+    tables, no synchronize and no NVTX."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
     monkeypatch.setattr(torch.cuda, "nvtx", type("nvtx", (), {
@@ -248,6 +250,15 @@ def test_captured_spans_log_a_sample_each_replayed_step(monkeypatch):
     monkeypatch.setattr(profiler, "_EAGER", [])
     monkeypatch.setattr(profiler, "_ORIGIN", [])
     monkeypatch.setattr(profiler, "_ORIGIN_NS", [])
+
+
+def test_captured_spans_log_a_sample_each_replayed_step(monkeypatch):
+    """A captured step's spans keep their stamps' slots with the graph;
+    ``replayed`` logs a sample of them for each row (step) replayed,
+    under the span open then and with ids of its own, and ``collect``
+    reads each sample's row. (The stamps and the step index run on the
+    CPU here, with a counter for the device's timer.)"""
+    _cpu_card(monkeypatch)
     profiler.enable_tracing(True)
     index = torch.zeros(1, dtype=torch.int64)
     with profiler.span("window.capture"):
@@ -278,6 +289,69 @@ def test_captured_spans_log_a_sample_each_replayed_step(monkeypatch):
     text = [s for s in samples if s.name == "step.text.fwd"]
     steps = [s for s in samples if s.name == "step"]
     assert [t.device_start_ms - st.device_start_ms for t, st in zip(text, steps)] == [1.0, 1.0]
+
+
+def test_core_marks_are_a_level_of_their_own():
+    """The attention cores' marks are off by default, with tracing off,
+    and at every level but their own; off, or without a card, the
+    launcher gets no slot and nothing is logged."""
+    from mvlpt_torch.ops import _build
+
+    before = _build.LAUNCHES["core_marks"]
+    for on, kernels, cores in ((True, True, False), (True, False, False), (False, True, True)):
+        profiler.enable_tracing(on, kernels=kernels, cores=cores)
+        assert not profiler.core_marks()
+        assert profiler.core_marks_args("core.attn_fwd") == profiler.NO_MARKS
+    profiler.enable_tracing(True, kernels=False, cores=True)
+    assert profiler.core_marks() and not profiler.kernel_marks()
+    if not torch.cuda.is_available():
+        assert profiler.core_marks_args("core.attn_bwd") == profiler.NO_MARKS
+    profiler.enable_tracing(False)
+    assert profiler.spans().spans == []
+    assert _build.LAUNCHES["core_marks"] == before
+
+
+def test_core_marks_keep_their_step_in_a_capture(monkeypatch):
+    """A core's marks are two consecutive slots that the launcher
+    stamps; captured, their span's samples lie under the step's sample
+    (the half-block's span, host-only at this level, is no sample), and
+    outside a capture the span is read at row 0. Each marked launch is
+    counted."""
+    from mvlpt_torch.ops import _build
+
+    _cpu_card(monkeypatch)
+    monkeypatch.setattr(_build, "LAUNCHES", dict.fromkeys(_build.LAUNCHES, 0))
+    profiler.enable_tracing(True, kernels=False, cores=True)
+    index = torch.zeros(1, dtype=torch.int64)
+    with profiler.span("window.capture"):
+        with profiler.capturing(index, rows=2) as captured:
+            with profiler.span("step"), profiler.span("block.attn_fwd", kernel=True):
+                ptr, row, width, col = profiler.core_marks_args("core.attn_fwd")
+    assert [rel for rel, *_ in captured] == ["step/block.attn_fwd/core.attn_fwd", "step"]
+    ((core_start, core_end), (step_start, step_end)) = [marks for *_, marks in captured]
+    assert core_start[0] is core_end[0] and core_end[1] == core_start[1] + 1 == col + 1
+    assert (ptr, width) == (core_start[0].data_ptr(), _CpuStamps.WIDTH)
+    assert _build.LAUNCHES["core_marks"] == 1
+    for r in range(2):       # the replays: the core takes 1 ms, then 2 ms
+        for (table, c), ms in ((step_start, 0), (core_start, 1), (core_end, 2 + r),
+                               (step_end, 5)):
+            table[r, c] = 100_000_000 * (r + 1) + 1_000_000 * ms
+    with profiler.span("window.replay"):
+        profiler.replayed(captured, range(2))
+    with profiler.span("eager"):
+        ptr, row, width, col = profiler.core_marks_args("core.attn_bwd")
+        table = next(t for t in profiler._EAGER[0].tables if t.data_ptr() == ptr)
+        table[0, col], table[0, col + 1] = 7_000_000, 10_000_000
+    assert row is None and _build.LAUNCHES["core_marks"] == 2
+    spans = profiler.spans().spans
+    by_id = {s.id: s for s in spans}
+    cores = [s for s in spans if s.name == "core.attn_fwd"]
+    assert [s.device_ms for s in cores] == [1.0, 2.0]
+    assert [by_id[s.parent].name for s in cores] == ["step", "step"]
+    assert all(s.host_ms is None for s in cores)
+    (eager,) = [s for s in spans if s.name == "core.attn_bwd"]
+    assert eager.device_ms == 3.0 and by_id[eager.parent].name == "eager"
+    assert eager.host_ms is None
 
 
 def test_trace_writes_the_spans(vocab, tmp_path):
@@ -323,8 +397,9 @@ def _busy_ms(prof, span_name):
 @pytest.mark.card
 def test_captured_spans_on_the_card(vocab, card):
     """At ViT-B/16's widths (UPT, 100 classes, batch 32, remat): each
-    tracing state captures the window's step again (cause "tracing"),
-    and no graph replays in another state; each replayed step leaves a
+    tracing state captures the window's step again (cause "tracing"), in
+    place of the other state's graph, and no graph replays in another
+    state; each replayed step leaves a
     sample of its spans, every device span positive; the towers'
     backwards do not overlap on the device; with the kernels' stamps every
     half-block of both towers has its sample; without them the steps'
@@ -378,5 +453,44 @@ def test_captured_spans_on_the_card(vocab, card):
         profiler.reset_spans()
     replays = step.replays
     step(state, backbone, consts, batches)
-    assert dict(step.capture_causes) == {"shape": 1, "tracing": 2}
-    assert step.replays == replays + K
+    assert dict(step.capture_causes) == {"shape": 1, "tracing": 3}
+    assert step.replays == replays + K - 1 and len(step._graphs) == 1
+
+
+@pytest.mark.card
+def test_core_marks_on_the_card(vocab, card):
+    """At ViT-B/16's widths (UPT, 100 classes, batch 32): at the level
+    with the half-blocks' stamps and the cores' marks, every replayed step
+    holds a mark of each attention core, a forward and a backward a layer
+    of both towers, each inside its half-block's span and shorter than
+    it; the window's eager warm-up step and its capture count each
+    marked launch once; with the marks off the launchers get no slot."""
+    from mvlpt_torch.flagship import flagship
+    from mvlpt_torch.ops import _build
+    from mvlpt_torch.train.train_step import make_train_step_multi
+
+    model, backbone, params, consts, images, clip_cfg = flagship(100, batch=32, device=card)
+    state = _state(params)
+    step = make_train_step_multi(model)
+    gen = torch.Generator().manual_seed(0)
+    batches = {"image": images[None].expand(K, *images.shape).contiguous(),
+               "label": torch.randint(0, 100, (K, 32), generator=gen).to(card)}
+    layers = clip_cfg.vision_layers + clip_cfg.transformer_layers
+    marked = _build.LAUNCHES["core_marks"]
+    step(state, backbone, consts, batches)
+    assert _build.LAUNCHES["core_marks"] == marked
+    profiler.enable_tracing(True, kernels=True, cores=True)
+    step(state, backbone, consts, batches)          # the warm-up and capture, marked
+    assert _build.LAUNCHES["core_marks"] == marked + 2 * 2 * layers
+    profiler.reset_spans()
+    step(state, backbone, consts, batches)
+    samples = [s for s in profiler.spans().spans if s.host_ms is None]
+    by_id = {s.id: s for s in samples}
+    names = collections.Counter(s.name for s in samples)
+    assert names["core.attn_fwd"] == names["core.attn_bwd"] == K * layers
+    for s in samples:
+        if s.name.startswith("core."):
+            half = by_id[s.parent]
+            assert half.name == "block." + s.name.removeprefix("core."), (s.path, half.path)
+            assert 0 < s.device_ms < half.device_ms
+            assert half.device_start_ms <= s.device_start_ms
